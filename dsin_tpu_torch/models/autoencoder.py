@@ -1,0 +1,209 @@
+"""CVPR-style convolutional autoencoder (counterpart of the JAX package's
+`models/autoencoder.py`).
+
+Encoder: two stride-2 5x5 convs (n/2, then n) -> B groups of three residual
+blocks with a group skip -> one residual block without activation + outer
+skip -> stride-2 5x5 conv to the bottleneck (C channels + 1 heatmap channel).
+The decoder mirrors it with stride-2 transposed convs. Batch norm (eps 1e-5,
+inference statistics) follows every conv. Subsampling factor 8.
+
+Public functions take and return NHWC tensors; the modules run NCHW.
+
+Padding follows the reference's "SAME" rule exactly, which torch's
+`padding=` argument does not express:
+  * a stride-2 5x5 conv on an even extent pads (1, 2), not (2, 2);
+  * a stride-2 "SAME" transposed conv of the reference does not flip its
+    kernel: it is a correlation over the input zero-dilated by 2, padded
+    (k-1 - off, ...) with off = 0 for k=3 and 1 for k=5. Here it runs as
+    `conv_transpose2d` with a spatially flipped kernel (the bridge flips it,
+    `bridge.py`) and an output crop starting at `off`.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from dsin_tpu_torch.models import quantizer as quantizer_lib
+
+ARCH_PARAM_N = 128
+
+KITTI_MEAN = np.array([93.70454143384742, 98.28243432206516,
+                       94.84678088809876], dtype=np.float32)
+KITTI_VAR = np.array([5411.79935676, 5758.60456747, 5890.31451232],
+                     dtype=np.float32)
+# float32, computed as the reference computes it (np.sqrt(VAR + 1e-10))
+_KITTI_STD = np.sqrt(KITTI_VAR + 1e-10)
+
+
+class EncoderOutput(NamedTuple):
+    qbar: torch.Tensor                 # quantized bottleneck, (N, Hb, Wb, C)
+    qhard: torch.Tensor
+    symbols: torch.Tensor              # int32 (N, Hb, Wb, C)
+    z: torch.Tensor                    # pre-quantization bottleneck
+    heatmap: Optional[torch.Tensor]    # (N, Hb, Wb, C) in [0, 1] or None
+
+
+def _const(values: np.ndarray, like: torch.Tensor) -> torch.Tensor:
+    return torch.as_tensor(values, dtype=like.dtype, device=like.device)
+
+
+def normalize_image(x: torch.Tensor, style: str) -> torch.Tensor:
+    """NHWC [0, 255] -> the network's input scale."""
+    if style == "OFF":
+        return x
+    if style == "FIXED":
+        return (x - _const(KITTI_MEAN, x)) / _const(_KITTI_STD, x)
+    raise ValueError(f"invalid normalization style {style!r}")
+
+
+def denormalize_image(x: torch.Tensor, style: str) -> torch.Tensor:
+    if style == "OFF":
+        return x
+    if style == "FIXED":
+        return x * _const(_KITTI_STD, x) + _const(KITTI_MEAN, x)
+    raise ValueError(f"invalid normalization style {style!r}")
+
+
+def heatmap3d(bottleneck: torch.Tensor) -> torch.Tensor:
+    """(N, H, W, C+1) -> mask (N, H, W, C) with
+    mask[..., c] = clip(sigmoid(b[..., 0]) * C - c, 0, 1)."""
+    c_total = bottleneck.shape[-1] - 1
+    heat2d = torch.sigmoid(bottleneck[..., 0]) * c_total
+    ramp = torch.arange(c_total, dtype=bottleneck.dtype,
+                        device=bottleneck.device)
+    return torch.clamp(heat2d[..., None] - ramp, 0.0, 1.0)
+
+
+def _same_pads(size: int, kernel: int, stride: int):
+    """(low, high) padding of a "SAME" conv over one extent."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + kernel - size, 0)
+    return total // 2, total - total // 2
+
+
+def _transpose_crop(kernel: int, stride: int) -> int:
+    """Where the "SAME" transposed conv's output starts inside torch's
+    unpadded `conv_transpose2d` output: k - 1 - pad_a, with pad_a the low
+    padding of the reference's dilated-correlation form."""
+    pad_len = kernel + stride - 2
+    pad_a = kernel - 1 if stride > kernel - 1 else -(-pad_len // 2)
+    return kernel - 1 - pad_a
+
+
+class ConvBN(nn.Module):
+    """Conv (or stride-2 transposed conv) + batch norm (+ optional relu)."""
+
+    def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1,
+                 relu: bool = True, transpose: bool = False):
+        super().__init__()
+        self.kernel, self.stride = kernel, stride
+        self.relu, self.transpose = relu, transpose
+        conv_cls = nn.ConvTranspose2d if transpose else nn.Conv2d
+        self.conv = conv_cls(cin, cout, kernel, stride=stride, bias=False)
+        self.bn = nn.BatchNorm2d(cout, eps=1e-5, momentum=0.1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h, w = x.shape[-2:]
+        if self.transpose:
+            off = _transpose_crop(self.kernel, self.stride)
+            x = self.conv(x)
+            x = x[..., off:off + h * self.stride, off:off + w * self.stride]
+        else:
+            top, bottom = _same_pads(h, self.kernel, self.stride)
+            left, right = _same_pads(w, self.kernel, self.stride)
+            x = self.conv(F.pad(x, (left, right, top, bottom)))
+        x = self.bn(x)
+        return F.relu(x) if self.relu else x
+
+
+class ResBlock(nn.Module):
+    """Two 3x3 conv+BN; relu after the first only (unless relu_first=False);
+    residual add."""
+
+    def __init__(self, features: int, relu_first: bool = True):
+        super().__init__()
+        self.conv0 = ConvBN(features, features, 3, relu=relu_first)
+        self.conv1 = ConvBN(features, features, 3, relu=False)
+
+    def forward(self, x):
+        return self.conv1(self.conv0(x)) + x
+
+
+class ResGroupStack(nn.Module):
+    """B groups of three residual blocks, each group with its own skip, then a
+    residual block without activation and an outer skip."""
+
+    def __init__(self, features: int, num_groups: int):
+        super().__init__()
+        self.num_groups = num_groups
+        blocks = [ResBlock(features) for _ in range(3 * num_groups)]
+        blocks.append(ResBlock(features, relu_first=False))
+        self.blocks = nn.ModuleList(blocks)
+
+    def forward(self, x):
+        outer = x
+        for g in range(self.num_groups):
+            inner = x
+            for i in range(3):
+                x = self.blocks[3 * g + i](x)
+            x = x + inner
+        return self.blocks[-1](x) + outer
+
+
+class Encoder(nn.Module):
+    """Image (N, H, W, 3) in [0, 255] -> bottleneck (N, H/8, W/8, C(+1))."""
+
+    def __init__(self, config):
+        super().__init__()
+        self.config = config
+        n = config.get("arch_param_N", ARCH_PARAM_N)
+        c_out = config.num_chan_bn + 1 if config.heatmap else config.num_chan_bn
+        self.conv0 = ConvBN(3, n // 2, 5, stride=2)
+        self.conv1 = ConvBN(n // 2, n, 5, stride=2)
+        self.res = ResGroupStack(n, config.arch_param_B)
+        self.conv2 = ConvBN(n, c_out, 5, stride=2, relu=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = normalize_image(x, self.config.normalization).permute(0, 3, 1, 2)
+        x = self.conv2(self.res(self.conv1(self.conv0(x))))
+        return x.permute(0, 2, 3, 1)
+
+
+class Decoder(nn.Module):
+    """Quantized bottleneck (N, H/8, W/8, C) -> image (N, H, W, 3) in
+    [0, 255]."""
+
+    def __init__(self, config):
+        super().__init__()
+        self.config = config
+        n = config.get("arch_param_N", ARCH_PARAM_N)
+        self.conv0 = ConvBN(config.num_chan_bn, n, 3, stride=2, transpose=True)
+        self.res = ResGroupStack(n, config.arch_param_B)
+        self.conv1 = ConvBN(n, n // 2, 5, stride=2, transpose=True)
+        self.conv2 = ConvBN(n // 2, 3, 5, stride=2, transpose=True, relu=False)
+
+    def forward(self, q: torch.Tensor) -> torch.Tensor:
+        x = q.permute(0, 3, 1, 2)
+        x = self.conv2(self.conv1(self.res(self.conv0(x))))
+        x = denormalize_image(x.permute(0, 2, 3, 1), self.config.normalization)
+        return torch.clamp(x, 0.0, 255.0)
+
+
+def encode(encoder: Encoder, x: torch.Tensor,
+           centers: torch.Tensor) -> EncoderOutput:
+    """Encoder + heatmap gating + quantization (inference)."""
+    bottleneck = encoder(x)
+    if encoder.config.heatmap:
+        heat = heatmap3d(bottleneck)
+        z = heat * bottleneck[..., 1:]
+    else:
+        heat = None
+        z = bottleneck
+    qout = quantizer_lib.quantize(z, centers)
+    return EncoderOutput(qbar=qout.qbar, qhard=qout.qhard,
+                         symbols=qout.symbols, z=z, heatmap=heat)

@@ -1,0 +1,288 @@
+"""Side-information patch search ("siFinder"), Pearson mode (counterpart of
+the JAX package's `ops/sifinder.py`).
+
+For every non-overlapping patch of the decoded image x-hat, find the
+best-matching position in the decoded side image y-hat (Pearson correlation
+in H1H2H3 color space, times a Gaussian position prior), then gather the
+matched patch from the original side image y and mosaic the synthetic side
+image y_syn.
+
+Each x-patch is mean-centered and L2-normalized once, so Pearson is
+``conv(y-hat, x-hat normalized) / window_std(y-hat)``. The search splits into
+a side half that depends on y alone (`build_side_prep` -> `SidePrep`) and a
+per-request query half; the from-scratch search builds a prep and runs the
+prepped search, so a cached prep gives bit-identical results.
+
+Two implementations, chosen by the config key `sifinder_impl`:
+  * 'torch'  -- conv + materialized (Hc, Wc, P) score map (this module);
+  * 'kernel' -- the fused CUDA kernel (ops/sifinder_kernel.py); its wrappers
+    run their plain torch version for CPU tensors;
+  * 'auto'   -- 'kernel' for CUDA tensors when the prior is the standard
+    Gaussian or absent, else 'torch'.
+The L2/LAB mode and the row-tiled search are not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from dsin_tpu_torch.ops import color as color_lib
+from dsin_tpu_torch.ops.patches import assemble_patches, extract_patches
+
+IMPLS = ("auto", "torch", "kernel")
+EPS = 1e-12          # inside the square roots of the Pearson normalizers
+
+
+class SearchResult(NamedTuple):
+    y_syn: torch.Tensor       # (H, W, 3) synthesized side image
+    score_map: torch.Tensor   # (Hc, Wc, P) masked Pearson scores
+    best_flat: torch.Tensor   # (P,) argmax of the flattened map
+    row: torch.Tensor         # (P,) match rows
+    col: torch.Tensor         # (P,) match cols
+    best_score: torch.Tensor  # (P,) the winning score per patch
+
+
+class SidePrep(NamedTuple):
+    """The request-invariant half of the search for one side image. `gh`/`gw`
+    are the prior factors (None = no prior). The kernel half (`y_t` ..
+    `gw_t`) exists only when built with `for_kernel=True`."""
+    y_img: torch.Tensor                    # (H, W, 3) original y: gather source
+    r_img: torch.Tensor                    # (H, W, C) search_transform(y-hat)
+    inv_window_std: torch.Tensor           # (Hc, Wc) 1/sqrt(var + eps)
+    gh: Optional[torch.Tensor]             # (Hc, P)
+    gw: Optional[torch.Tensor]             # (Wc, P)
+    y_t: Optional[torch.Tensor] = None     # (C, H, W)
+    inv_denom: Optional[torch.Tensor] = None  # (Hc, Wc) rsqrt form
+    gh_k: Optional[torch.Tensor] = None    # (Hc, P), ones without a prior
+    gw_t: Optional[torch.Tensor] = None    # (P, Wc), ones without a prior
+
+
+def sifinder_impl(config) -> str:
+    impl = getattr(config, "sifinder_impl", "auto")
+    if impl not in IMPLS:
+        raise ValueError(f"sifinder_impl={impl!r}: expected one of {IMPLS}")
+    if bool(getattr(config, "use_L2andLAB", False)):
+        raise NotImplementedError("the L2/LAB search mode is not ported; "
+                                  "set use_L2andLAB = False")
+    return impl
+
+
+def window_variance(r_img: torch.Tensor, win_h: int,
+                    win_w: int) -> torch.Tensor:
+    """Unnormalized variance of y-hat over every (win_h, win_w, C) window,
+    clamped at 0: the Pearson denominator before its square root. The torch
+    search takes 1/sqrt of it (+ EPS), the kernel's prep rsqrt, as the XLA
+    and Pallas paths of the reference do."""
+    sum_y, sum_y2 = window_sums(r_img, win_h, win_w)
+    patch_size = win_h * win_w * r_img.shape[-1]
+    return torch.clamp(sum_y2 - (sum_y * sum_y) / patch_size, min=0.0)
+
+
+def normalized_patches(x_patches: torch.Tensor) -> torch.Tensor:
+    """Mean-center + L2-normalize each patch over its last three dims
+    (ph, pw, C); leading dims pass through."""
+    dims = (-3, -2, -1)
+    xc = x_patches - x_patches.mean(dim=dims, keepdim=True)
+    return xc / torch.sqrt(torch.sum(xc * xc, dim=dims, keepdim=True) + EPS)
+
+
+def window_sums(img: torch.Tensor, win_h: int, win_w: int):
+    """Sums of values and squares over (win_h, win_w, C) windows.
+    img (H, W, C) -> two maps (H - win_h + 1, W - win_w + 1)."""
+    def pool(z):
+        s = F.avg_pool2d(z.permute(2, 0, 1)[None], (win_h, win_w), stride=1,
+                         divisor_override=1)
+        return s[0].sum(dim=0)
+    return pool(img), pool(img * img)
+
+
+def _gaussian_mask_factors_f64(img_h: int, img_w: int, patch_h: int,
+                               patch_w: int):
+    """Separable 1-D factors of the 2-D Gaussian position prior, float64,
+    cropped to the VALID correlation-map extent with offsets patch//2 - 1."""
+    grid_w = img_w // patch_w
+    num_patches = (img_h // patch_h) * grid_w
+    p = np.arange(num_patches)
+    center_h = (p // grid_w + 0.5) * patch_h
+    center_w = (p % grid_w + 0.5) * patch_w
+    sigma_h = 0.5 * img_h
+    sigma_w = 0.5 * img_w
+    hh = np.arange(img_h, dtype=np.float64)[:, None]
+    ww = np.arange(img_w, dtype=np.float64)[:, None]
+    gh = np.exp(-4 * np.log(2) * (hh - center_h[None, :]) ** 2 / sigma_h ** 2)
+    gw = np.exp(-4 * np.log(2) * (ww - center_w[None, :]) ** 2 / sigma_w ** 2)
+    gh = gh[patch_h // 2 - 1: img_h - patch_h // 2, :]
+    gw = gw[patch_w // 2 - 1: img_w - patch_w // 2, :]
+    return gh, gw
+
+
+def gaussian_position_mask_factors(img_h: int, img_w: int, patch_h: int,
+                                   patch_w: int):
+    """gh (Hc, P), gw (Wc, P) float32 numpy, with
+    gh[h, p] * gw[w, p] == gaussian_position_mask(...)[h, w, p] exactly."""
+    gh, gw = _gaussian_mask_factors_f64(img_h, img_w, patch_h, patch_w)
+    return gh.astype(np.float32), gw.astype(np.float32)
+
+
+def gaussian_position_mask(img_h: int, img_w: int, patch_h: int,
+                           patch_w: int) -> np.ndarray:
+    """(Hc, Wc, P) float32 prior: the float32 product of the float32 factors."""
+    gh, gw = gaussian_position_mask_factors(img_h, img_w, patch_h, patch_w)
+    return gh[:, None, :] * gw[None, :, :]
+
+
+def standard_mask_factors(mask, img_h: int, img_w: int, patch_h: int,
+                          patch_w: int):
+    """(gh, gw) if `mask` IS the standard Gaussian prior for these shapes
+    (every element compared, in row blocks), else None."""
+    if mask is None:
+        return None
+    gh, gw = gaussian_position_mask_factors(img_h, img_w, patch_h, patch_w)
+    mask = torch.as_tensor(mask)
+    if tuple(mask.shape) != (gh.shape[0], gw.shape[0], gh.shape[1]):
+        return None
+    gh_t = torch.as_tensor(gh, device=mask.device)
+    gw_t = torch.as_tensor(gw, device=mask.device)
+    for r0 in range(0, gh.shape[0], 32):
+        product = gh_t[r0:r0 + 32, None, :] * gw_t[None, :, :]
+        if not torch.equal(mask[r0:r0 + 32], product):
+            return None
+    return gh, gw
+
+
+def build_side_prep(y_img: torch.Tensor, y_dec: torch.Tensor, patch_h: int,
+                    patch_w: int, *, mask_factors=None,
+                    for_kernel: bool = False) -> SidePrep:
+    """SidePrep for one side image (tensors HWC). `mask_factors` is (gh, gw)
+    from `gaussian_position_mask_factors`, or None for no prior.
+    `for_kernel=True` also builds the kernel's operands."""
+    r_img = color_lib.search_transform(y_dec)
+    inv_std = 1.0 / torch.sqrt(window_variance(r_img, patch_h, patch_w) + EPS)
+    gh = gw = None
+    if mask_factors is not None:
+        gh, gw = (torch.as_tensor(m, dtype=torch.float32, device=y_img.device)
+                  for m in mask_factors)
+    prep = SidePrep(y_img=y_img, r_img=r_img, inv_window_std=inv_std,
+                    gh=gh, gw=gw)
+    if for_kernel:
+        from dsin_tpu_torch.ops import sifinder_kernel
+        y_t, inv_denom = sifinder_kernel.side_from_transformed(
+            r_img, patch_h, patch_w)
+        hc, wc = inv_denom.shape
+        if gh is None:
+            p_count = (y_img.shape[0] // patch_h) * (y_img.shape[1] // patch_w)
+            gh = torch.ones((hc, p_count), device=y_img.device)
+            gw = torch.ones((wc, p_count), device=y_img.device)
+        prep = prep._replace(y_t=y_t, inv_denom=inv_denom,
+                             gh_k=gh.contiguous(), gw_t=gw.t().contiguous())
+    return prep
+
+
+def _correlate(patches: torch.Tensor, image: torch.Tensor) -> torch.Tensor:
+    """VALID correlation of image (H, W, C) with patches (P, ph, pw, C) as
+    filters -> (H - ph + 1, W - pw + 1, P)."""
+    out = F.conv2d(image.permute(2, 0, 1)[None], patches.permute(0, 3, 1, 2))
+    return out[0].permute(1, 2, 0)
+
+
+def find_matches(score_map: torch.Tensor):
+    """Flat argmax per patch (first maximum) -> (best_flat, row, col)."""
+    hc, wc, p_count = score_map.shape
+    best = torch.argmax(score_map.reshape(hc * wc, p_count), dim=0)
+    best = best.to(torch.int32)
+    return best, torch.div(best, wc, rounding_mode="floor"), best % wc
+
+
+def gather_patches(y_image: torch.Tensor, rows: torch.Tensor,
+                   cols: torch.Tensor, patch_h: int,
+                   patch_w: int) -> torch.Tensor:
+    """(patch_h, patch_w) windows of y (H, W, C) at integer (row, col) per
+    patch -> (P, patch_h, patch_w, C)."""
+    dev = y_image.device
+    r = rows.long()[:, None] + torch.arange(patch_h, device=dev)
+    c = cols.long()[:, None] + torch.arange(patch_w, device=dev)
+    return y_image[r[:, :, None], c[:, None, :]]
+
+
+def search_single(x_dec: torch.Tensor, y_img: Optional[torch.Tensor],
+                  y_dec: Optional[torch.Tensor], mask, patch_h: int,
+                  patch_w: int,
+                  prep: Optional[SidePrep] = None) -> SearchResult:
+    """Full search for one image pair (tensors HWC). `prep` skips the side
+    half; a prep carrying prior factors supplies the prior itself (then
+    `mask` must be None)."""
+    h, w, _ = x_dec.shape
+    if prep is None:
+        prep = build_side_prep(y_img, y_dec, patch_h, patch_w)
+    if prep.gh is not None:
+        if mask is not None:
+            raise ValueError("pass the prior as prep factors OR as mask")
+        mask = prep.gh[:, None, :] * prep.gw[None, :, :]
+    q = color_lib.search_transform(extract_patches(x_dec, patch_h, patch_w))
+    num = _correlate(normalized_patches(q), prep.r_img)
+    scores = num * prep.inv_window_std[..., None]
+    if mask is not None:
+        scores = scores * torch.as_tensor(mask, device=scores.device)
+    best, rows, cols = find_matches(scores)
+    p_count = scores.shape[-1]
+    best_score = torch.gather(scores.reshape(-1, p_count), 0,
+                              best.long()[None, :])[0]
+    y_patches = gather_patches(prep.y_img, rows, cols, patch_h, patch_w)
+    return SearchResult(y_syn=assemble_patches(y_patches, h, w),
+                        score_map=scores, best_flat=best, row=rows, col=cols,
+                        best_score=best_score)
+
+
+def synthesize_side_image(x_dec: torch.Tensor, y_img: torch.Tensor,
+                          y_dec: torch.Tensor, mask, patch_h: int,
+                          patch_w: int, config) -> torch.Tensor:
+    """Batched y_syn (N, H, W, 3) from batched inputs. `mask` is None or an
+    (Hc, Wc, P) prior; the kernel takes only the standard Gaussian prior
+    (checked element for element), so 'kernel' with any other mask raises
+    and 'auto' sends it to 'torch'."""
+    impl = sifinder_impl(config)
+    h, w = x_dec.shape[1], x_dec.shape[2]
+    factors = (None if impl == "torch" else
+               standard_mask_factors(mask, h, w, patch_h, patch_w))
+    if impl == "auto":
+        impl = ("kernel" if x_dec.is_cuda and (mask is None or factors)
+                else "torch")
+    if impl == "kernel":
+        from dsin_tpu_torch.ops import sifinder_kernel
+        if mask is not None and factors is None:
+            raise ValueError("sifinder_impl='kernel' takes only the standard "
+                             "gaussian_position_mask (or None); use 'torch' "
+                             "for a custom mask")
+        if factors is None:
+            hc, wc = h - patch_h + 1, w - patch_w + 1
+            p_count = (h // patch_h) * (w // patch_w)
+            factors = (np.ones((hc, p_count), np.float32),
+                       np.ones((wc, p_count), np.float32))
+        gh, gw = (torch.as_tensor(f, device=x_dec.device) for f in factors)
+        return sifinder_kernel.fused_synthesize_side_image(
+            x_dec, y_img, y_dec, gh, gw, patch_h, patch_w)
+    return torch.stack([
+        search_single(x_dec[i], y_img[i], y_dec[i], mask, patch_h,
+                      patch_w).y_syn for i in range(x_dec.shape[0])])
+
+
+def synthesize_side_image_prepped(x_dec: torch.Tensor, prep: SidePrep,
+                                  patch_h: int, patch_w: int,
+                                  config) -> torch.Tensor:
+    """Batched y_syn (N, H, W, 3) against ONE cached SidePrep: the serving
+    path. 'kernel' needs a prep built with `for_kernel=True`; 'auto' takes
+    the kernel for CUDA tensors when the prep carries it."""
+    impl = sifinder_impl(config)
+    if impl == "auto":
+        impl = "kernel" if x_dec.is_cuda and prep.y_t is not None else "torch"
+    if impl == "kernel":
+        from dsin_tpu_torch.ops import sifinder_kernel
+        return sifinder_kernel.fused_synthesize_side_image_prepped(
+            x_dec, prep, patch_h, patch_w)
+    return torch.stack([
+        search_single(x_dec[i], None, None, None, patch_h, patch_w,
+                      prep=prep).y_syn for i in range(x_dec.shape[0])])

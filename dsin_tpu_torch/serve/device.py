@@ -1,0 +1,85 @@
+"""The device half of side-information serving (counterpart of the JAX
+package's `serve/service.py:483-553`, `_make_batched_fns` and
+`_make_si_fns`).
+
+`DeviceServer` holds one model on one device and runs the three device
+functions of SI serving:
+  * `encode(x) -> (symbols, bpp_estimate)`: encoder -> heatmap gate ->
+    quantizer -> int32 symbols, plus the probclass bitcost of those symbols
+    as a bits-per-pixel estimate (the rANS streams come with the codec);
+  * `open_session(y) -> SidePrep`: once per side image, AE(y) -> y-hat, then
+    `build_side_prep` (with the kernel's operands when the search runs
+    through the kernel);
+  * `decode_si(symbols, prep) -> image`: centers lookup -> decoder ->
+    prepped patch search -> siNet -> clip.
+The batcher, the sessions store and the control plane are not ported here.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from dsin_tpu_torch.models.dsin import build_model
+from dsin_tpu_torch.models.quantizer import centers_lookup
+from dsin_tpu_torch.ops import sifinder as sifinder_lib
+
+
+class DeviceServer:
+    """One DSIN model on one device, serving encode / open_session /
+    decode_si. `device` defaults to the card and raises without one. The
+    weights are seeded; `model.load_state_dict` replaces them (e.g. with
+    `bridge.state_dict_from_jax`)."""
+
+    def __init__(self, ae_config, pc_config, device="cuda", seed: int = 0):
+        self.model = build_model(ae_config, pc_config, device=device,
+                                 seed=seed)
+        self.device = self.model.centers.device
+        self.config = ae_config
+        self.patch = tuple(int(v) for v in ae_config.y_patch_size)
+        impl = sifinder_lib.sifinder_impl(ae_config)
+        self.for_kernel = impl == "kernel" or (
+            impl == "auto" and self.device.type == "cuda")
+        self._factors: Dict[Tuple[int, int], Optional[tuple]] = {}
+
+    def _tensor(self, x) -> torch.Tensor:
+        return torch.as_tensor(x, dtype=torch.float32, device=self.device)
+
+    def _mask_factors(self, h: int, w: int):
+        """Prior factors per image shape (None without `use_gauss_mask`)."""
+        if (h, w) not in self._factors:
+            self._factors[(h, w)] = (
+                sifinder_lib.gaussian_position_mask_factors(h, w, *self.patch)
+                if bool(self.config.use_gauss_mask) else None)
+        return self._factors[(h, w)]
+
+    @torch.inference_mode()
+    def encode(self, x):
+        """x (N, H, W, 3) in [0, 255] -> (symbols (N, H/8, W/8, C) int32,
+        bpp_estimate (N,) float32)."""
+        x = self._tensor(x)
+        symbols = self.model.encode(x).symbols
+        bits = self.model.bitcost(centers_lookup(self.model.centers, symbols),
+                                  symbols)
+        bpp = bits.sum(dim=(1, 2, 3)) / (x.shape[1] * x.shape[2])
+        return symbols, bpp
+
+    @torch.inference_mode()
+    def open_session(self, y) -> sifinder_lib.SidePrep:
+        """y (H, W, 3) in [0, 255] -> the session's SidePrep."""
+        y = self._tensor(y)
+        y_dec = self.model.decode(self.model.encode(y[None]).qbar)[0]
+        return sifinder_lib.build_side_prep(
+            y, y_dec, *self.patch,
+            mask_factors=self._mask_factors(y.shape[0], y.shape[1]),
+            for_kernel=self.for_kernel)
+
+    @torch.inference_mode()
+    def decode_si(self, symbols, prep: sifinder_lib.SidePrep) -> torch.Tensor:
+        """symbols (N, H/8, W/8, C) -> x_with_si (N, H, W, 3) in [0, 255]."""
+        symbols = torch.as_tensor(symbols, device=self.device)
+        x_dec = self.model.decode(centers_lookup(self.model.centers, symbols))
+        y_syn = sifinder_lib.synthesize_side_image_prepped(
+            x_dec, prep, *self.patch, self.config)
+        return torch.clamp(self.model.apply_sinet(x_dec, y_syn), 0.0, 255.0)
