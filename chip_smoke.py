@@ -4,8 +4,9 @@
 
 Phases; any failure raises, prints no result and exits non-zero:
   1. card check: needs torch.cuda; prints the card's name and power limit;
-  2. build: builds csrc/sifinder_argmax.cu with nvcc, prints the build time
-     and ptxas's register / shared-memory lines;
+  2. build: builds csrc/sifinder_argmax.cu and csrc/probclass_front.cu with
+     nvcc and csrc/range_coder.cpp with g++, all three at once, and prints
+     the build times and ptxas's register / spill lines;
   3. kernel vs plain at 320x1224 with 20x24 patches: pearson_argmax at batch 2
      (random inputs with the Gaussian prior, and planted patches without it)
      and pearson_argmax_shared at batch 4, each against its plain torch
@@ -16,8 +17,19 @@ Phases; any failure raises, prints no result and exits non-zero:
      weights: one session, 4 requests (encode -> decode_si) and one
      from-scratch forward at batch 2, each checked for shape, finite values
      and range, and for launches of its kernel, then timed stage by stage
-     (CUDA events); then the tiny configuration through the kernel on the
-     card against the plain search on the CPU.
+     (CUDA events), and the decoder with cudnn.deterministic on and off;
+     then the tiny configuration through the kernel on the
+     card against the plain search on the CPU;
+  5. the codec at full width: probclass_front_logits (K3) against its plain
+     version at B = 1, 5, 64, 128, 256 and the largest front (248) on blocks
+     drawn from the centers with the full-width pc_default weights (within
+     1e-5, rows bit-identical across B), timed at the largest front beside
+     its bound and a cuDNN yardstick; then the symbols of
+     2 images from DeviceServer.encode coded in mode 3 (K3) and mode 2
+     (numpy engine), each decoded exactly, with one K3 launch per front;
+     decode_si on the decoded symbols bit-equal to decode_si on the
+     originals; compress_array -> decompress_array with and without a side
+     image.
 Then one line with the card, one JSON line with the kernels, and last the
 result line {"ok": true, "device": {...}}.
 """
@@ -25,16 +37,24 @@ result line {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from dsin_tpu_torch.coding import cli as cli_lib
+from dsin_tpu_torch.coding import codec as codec_lib
+from dsin_tpu_torch.coding import probclass_kernel as pk
+from dsin_tpu_torch.coding import rans
+from dsin_tpu_torch.coding.loader import make_codec
 from dsin_tpu_torch.entry import entry, full_configs
+from dsin_tpu_torch.models import probclass as pc_lib
 from dsin_tpu_torch.models.quantizer import centers_lookup
 from dsin_tpu_torch.ops import color as color_lib
 from dsin_tpu_torch.ops import sifinder as sifinder_lib
@@ -47,10 +67,17 @@ FP32_PEAK = 67e12          # H100 SXM fp32 outside the tensor cores, 700 W
 HBM_RATE = 3.35e12         # H100 SXM device memory, bytes/s
 VAL_RTOL, VAL_ATOL = 1e-4, 1e-5   # fp32 sums in another order
 MARGIN_ATOL = 1e-4         # indices equal where the top-two margin exceeds it
-SOURCE = "dsin_tpu_torch/csrc/sifinder_argmax.cu"
+K3_RTOL, K3_ATOL = 1e-5, 1e-5     # as tests/test_probclass_pallas.py:49
+K3_BATCHES = (1, 5, 64, 128, 256)   # and the largest front of the volume
+SOURCES = {
+    "pearson_argmax": "dsin_tpu_torch/csrc/sifinder_argmax.cu",
+    "pearson_argmax_shared": "dsin_tpu_torch/csrc/sifinder_argmax.cu",
+    "probclass_front_logits": "dsin_tpu_torch/csrc/probclass_front.cu",
+}
 REPLACES = {
     "pearson_argmax": "dsin_tpu/ops/sifinder_pallas.py:146",
     "pearson_argmax_shared": "dsin_tpu/ops/sifinder_pallas.py:340",
+    "probclass_front_logits": "dsin_tpu/coding/probclass_pallas.py:115",
 }
 
 
@@ -293,6 +320,16 @@ def slice_phase(seed: int, dev):
                 st["x_dec"], prep, PH, PW, ae))),
         ("siNet", lambda: model.apply_sinet(st["x_dec"], st["y_syn"])),
     ]))
+    q = centers_lookup(model.centers, st["sym"])
+    det = {True: [], False: []}
+    with torch.inference_mode():
+        for flag in (True, False, False, True):
+            torch.backends.cudnn.deterministic = flag
+            det[flag].append(cuda_ms(lambda: model.decode(q), 5))
+    torch.backends.cudnn.deterministic = True
+    log(f"  decoder, batch of 4, device ms with cudnn.deterministic on "
+        f"{det[True][0]:.2f}, {det[True][1]:.2f}; off {det[False][0]:.2f}, "
+        f"{det[False][1]:.2f}")
 
     forward, (xe, ye) = entry(device=dev, full_width=True, batch=2, seed=seed)
     forward(xe, ye)                           # warm-up
@@ -345,6 +382,227 @@ def slice_phase(seed: int, dev):
             "pearson_argmax_shared": launches["pearson_argmax_shared"]}
 
 
+def build_phase():
+    """Build the three native libraries at once (one compiler each); print
+    their build times and ptxas's register / spill lines."""
+    with ThreadPoolExecutor(3) as pool:
+        futs = {name: pool.submit(fn) for name, fn in (
+            ("sifinder_argmax.cu", sk.load_library),
+            ("probclass_front.cu", pk.load_library),
+            ("range_coder.cpp", rans.load_library))}
+        libs = {name: f.result() for name, f in futs.items()}
+    for name, lib in libs.items():
+        log(f"  {name}: {lib.build_seconds:.1f} s -> {lib.path}")
+        for ln in getattr(lib, "ptxas_log", "").splitlines():
+            if "registers" in ln or "spill" in ln:
+                log(f"    ptxas: {ln.strip()}")
+
+
+def k3_bound(batch: int, weights):
+    """(bound_ms, bound_by) of one K3 call on `batch` blocks: the four convs'
+    multiply-adds over the fp32 rate vs blocks, weights and logits over the
+    memory rate. A conv needs only the taps its causality mask keeps (13 of
+    18 in conv0, 14 in the others), each over Cin."""
+    taps = [int(pc_lib.make_mask(3, center).sum())
+            for center in (False, True, True, True)]
+    c, l_out = weights[0][0].shape[1], weights[3][0].shape[1]
+    outputs = [(196 * c, 1), (75 * c, c), (18 * c, c), (l_out, c)]
+    flops = 2.0 * batch * sum(n * t * cin
+                              for (n, cin), t in zip(outputs, taps))
+    nbytes = 4 * (batch * int(np.prod(pk.CONTEXT)) + batch * l_out
+                  + sum(w.numel() + b.numel() for w, b in weights))
+    t_ops, t_bytes = flops / FP32_PEAK * 1e3, nbytes / HBM_RATE * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def k3_phase(model, rng, dev, top: int):
+    """K3 against its plain version on blocks drawn from the centers with
+    the model's probclass weights; rows bit-identical across B. Timed at
+    `top`, the largest front of the path's volume and its largest bucket."""
+    weights = [(torch.from_numpy(w).to(dev), torch.from_numpy(b).to(dev))
+               for w, b in pc_lib.front_weight_matrices(model.probclass)]
+    centers = model.centers.detach().cpu().numpy()
+    batches = sorted(set(K3_BATCHES) | {top})
+    n = max(batches)
+    blocks = torch.from_numpy(rng.choice(centers, size=(n,) + pk.CONTEXT)
+                              .astype(np.float32)).to(dev)
+    full = pk.probclass_front_logits(blocks, weights)
+    err = 0.0
+    for b in batches:
+        got = pk.probclass_front_logits(blocks[:b].contiguous(), weights)
+        ref = pk.probclass_front_logits_reference(blocks[:b], weights)
+        torch.testing.assert_close(got, ref, rtol=K3_RTOL, atol=K3_ATOL)
+        if not torch.equal(got, full[:b]):
+            raise AssertionError(f"K3 rows at B={b} differ from the same "
+                                 f"rows at B={n}")
+        err = max(err, float((got - ref).abs().max()))
+    perm = torch.randperm(n, generator=torch.Generator().manual_seed(0))
+    if not torch.equal(pk.probclass_front_logits(
+            blocks[perm.to(dev)].contiguous(), weights), full[perm.to(dev)]):
+        raise AssertionError("K3 rows depend on their batchmates' order")
+
+    timed_blocks = blocks[:top].contiguous()
+
+    def yard():    # the yardstick: cuDNN conv3d through ResShallow
+        with torch.inference_mode():
+            return model.probclass(timed_blocks[:, None]).reshape(top, -1)
+
+    torch.testing.assert_close(yard(), full[:top], rtol=1e-4, atol=1e-4)
+    ms = cuda_ms(lambda: pk.probclass_front_logits(timed_blocks, weights), 50)
+    plain_ms = cuda_ms(
+        lambda: pk.probclass_front_logits_reference(timed_blocks, weights), 10)
+    lib_ms = cuda_ms(yard, 10)
+    b_ms, b_by = k3_bound(top, weights)
+    log(f"  K3 vs plain at B={tuple(batches)}: max |kernel - plain| "
+        f"{err:.3g} (rtol {K3_RTOL}, atol {K3_ATOL}); rows bit-identical "
+        f"across B and under a permutation")
+    log(f"  K3 at B={top}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"library (cuDNN conv3d ResShallow) {lib_ms:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by}), {100 * b_ms / ms:.1f}% of bound")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib_ms)
+
+
+def timed(fn):
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, 1e3 * (time.perf_counter() - t0)
+
+
+def codec_path(server, codec, x, y, seed: int):
+    """The codec path at full width; returns the K3 launches per pass."""
+    symbols, bpp_est = server.encode(x)
+    sym_np = symbols.cpu().numpy()
+    vols = [np.ascontiguousarray(np.transpose(s, (2, 0, 1))) for s in sym_np]
+    n_fronts = len(codec._wavefronts(*vols[0].shape))
+    h, w = x.shape[1:3]
+    decoded = {}
+    pass_ms = []         # host-clock ms of each mode-3 encode / decode pass
+    for i, vol in enumerate(vols):
+        for mode in ("wavefront_pl", "wavefront_np"):
+            k0 = pk.launch_counts["probclass_front_logits"]
+            stream, enc_ms = timed(lambda: codec.encode(vol, mode=mode))
+            k1 = pk.launch_counts["probclass_front_logits"]
+            back, dec_ms = timed(lambda: codec.decode(stream))
+            k2 = pk.launch_counts["probclass_front_logits"]
+            per_pass = (k1 - k0, k2 - k1)
+            want = (n_fronts, n_fronts) if mode == "wavefront_pl" else (0, 0)
+            if per_pass != want:
+                raise AssertionError(f"{mode}: K3 launches per pass "
+                                     f"{per_pass}, expected {want}")
+            if stream[5] != codec_lib._MODES[mode]:
+                raise AssertionError(f"{mode}: header mode byte {stream[5]}")
+            if not np.array_equal(back, vol):
+                raise AssertionError(f"{mode}: volume {i} did not round-trip "
+                                     f"({int((back != vol).sum())} symbols "
+                                     f"differ)")
+            gap = codec.coding_gap(vol, stream)
+            if gap["gap_bits"] < -32:
+                # the payload may undercut the bound by at most the 32-bit
+                # coder state it opens with, whose start value is free
+                raise AssertionError(f"{mode}: coding gap {gap} below the "
+                                     f"-32-bit flush allowance")
+            decoded.setdefault(mode, []).append(back)
+            if mode == "wavefront_pl":
+                pass_ms += [enc_ms, dec_ms]
+            log(f"  volume {i} {vol.shape} {mode}: encode {enc_ms:.1f} ms, "
+                f"decode {dec_ms:.1f} ms, {len(stream)} bytes = "
+                f"{len(stream) * 8 / (h * w):.4f} bpp (probclass estimate "
+                f"{float(bpp_est[i]):.4f}), coding gap "
+                f"{gap['gap_pct']:.3f}%, K3 launches per pass {per_pass}")
+
+    prep = server.open_session(y)
+    for mode, backs in decoded.items():
+        got = server.decode_si(np.stack([v.transpose(1, 2, 0)
+                                         for v in backs]), prep)
+        want = server.decode_si(sym_np, prep)
+        if not torch.equal(got, want):
+            raise AssertionError(f"decode_si on {mode}-decoded symbols is "
+                                 f"not bit-equal to decode_si on the "
+                                 f"originals")
+    log("  decode_si on the decoded symbols (both modes) bit-equal to "
+        "decode_si on the originals")
+
+    x0 = x[0]
+    blob, c_ms = timed(lambda: cli_lib.compress_array(x0, seed=seed))
+    rec, d_ms = timed(lambda: cli_lib.decompress_array(blob))
+    payload = cli_lib.parse_dsim(blob)[4]
+    sym1 = codec.decode(payload)
+    want_sym = server.encode(x0[None])[0][0].cpu().numpy().transpose(2, 0, 1)
+    if not np.array_equal(sym1, want_sym):
+        raise AssertionError("compress_array's symbols differ from "
+                             "DeviceServer.encode's")
+    with torch.inference_mode():
+        x_dec = server.model.decode(centers_lookup(
+            server.model.centers,
+            torch.as_tensor(sym1.transpose(1, 2, 0)[None],
+                            device=server.device)))
+    want_rec = np.clip(x_dec[0].cpu().numpy(), 0, 255).astype(np.uint8)
+    if not np.array_equal(rec, want_rec):
+        raise AssertionError("decompress_array differs from the decoder on "
+                             "the stream's symbols")
+    rec_si, s_ms = timed(lambda: cli_lib.decompress_array(blob, side=y))
+    want_si = server.decode_si(sym1.transpose(1, 2, 0)[None], prep)
+    want_si = np.clip(want_si[0].cpu().numpy(), 0, 255).astype(np.uint8)
+    if not np.array_equal(rec_si, want_si):
+        raise AssertionError("decompress_array with side differs from "
+                             "decode_si on the stream's symbols")
+    log(f"  compress_array {c_ms:.0f} ms ({len(blob)} bytes), "
+        f"decompress_array {d_ms:.0f} ms (= the decoder on the stream's "
+        f"symbols), with side {s_ms:.0f} ms (= decode_si on them)")
+    return n_fronts, vols[0].shape, float(np.median(pass_ms))
+
+
+def k3_pass_breakdown(codec, shape, pass_ms, rng, dev):
+    """K3 device ms of one mode-3 pass (CUDA events at each bucket size of
+    the pass's fronts, times their count) beside the pass's host-clock ms
+    and the bound of the pass (each front's real blocks, no padding): the
+    rest is host work per front."""
+    fronts = codec._wavefronts(*shape)
+    top = max(len(f) for f in fronts)
+    buckets = collections.Counter(codec_lib.front_bucket(len(f), top)
+                                  for f in fronts)
+    weights = codec._front_kernel_engine().weights
+    blocks = torch.from_numpy(rng.choice(codec.centers, size=(top,)
+                                         + pk.CONTEXT).astype(np.float32))
+    blocks = blocks.to(dev)
+    kernel_ms = sum(n * cuda_ms(lambda: pk.probclass_front_logits(
+        blocks[:b], weights), 20) for b, n in buckets.items())
+    host_ms = pass_ms - kernel_ms
+    bound_ms = sum(k3_bound(len(f), weights)[0] for f in fronts)
+    log(f"  mode-3 pass of {len(fronts)} fronts, {sum(map(len, fronts))} "
+        f"blocks (buckets {dict(sorted(buckets.items()))}): bound "
+        f"{bound_ms:.3f} ms; K3 device {kernel_ms:.1f} ms of "
+        f"{pass_ms:.1f} ms ({100 * kernel_ms / pass_ms:.1f}%); the rest, "
+        f"{1e3 * host_ms / len(fronts):.0f} us per front, is host work "
+        f"(block gather, copies, launch, softmax + tables, rANS)")
+
+
+def codec_phase(seed: int, dev):
+    rng = np.random.default_rng(seed + 2)
+    ae, pc = full_configs()
+    server = DeviceServer(ae, pc, device=dev, seed=seed)
+    codec = make_codec(server.model)
+    shape = (ae.num_chan_bn, H // 8, W // 8)
+    top = max(len(f) for f in codec._wavefronts(*shape))
+    row = k3_phase(server.model, rng, dev, top)
+    imgs = smooth_images(rng, 2, extra_w=64)
+    x = np.clip(imgs[:, :, :W] + rng.normal(0, 4, (2, H, W, 3)),
+                0, 255).astype(np.float32)
+    y = imgs[0, :, 16:16 + W].copy()
+    sk.reset_launch_counts()
+    pk.reset_launch_counts()
+    rans.reset_native_call_counts()
+    n_fronts, shape, pass_ms = codec_path(server, codec, x, y, seed)
+    launches = dict(pk.launch_counts, **sk.launch_counts)
+    log(f"  codec path launches {launches} ({n_fronts} fronts per pass; "
+        f"mode 3 runs 3 passes per volume: encode, decode, coding gap), "
+        f"native coder calls {rans.native_call_counts()}")
+    k3_pass_breakdown(codec, shape, pass_ms, rng, dev)
+    return row, launches["probclass_front_logits"]
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -359,24 +617,24 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    log(f"[1/4] card: {card}; torch {torch.__version__}, CUDA "
+    log(f"[1/5] card: {card}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}")
 
-    lib = sk.load_library()
-    regs = [ln.strip() for ln in lib.ptxas_log.splitlines()
-            if "registers" in ln or "spill" in ln]
-    log(f"[2/4] build: {lib.build_seconds:.1f} s -> {lib.path}")
-    for ln in regs:
-        log(f"  ptxas: {ln}")
+    log("[2/5] build")
+    build_phase()
 
-    log(f"[3/4] kernel vs plain at {H}x{W}, patches {PH}x{PW}, seed "
+    log(f"[3/5] kernel vs plain at {H}x{W}, patches {PH}x{PW}, seed "
         f"{args.seed}")
     rows = kernel_phase(args.seed, dev)
 
-    log("[4/4] the slice at full width (ae_kitti_stereo + pc_default)")
+    log("[4/5] the slice at full width (ae_kitti_stereo + pc_default)")
     launches = slice_phase(args.seed, dev)
 
-    kernels = [dict(name=name, route="cuda", source=SOURCE,
+    log("[5/5] the codec at full width (ae_kitti_stereo + pc_default)")
+    rows["probclass_front_logits"], launches["probclass_front_logits"] = \
+        codec_phase(args.seed, dev)
+
+    kernels = [dict(name=name, route="cuda", source=SOURCES[name],
                     replaces=REPLACES[name], launches=launches[name], **r)
                for name, r in rows.items()]
     log(f"card: {card}")

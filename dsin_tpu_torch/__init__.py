@@ -4,7 +4,10 @@ Module names mirror the JAX package (`models/`, `ops/`, `serve/`) so each
 counterpart is easy to find. Public functions take NHWC float32 images in
 [0, 255]; inside, tensors are NCHW. The patch search runs through a CUDA
 kernel written for Hopper (`csrc/sifinder_argmax.cu`, bound in
-`ops/sifinder_kernel.py`).
+`ops/sifinder_kernel.py`); the bitstream codec (`coding/`) runs its mode-3
+context model through another (`csrc/probclass_front.cu`, bound in
+`coding/probclass_kernel.py`) and its rANS coder in host C++
+(`csrc/range_coder.cpp`).
 
 Importing this package imports torch and numpy only: no jax, no flax and
 nothing of the JAX package.

@@ -38,31 +38,44 @@ class DSIN(nn.Module):
     def init_weights(self, generator: torch.Generator) -> "DSIN":
         """Seeded init mirroring the reference's initializers: Xavier-uniform
         conv kernels, zero biases, unit/zero batch norm, identity siNet
-        dilated convs, centers uniform over `centers_initial_range`."""
+        dilated convs, centers uniform over `centers_initial_range`. siNet
+        draws last, so the autoencoder, probclass and centers get the same
+        values from one seed with or without siNet (`AE_only`), as a stream
+        written by an AE-only model must decode in a model with siNet."""
+        parts = [self.encoder, self.decoder, self.probclass, self.centers]
+        if self.sinet is not None:
+            parts.append(self.sinet)
         with torch.no_grad():
-            for mod in self.modules():
-                if isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d,
-                                    pc_lib.MaskedConv3d)):
-                    nn.init.xavier_uniform_(mod.weight, generator=generator)
-                    if mod.bias is not None:
-                        mod.bias.zero_()
-                elif isinstance(mod, nn.BatchNorm2d):
-                    mod.reset_parameters()
+            for part in parts:
+                if part is self.centers:
+                    self.centers.copy_(quant_lib.init_centers(
+                        self.ae_config.num_centers, generator,
+                        self.ae_config.centers_initial_range))
+                    continue
+                for mod in part.modules():
+                    if isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d,
+                                        pc_lib.MaskedConv3d)):
+                        nn.init.xavier_uniform_(mod.weight,
+                                                generator=generator)
+                        if mod.bias is not None:
+                            mod.bias.zero_()
+                    elif isinstance(mod, nn.BatchNorm2d):
+                        mod.reset_parameters()
             if self.sinet is not None:
                 for conv in self.sinet.dilated_convs():
                     identity_kernel_(conv.weight)
-            self.centers.copy_(quant_lib.init_centers(
-                self.ae_config.num_centers, generator,
-                self.ae_config.centers_initial_range))
         return self
 
     # -- forward pieces ------------------------------------------------------
 
+    # encode and decode take their NHWC input contiguous: the convolutions
+    # round differently for another memory layout of equal values
+
     def encode(self, x: torch.Tensor) -> ae_lib.EncoderOutput:
-        return ae_lib.encode(self.encoder, x, self.centers)
+        return ae_lib.encode(self.encoder, x.contiguous(), self.centers)
 
     def decode(self, q: torch.Tensor) -> torch.Tensor:
-        return self.decoder(q)
+        return self.decoder(q.contiguous())
 
     def bitcost(self, q: torch.Tensor, symbols: torch.Tensor) -> torch.Tensor:
         pad = pc_lib.auto_pad_value(self.pc_config, self.centers)

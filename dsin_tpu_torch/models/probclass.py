@@ -31,6 +31,12 @@ def context_size(kernel_size: int) -> int:
     return 4 * (kernel_size - 1) + 1
 
 
+def context_shape(kernel_size: int):
+    """(D, H, W) causal receptive field of one symbol: (5, 9, 9) at K=3."""
+    cs = context_size(kernel_size)
+    return cs // 2 + 1, cs, cs
+
+
 def filter_shape(kernel_size: int):
     """(D, H, W) of each conv filter."""
     return kernel_size // 2 + 1, kernel_size, kernel_size
@@ -100,6 +106,25 @@ class ResShallow(nn.Module):
         dd, hw = 2 * (ks // 2), ks - 1
         net = net + inp[:, :, dd:, hw:-hw, hw:-hw]
         return F.relu(self.conv3(net))
+
+
+def front_weight_matrices(model: ResShallow):
+    """The four masked convs of `model` as [(W (taps*Cin, Cout), b (Cout,))]
+    float32 numpy pairs, in conv0..conv3 order (the JAX package's sorted
+    `_MaskedConv3D_0.._3`). W is pre-masked with rows in (td, th, tw, cin)
+    order: the weight-preparation convention of the coding engines, which
+    take their weights only from here. The OIDHW weights are permuted to
+    DHWIO before masking and reshaping."""
+    out = []
+    for conv in (model.conv0, model.conv1, model.conv2, model.conv3):
+        kern = conv.weight.detach().cpu().permute(2, 3, 4, 1, 0).numpy()
+        kern = kern.astype(np.float32) * conv.mask.cpu().numpy()[..., None,
+                                                                  None]
+        taps = int(conv.mask.numel())
+        out.append((np.ascontiguousarray(
+            kern.reshape(taps * kern.shape[3], kern.shape[4])),
+            conv.bias.detach().cpu().numpy().astype(np.float32)))
+    return out
 
 
 def get_network_cls(pc_config):

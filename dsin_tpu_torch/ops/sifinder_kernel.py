@@ -2,8 +2,8 @@
 JAX package's `ops/sifinder_pallas.py`).
 
 The CUDA kernel is `csrc/sifinder_argmax.cu` (its header gives the design and
-its bound); this module builds it with `nvcc` at first use, binds it with
-`ctypes`, and holds everything around it:
+its bound); this module builds it with `nvcc` at first use (`native_build`),
+binds it with `ctypes`, and holds everything around it:
 
 * the query prep: search transform + mean-centered, L2-normalized patches
   laid out in the kernel's (dc, ch, dr) k-order (`prepare_query`);
@@ -26,23 +26,18 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import time
 from pathlib import Path
 from typing import Callable, NamedTuple
 
 import torch
 import torch.nn.functional as F
 
+from dsin_tpu_torch import native_build
 from dsin_tpu_torch.ops import color as color_lib
 from dsin_tpu_torch.ops import sifinder as sifinder_lib
 from dsin_tpu_torch.ops.patches import assemble_patches, extract_patches
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "sifinder_argmax.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 TILES_PER_GROUP = 8     # stage-1 position tiles walked by one block
@@ -67,36 +62,12 @@ class KernelLibrary(NamedTuple):
     ptxas_log: str             # nvcc -Xptxas -v output of this build
 
 
-def _nvcc() -> str:
-    for cand in (os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "nvcc"),
-                 shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"):
-        if cand and os.path.isfile(cand):
-            return cand
-    raise RuntimeError("nvcc not found (CUDA_HOME, PATH, /usr/local/cuda): "
-                       "the patch-search kernel is built from source")
-
-
 @functools.lru_cache(maxsize=None)
 def load_library() -> KernelLibrary:
     """Build `csrc/sifinder_argmax.cu` into `build/` (keyed by a hash of the
     source and flags) unless already built, and bind it. Raises on failure."""
-    src = SOURCE.read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    so = BUILD_DIR / f"libsifinder_argmax_{digest[:16]}.so"
-    seconds, log = 0.0, ""
-    if not so.exists():
-        nvcc = _nvcc()
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
-        t0 = time.perf_counter()
-        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp),
-                               str(SOURCE)], capture_output=True, text=True)
-        seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}) on "
-                               f"{SOURCE}:\n{log}")
-        os.replace(tmp, so)
+    so, seconds, log = native_build.build(SOURCE, native_build.nvcc(),
+                                          NVCC_FLAGS, "sifinder_argmax")
     lib = ctypes.CDLL(str(so))
     search = lib.sifinder_pearson_argmax
     ptr, ll, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int

@@ -15,7 +15,10 @@ def resolve_device(device="cuda") -> torch.device:
     Defaults to the card and raises when no card is present: only an explicit
     ``device="cpu"`` runs on the CPU. Turns TF32 off for cuDNN convolutions
     and cuBLAS products, because the fp32 rung is IEEE fp32 in the reference
-    and cuDNN convolutions default to TF32."""
+    and cuDNN convolutions default to TF32. Pins cuDNN to deterministic
+    algorithms: by default the decoder's transposed convolutions may pick an
+    algorithm that sums in another order from call to call, and then equal
+    symbols decode to images that differ in the last bits."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -23,6 +26,7 @@ def resolve_device(device="cuda") -> torch.device:
             "False; pass device='cpu' to run on the CPU")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
     return dev
 
 

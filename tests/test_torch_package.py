@@ -15,6 +15,7 @@ import torch
 from dsin_tpu import config as jax_config
 from dsin_tpu_torch import config as torch_config
 from dsin_tpu_torch import entry as entry_lib
+from dsin_tpu_torch import native_build
 from dsin_tpu_torch import runtime
 from dsin_tpu_torch.models.dsin import build_model
 from dsin_tpu_torch.ops import sifinder as sifinder_lib
@@ -48,12 +49,17 @@ def test_importing_the_port_loads_no_jax():
         f"bad = sorted(n for n in sys.modules if n.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "assert not bad, bad\n"
-        "print('ok', len([n for n in sys.modules "
-        "if n.startswith('dsin_tpu_torch')]))\n")
+        "print(' '.join(sorted(n for n in sys.modules "
+        "if n.startswith('dsin_tpu_torch'))))\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 14, proc.stdout
+    loaded = set(proc.stdout.split())
+    assert len(loaded) >= 24, proc.stdout
+    assert {f"dsin_tpu_torch.coding.{m}" for m in (
+        "rans", "incremental", "probclass_kernel", "codec", "loader",
+        "cli")} | {"dsin_tpu_torch.utils.integrity",
+                   "dsin_tpu_torch.native_build"} <= loaded, proc.stdout
 
 
 @pytest.mark.parametrize("path", _port_sources(),
@@ -126,6 +132,14 @@ def test_entry_points_turn_tf32_off():
     assert not torch.backends.cuda.matmul.allow_tf32
 
 
+def test_entry_points_pin_deterministic_cudnn():
+    """cuDNN's default transposed-convolution algorithm may sum in another
+    order from call to call; equal symbols must decode to equal images."""
+    torch.backends.cudnn.deterministic = False
+    runtime.resolve_device("cpu")
+    assert torch.backends.cudnn.deterministic
+
+
 def _kernel_operands(device="cpu", dtype=torch.float32):
     b, c, h, w, ph, pw, p = 1, 3, 40, 48, 20, 24, 4
     hc, wc = h - ph + 1, w - pw + 1
@@ -167,7 +181,7 @@ def test_non_cpu_tensors_never_reach_the_plain_version():
 def test_missing_nvcc_raises(monkeypatch):
     monkeypatch.setattr(os.path, "isfile", lambda _: False)
     with pytest.raises(RuntimeError, match="nvcc not found"):
-        sk._nvcc()
+        native_build.nvcc()
 
 
 @pytest.mark.parametrize("bad", [{"sifinder_impl": "pallas"},
