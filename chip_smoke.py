@@ -29,7 +29,20 @@ Phases; any failure raises, prints no result and exits non-zero:
      (numpy engine), each decoded exactly, with one K3 launch per front;
      decode_si on the decoded symbols bit-equal to decode_si on the
      originals; compress_array -> decompress_array with and without a side
-     image.
+     image;
+  6. the precision ladder: fused_decode_epilogue (K4) against its plain
+     version at (2, 160, 612, 64), the full-width decoder's own activation
+     before its last deconv, folded from its conv2, with float32 and bfloat16
+     operands (rtol 1e-5, atol 1e-3 in pixel units for both: bfloat16
+     operands are widened to float32, their products are exact there, so both
+     sum the same float32 products in another order), rows bit-identical
+     across the batch, the float32 image equal to the decoder's own output
+     within the same bound; timed beside its bound and the library chain
+     (F.conv_transpose2d + crop, affine, clip, 3x3 map); then the serve-bench
+     precision leg at 320x1224, batch 2, fp32, bf16 and int8, which must pass
+     gate_precision (every stage timed, no build in the timed window, mode-2
+     and mode-3 streams byte-identical across the rungs and exact round
+     trips) and launch K2, K3 and K4.
 Then one line with the card, one JSON line with the kernels, and last the
 result line {"ok": true, "device": {...}}.
 """
@@ -55,29 +68,37 @@ from dsin_tpu_torch.coding import rans
 from dsin_tpu_torch.coding.loader import make_codec
 from dsin_tpu_torch.entry import entry, full_configs
 from dsin_tpu_torch.models import probclass as pc_lib
+from dsin_tpu_torch.models.dsin import build_model
 from dsin_tpu_torch.models.quantizer import centers_lookup
 from dsin_tpu_torch.ops import color as color_lib
+from dsin_tpu_torch.ops import epilogue as ek
 from dsin_tpu_torch.ops import sifinder as sifinder_lib
 from dsin_tpu_torch.ops import sifinder_kernel as sk
-from dsin_tpu_torch.runtime import resolve_device
+from dsin_tpu_torch.runtime import config_path, resolve_device
 from dsin_tpu_torch.serve.device import DeviceServer
+from dsin_tpu_torch.tools import serve_bench as leg_lib
 
 H, W, PH, PW = 320, 1224, 20, 24
 FP32_PEAK = 67e12          # H100 SXM fp32 outside the tensor cores, 700 W
+BF16_PEAK = 989e12         # H100 SXM bf16 dense (tensor cores), 700 W
 HBM_RATE = 3.35e12         # H100 SXM device memory, bytes/s
 VAL_RTOL, VAL_ATOL = 1e-4, 1e-5   # fp32 sums in another order
 MARGIN_ATOL = 1e-4         # indices equal where the top-two margin exceeds it
 K3_RTOL, K3_ATOL = 1e-5, 1e-5     # as tests/test_probclass_pallas.py:49
 K3_BATCHES = (1, 5, 64, 128, 256)   # and the largest front of the volume
+K4_RTOL, K4_ATOL = 1e-5, 1e-3     # as tests/test_epilogue_pallas.py:32
+LEG_REPS = 5
 SOURCES = {
     "pearson_argmax": "dsin_tpu_torch/csrc/sifinder_argmax.cu",
     "pearson_argmax_shared": "dsin_tpu_torch/csrc/sifinder_argmax.cu",
     "probclass_front_logits": "dsin_tpu_torch/csrc/probclass_front.cu",
+    "fused_decode_epilogue": "dsin_tpu_torch/csrc/decode_epilogue.cu",
 }
 REPLACES = {
     "pearson_argmax": "dsin_tpu/ops/sifinder_pallas.py:146",
     "pearson_argmax_shared": "dsin_tpu/ops/sifinder_pallas.py:340",
     "probclass_front_logits": "dsin_tpu/coding/probclass_pallas.py:115",
+    "fused_decode_epilogue": "dsin_tpu/ops/epilogue_pallas.py:167",
 }
 
 
@@ -383,12 +404,13 @@ def slice_phase(seed: int, dev):
 
 
 def build_phase():
-    """Build the three native libraries at once (one compiler each); print
+    """Build the four native libraries at once (one compiler each); print
     their build times and ptxas's register / spill lines."""
-    with ThreadPoolExecutor(3) as pool:
+    with ThreadPoolExecutor(4) as pool:
         futs = {name: pool.submit(fn) for name, fn in (
             ("sifinder_argmax.cu", sk.load_library),
             ("probclass_front.cu", pk.load_library),
+            ("decode_epilogue.cu", ek.load_library),
             ("range_coder.cpp", rans.load_library))}
         libs = {name: f.result() for name, f in futs.items()}
     for name, lib in libs.items():
@@ -603,6 +625,119 @@ def codec_phase(seed: int, dev):
     return row, launches["probclass_front_logits"]
 
 
+def k4_bound(x: torch.Tensor, wmat: torch.Tensor):
+    """(bound_ms, bound_by) of one K4 call: the deconv's multiply-adds (25
+    taps x Cin x 3 per input position, 1,200 per output pixel at Cin 64)
+    and a 30-operation tail per output pixel over the peak rate of the
+    operand type (float32 outside the tensor cores, bfloat16 dense) vs x,
+    wmat, the folded affine and both float32 images over the memory rate."""
+    n, h2, w2, cin = x.shape
+    flops = 2.0 * n * h2 * w2 * 25 * cin * 3 + 30.0 * n * 4 * h2 * w2
+    peak = BF16_PEAK if x.dtype == torch.bfloat16 else FP32_PEAK
+    nbytes = (x.numel() * x.element_size() + wmat.numel() * wmat.element_size()
+              + 4 * 18 + 2 * 4 * n * 4 * h2 * w2 * 3)
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_RATE * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def k4_phase(seed: int, dev):
+    """K4 against its plain version on the full-width decoder's activation
+    before its last deconv, with the weights folded from that decoder, in
+    float32 and bfloat16; timed beside its bound and the library chain.
+    Returns the float32 row of the kernels line."""
+    rng = np.random.default_rng(seed + 3)
+    ae, pc = full_configs()
+    model = build_model(ae, pc, device=dev, seed=seed)
+    epi = ek.fold_epilogue_params(model.decoder, ae.normalization)
+    dec = model.decoder
+    x = torch.from_numpy(np.clip(smooth_images(rng, 2) + rng.normal(
+        0, 4, (2, H, W, 3)), 0, 255).astype(np.float32)).to(dev)
+    with torch.inference_mode():
+        q = centers_lookup(model.centers, model.encode(x).symbols)
+        act = dec.conv1(dec.res(dec.conv0(q.permute(0, 3, 1, 2))))
+        x_pre = act.permute(0, 2, 3, 1).contiguous()
+        x_dec = model.decode(q)
+    if tuple(x_pre.shape) != (2, H // 2, W // 2, 64):
+        raise AssertionError(f"decoder activation {tuple(x_pre.shape)}")
+    rows = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        xs, wmat = x_pre.to(dtype), epi.wmat.to(dtype)
+        operands = (xs, wmat) + tuple(epi[1:])
+        img, srch = ek.fused_decode_epilogue(*operands)
+        ref_img, ref_srch = ek.epilogue_reference(*operands)
+        torch.testing.assert_close(img, ref_img, rtol=K4_RTOL, atol=K4_ATOL)
+        torch.testing.assert_close(srch, ref_srch, rtol=K4_RTOL,
+                                   atol=K4_ATOL)
+        err = max(float((img - ref_img).abs().max()),
+                  float((srch - ref_srch).abs().max()))
+        one = ek.fused_decode_epilogue(xs[1:].contiguous(), *operands[1:])
+        if not (torch.equal(one[0], img[1:]) and torch.equal(one[1],
+                                                             srch[1:])):
+            raise AssertionError(f"K4 {dtype}: image 1 alone differs from "
+                                 f"image 1 of the batch")
+        deconv = dec.conv2.conv.weight.detach().to(dtype)
+        with torch.inference_mode():
+            library = leg_lib.epilogue_library(xs, deconv, epi._replace(
+                wmat=wmat))
+        if dtype == torch.float32:
+            torch.testing.assert_close(img, x_dec, rtol=K4_RTOL, atol=K4_ATOL)
+            torch.testing.assert_close(library[0], img, rtol=K4_RTOL,
+                                       atol=K4_ATOL)
+        inside = float(((ref_img > 0) & (ref_img < 255)).float().mean())
+        ms = cuda_ms(lambda: ek.fused_decode_epilogue(*operands), 50)
+        plain_ms = cuda_ms(lambda: ek.epilogue_reference(*operands), 10)
+        lib_ms = cuda_ms(lambda: leg_lib.epilogue_library(
+            xs, deconv, epi._replace(wmat=wmat)), 10)
+        b_ms, b_by = k4_bound(xs, wmat)
+        name = str(dtype).replace("torch.", "")
+        log(f"  K4 {name} at {tuple(xs.shape)}: max |kernel - plain| "
+            f"{err:.3g} (rtol {K4_RTOL}, atol {K4_ATOL}), {100 * inside:.1f}%"
+            f" of pixels inside the clip, image 1 alone bit-equal to the "
+            f"batch's; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+            f"(conv_transpose2d chain) {lib_ms:.4f} ms, bound {b_ms:.4f} ms "
+            f"({b_by}), {100 * b_ms / ms:.1f}% of bound")
+        rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                          bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+    log("  K4 float32 image vs the decoder's own output (conv2 + BN + "
+        "denorm + clip): within the same bound")
+    return rows["float32"]
+
+
+def leg_phase(seed: int, dev) -> int:
+    """The serve-bench precision leg at full width; returns K4's launches
+    in it."""
+    sk.reset_launch_counts()
+    pk.reset_launch_counts()
+    ek.reset_launch_counts()
+    t0 = time.perf_counter()
+    section = leg_lib.run_precision_section(
+        config_path("ae_kitti_stereo"), config_path("pc_default"), (H, W),
+        LEG_REPS, seed=seed, device=dev)
+    secs = time.perf_counter() - t0
+    launches = dict(sk.launch_counts, **pk.launch_counts, **ek.launch_counts)
+    violations = leg_lib.gate_precision(section)
+    if violations:
+        raise AssertionError(f"precision leg: {violations}")
+    for name in ("pearson_argmax_shared", "probclass_front_logits",
+                 "fused_decode_epilogue"):
+        if launches[name] < 1:
+            raise AssertionError(f"the precision leg did not launch {name}: "
+                                 f"{launches}")
+    log(f"  precision leg at {H}x{W}, batch {section['batch']}, median of "
+        f"{section['reps']} (CUDA events), {secs:.1f} s, launches {launches}")
+    log("  stage ms: " + " | ".join(
+        f"{rung}: " + ", ".join(f"{k} {v:.3f}" for k, v in
+                                entry["stage_device_ms"].items())
+        for rung, entry in section["per_rung"].items()))
+    digests = section["per_rung"]["fp32"]["stream_sha256"]
+    log(f"  streams byte-identical across {section['rungs']}: "
+        + ", ".join(f"{m} {digests[m][:16]}" for m in leg_lib.MODES)
+        + "; every stream round-trips; steady builds "
+        + str({r: e["steady_builds"]
+               for r, e in section["per_rung"].items()}))
+    return launches["fused_decode_epilogue"]
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -617,22 +752,27 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    log(f"[1/5] card: {card}; torch {torch.__version__}, CUDA "
+    log(f"[1/6] card: {card}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}")
 
-    log("[2/5] build")
+    log("[2/6] build")
     build_phase()
 
-    log(f"[3/5] kernel vs plain at {H}x{W}, patches {PH}x{PW}, seed "
+    log(f"[3/6] kernel vs plain at {H}x{W}, patches {PH}x{PW}, seed "
         f"{args.seed}")
     rows = kernel_phase(args.seed, dev)
 
-    log("[4/5] the slice at full width (ae_kitti_stereo + pc_default)")
+    log("[4/6] the slice at full width (ae_kitti_stereo + pc_default)")
     launches = slice_phase(args.seed, dev)
 
-    log("[5/5] the codec at full width (ae_kitti_stereo + pc_default)")
+    log("[5/6] the codec at full width (ae_kitti_stereo + pc_default)")
     rows["probclass_front_logits"], launches["probclass_front_logits"] = \
         codec_phase(args.seed, dev)
+
+    log("[6/6] the precision ladder: K4 and the serve-bench precision leg "
+        "(ae_kitti_stereo + pc_default)")
+    rows["fused_decode_epilogue"] = k4_phase(args.seed, dev)
+    launches["fused_decode_epilogue"] = leg_phase(args.seed, dev)
 
     kernels = [dict(name=name, route="cuda", source=SOURCES[name],
                     replaces=REPLACES[name], launches=launches[name], **r)

@@ -7,7 +7,11 @@ kernel written for Hopper (`csrc/sifinder_argmax.cu`, bound in
 `ops/sifinder_kernel.py`); the bitstream codec (`coding/`) runs its mode-3
 context model through another (`csrc/probclass_front.cu`, bound in
 `coding/probclass_kernel.py`) and its rANS coder in host C++
-(`csrc/range_coder.cpp`).
+(`csrc/range_coder.cpp`). The precision ladder (`coding/precision.py`) casts
+the distortion side to bf16 or int8 levels; the serve bench's precision leg
+(`tools/serve_bench.py`) times every serving stage per rung, the decoder's
+fused epilogue among them (`csrc/decode_epilogue.cu`, bound in
+`ops/epilogue.py`).
 
 Importing this package imports torch and numpy only: no jax, no flax and
 nothing of the JAX package.

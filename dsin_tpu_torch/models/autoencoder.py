@@ -17,6 +17,19 @@ Padding follows the reference's "SAME" rule exactly, which torch's
     (k-1 - off, ...) with off = 0 for k=3 and 1 for k=5. Here it runs as
     `conv_transpose2d` with a spatially flipped kernel (the bridge flips it,
     `bridge.py`) and an output crop starting at `off`.
+
+Precision: the AE config's `compute_dtype` ('float32' or 'bfloat16') is the
+dtype every conv runs in (`ConvBN`). Batch norm follows flax's order and type
+promotion: float32 statistics, ``mul = rsqrt(var + eps) * scale``,
+``y = (x - mean) * mul + bias`` computed in float32, and the result in
+``promote(x, scale, bias)``. So with float32 parameters and a bfloat16
+compute dtype (a config such as `ae_cityscapes_stereo`) every BN output, the
+residual adds and the bottleneck are float32 and only the convs run in
+bfloat16; on the bf16 and int8 ladder rungs (`coding/precision.py`), whose
+cast makes the BN scale and bias bfloat16 too, every BN output is bfloat16:
+the ReLUs, the residual adds and the encoder's bottleneck run in bfloat16,
+the heatmap gate and `z` are float32 (its ramp is float32), and the decoder
+casts to float32 only after its last batch norm, before the denormalization.
 """
 
 from __future__ import annotations
@@ -48,6 +61,18 @@ class EncoderOutput(NamedTuple):
     heatmap: Optional[torch.Tensor]    # (N, Hb, Wb, C) in [0, 1] or None
 
 
+_COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def compute_dtype(config) -> torch.dtype:
+    """The torch dtype of the config's `compute_dtype` (default float32)."""
+    name = config.get("compute_dtype", "float32")
+    if name not in _COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype={name!r}: expected one of "
+                         f"{sorted(_COMPUTE_DTYPES)}")
+    return _COMPUTE_DTYPES[name]
+
+
 def _const(values: np.ndarray, like: torch.Tensor) -> torch.Tensor:
     return torch.as_tensor(values, dtype=like.dtype, device=like.device)
 
@@ -71,10 +96,11 @@ def denormalize_image(x: torch.Tensor, style: str) -> torch.Tensor:
 
 def heatmap3d(bottleneck: torch.Tensor) -> torch.Tensor:
     """(N, H, W, C+1) -> mask (N, H, W, C) with
-    mask[..., c] = clip(sigmoid(b[..., 0]) * C - c, 0, 1)."""
+    mask[..., c] = clip(sigmoid(b[..., 0]) * C - c, 0, 1). The ramp is
+    float32 whatever the bottleneck's dtype, so the mask is float32."""
     c_total = bottleneck.shape[-1] - 1
     heat2d = torch.sigmoid(bottleneck[..., 0]) * c_total
-    ramp = torch.arange(c_total, dtype=bottleneck.dtype,
+    ramp = torch.arange(c_total, dtype=torch.float32,
                         device=bottleneck.device)
     return torch.clamp(heat2d[..., None] - ramp, 0.0, 1.0)
 
@@ -95,29 +121,47 @@ def _transpose_crop(kernel: int, stride: int) -> int:
     return kernel - 1 - pad_a
 
 
+def batch_norm(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
+    """Inference batch norm over NCHW `x` in flax's order and promotion:
+    float32 statistics, mul = rsqrt(var + eps) * scale, y = (x - mean) * mul
+    + bias in float32, the result in promote(x, scale, bias)."""
+    shape = (1, -1, 1, 1)
+    mean = bn.running_mean.float().reshape(shape)
+    mul = torch.rsqrt(bn.running_var.float() + bn.eps) * bn.weight
+    y = (x - mean) * mul.reshape(shape) + bn.bias.reshape(shape)
+    return y.to(torch.promote_types(torch.promote_types(x.dtype,
+                                                        bn.weight.dtype),
+                                    bn.bias.dtype))
+
+
 class ConvBN(nn.Module):
-    """Conv (or stride-2 transposed conv) + batch norm (+ optional relu)."""
+    """Conv (or stride-2 transposed conv) in `dtype` + batch norm (+ optional
+    relu). The input and the kernel are cast to `dtype`; the conv's output
+    stays in it."""
 
     def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1,
-                 relu: bool = True, transpose: bool = False):
+                 relu: bool = True, transpose: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.kernel, self.stride = kernel, stride
-        self.relu, self.transpose = relu, transpose
+        self.relu, self.transpose, self.dtype = relu, transpose, dtype
         conv_cls = nn.ConvTranspose2d if transpose else nn.Conv2d
         self.conv = conv_cls(cin, cout, kernel, stride=stride, bias=False)
         self.bn = nn.BatchNorm2d(cout, eps=1e-5, momentum=0.1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h, w = x.shape[-2:]
+        x, weight = x.to(self.dtype), self.conv.weight.to(self.dtype)
         if self.transpose:
             off = _transpose_crop(self.kernel, self.stride)
-            x = self.conv(x)
+            x = F.conv_transpose2d(x, weight, stride=self.stride)
             x = x[..., off:off + h * self.stride, off:off + w * self.stride]
         else:
             top, bottom = _same_pads(h, self.kernel, self.stride)
             left, right = _same_pads(w, self.kernel, self.stride)
-            x = self.conv(F.pad(x, (left, right, top, bottom)))
-        x = self.bn(x)
+            x = F.conv2d(F.pad(x, (left, right, top, bottom)), weight,
+                         stride=self.stride)
+        x = batch_norm(x, self.bn)
         return F.relu(x) if self.relu else x
 
 
@@ -125,10 +169,12 @@ class ResBlock(nn.Module):
     """Two 3x3 conv+BN; relu after the first only (unless relu_first=False);
     residual add."""
 
-    def __init__(self, features: int, relu_first: bool = True):
+    def __init__(self, features: int, relu_first: bool = True,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.conv0 = ConvBN(features, features, 3, relu=relu_first)
-        self.conv1 = ConvBN(features, features, 3, relu=False)
+        self.conv0 = ConvBN(features, features, 3, relu=relu_first,
+                            dtype=dtype)
+        self.conv1 = ConvBN(features, features, 3, relu=False, dtype=dtype)
 
     def forward(self, x):
         return self.conv1(self.conv0(x)) + x
@@ -138,11 +184,13 @@ class ResGroupStack(nn.Module):
     """B groups of three residual blocks, each group with its own skip, then a
     residual block without activation and an outer skip."""
 
-    def __init__(self, features: int, num_groups: int):
+    def __init__(self, features: int, num_groups: int,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_groups = num_groups
-        blocks = [ResBlock(features) for _ in range(3 * num_groups)]
-        blocks.append(ResBlock(features, relu_first=False))
+        blocks = [ResBlock(features, dtype=dtype)
+                  for _ in range(3 * num_groups)]
+        blocks.append(ResBlock(features, relu_first=False, dtype=dtype))
         self.blocks = nn.ModuleList(blocks)
 
     def forward(self, x):
@@ -162,11 +210,12 @@ class Encoder(nn.Module):
         super().__init__()
         self.config = config
         n = config.get("arch_param_N", ARCH_PARAM_N)
+        dt = compute_dtype(config)
         c_out = config.num_chan_bn + 1 if config.heatmap else config.num_chan_bn
-        self.conv0 = ConvBN(3, n // 2, 5, stride=2)
-        self.conv1 = ConvBN(n // 2, n, 5, stride=2)
-        self.res = ResGroupStack(n, config.arch_param_B)
-        self.conv2 = ConvBN(n, c_out, 5, stride=2, relu=False)
+        self.conv0 = ConvBN(3, n // 2, 5, stride=2, dtype=dt)
+        self.conv1 = ConvBN(n // 2, n, 5, stride=2, dtype=dt)
+        self.res = ResGroupStack(n, config.arch_param_B, dtype=dt)
+        self.conv2 = ConvBN(n, c_out, 5, stride=2, relu=False, dtype=dt)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = normalize_image(x, self.config.normalization).permute(0, 3, 1, 2)
@@ -182,14 +231,17 @@ class Decoder(nn.Module):
         super().__init__()
         self.config = config
         n = config.get("arch_param_N", ARCH_PARAM_N)
-        self.conv0 = ConvBN(config.num_chan_bn, n, 3, stride=2, transpose=True)
-        self.res = ResGroupStack(n, config.arch_param_B)
-        self.conv1 = ConvBN(n, n // 2, 5, stride=2, transpose=True)
-        self.conv2 = ConvBN(n // 2, 3, 5, stride=2, transpose=True, relu=False)
+        dt = compute_dtype(config)
+        self.conv0 = ConvBN(config.num_chan_bn, n, 3, stride=2, transpose=True,
+                            dtype=dt)
+        self.res = ResGroupStack(n, config.arch_param_B, dtype=dt)
+        self.conv1 = ConvBN(n, n // 2, 5, stride=2, transpose=True, dtype=dt)
+        self.conv2 = ConvBN(n // 2, 3, 5, stride=2, transpose=True, relu=False,
+                            dtype=dt)
 
     def forward(self, q: torch.Tensor) -> torch.Tensor:
         x = q.permute(0, 3, 1, 2)
-        x = self.conv2(self.conv1(self.res(self.conv0(x))))
+        x = self.conv2(self.conv1(self.res(self.conv0(x)))).float()
         x = denormalize_image(x.permute(0, 2, 3, 1), self.config.normalization)
         return torch.clamp(x, 0.0, 255.0)
 

@@ -33,7 +33,8 @@ class DSIN(nn.Module):
         self.probclass = pc_lib.get_network_cls(pc_config)(
             pc_config, num_centers=ae_config.num_centers)
         self.ae_only = bool(ae_config.AE_only)
-        self.sinet = None if self.ae_only else SiNet()
+        self.sinet = (None if self.ae_only else
+                      SiNet(dtype=ae_lib.compute_dtype(ae_config)))
 
     def init_weights(self, generator: torch.Generator) -> "DSIN":
         """Seeded init mirroring the reference's initializers: Xavier-uniform
@@ -41,7 +42,9 @@ class DSIN(nn.Module):
         dilated convs, centers uniform over `centers_initial_range`. siNet
         draws last, so the autoencoder, probclass and centers get the same
         values from one seed with or without siNet (`AE_only`), as a stream
-        written by an AE-only model must decode in a model with siNet."""
+        written by an AE-only model must decode in a model with siNet.
+        The weights are float32 whatever the compute dtype; a precision rung
+        casts them afterwards (`coding/precision.py`)."""
         parts = [self.encoder, self.decoder, self.probclass, self.centers]
         if self.sinet is not None:
             parts.append(self.sinet)

@@ -4,6 +4,10 @@ package's `models/sinet.py`).
 Nine 3x3 convs, 32 channels, dilations 1, 2, 4, ..., 128, 1, leaky ReLU 0.2,
 identity-initialized, no normalization; then a 1x1 conv to 3 channels. Input
 is the 6-channel concat of normalized (x_dec, y_syn), NCHW.
+
+`dtype` is the compute dtype: the input, kernels and biases are cast to it,
+each conv adds its bias in it, the leaky ReLUs run in it, and the output is
+returned in float32.
 """
 
 from __future__ import annotations
@@ -27,10 +31,12 @@ def identity_kernel_(weight: torch.Tensor) -> torch.Tensor:
 
 
 class SiNet(nn.Module):
-    """(N, 6, H, W) normalized concat -> (N, 3, H, W) normalized output."""
+    """(N, 6, H, W) normalized concat -> (N, 3, H, W) normalized float32
+    output."""
 
-    def __init__(self):
+    def __init__(self, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         cin = 6
         for i, rate in enumerate(DILATIONS):
             self.add_module(f"g_conv{i + 1}", nn.Conv2d(
@@ -41,7 +47,13 @@ class SiNet(nn.Module):
     def dilated_convs(self):
         return [getattr(self, f"g_conv{i + 1}") for i in range(len(DILATIONS))]
 
+    def _conv(self, conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+        out = F.conv2d(x, conv.weight.to(self.dtype), padding=conv.padding,
+                       dilation=conv.dilation)
+        return out + conv.bias.to(self.dtype).reshape(1, -1, 1, 1)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(self.dtype)
         for conv in self.dilated_convs():
-            x = F.leaky_relu(conv(x), negative_slope=0.2)
-        return self.g_conv_last(x)
+            x = F.leaky_relu(self._conv(conv, x), negative_slope=0.2)
+        return self._conv(self.g_conv_last, x).float()

@@ -4,7 +4,8 @@ Each library is keyed by a hash of its source and its flags, so an edited
 source or flag builds anew and an unchanged one loads what is there. The
 build writes to a private temporary name and renames it into place, so
 concurrent processes never load a half-written library. A failed build
-raises with the compiler's output.
+raises with the compiler's output. `build_count()` counts the builds this
+process ran, so a timed window can show that it built nothing.
 """
 
 from __future__ import annotations
@@ -13,11 +14,20 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Sequence, Tuple
 
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build"
+
+_builds = {"count": 0}      # compiler runs in this process, failed ones too
+_builds_lock = threading.Lock()
+
+
+def build_count() -> int:
+    with _builds_lock:
+        return _builds["count"]
 
 
 def nvcc() -> str:
@@ -50,6 +60,8 @@ def build(source: Path, compiler: str, flags: Sequence[str],
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
     t0 = time.perf_counter()
+    with _builds_lock:
+        _builds["count"] += 1
     proc = subprocess.run([compiler, *flags, "-o", str(tmp), str(source)],
                           capture_output=True, text=True)
     seconds = time.perf_counter() - t0

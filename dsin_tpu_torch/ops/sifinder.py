@@ -71,6 +71,13 @@ def sifinder_impl(config) -> str:
     return impl
 
 
+def prep_for_kernel(config, device: torch.device) -> bool:
+    """Whether a SidePrep for `device` carries the kernel's operands: always
+    for 'kernel', for the card under 'auto'."""
+    impl = sifinder_impl(config)
+    return impl == "kernel" or (impl == "auto" and device.type == "cuda")
+
+
 def window_variance(r_img: torch.Tensor, win_h: int,
                     win_w: int) -> torch.Tensor:
     """Unnormalized variance of y-hat over every (win_h, win_w, C) window,

@@ -21,7 +21,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from dsin_tpu_torch.models.dsin import build_model
+from dsin_tpu_torch.coding.loader import build_at_rung
 from dsin_tpu_torch.models.quantizer import centers_lookup
 from dsin_tpu_torch.ops import sifinder as sifinder_lib
 
@@ -30,17 +30,19 @@ class DeviceServer:
     """One DSIN model on one device, serving encode / open_session /
     decode_si. `device` defaults to the card and raises without one. The
     weights are seeded; `model.load_state_dict` replaces them (e.g. with
-    `bridge.state_dict_from_jax`)."""
+    `bridge.state_dict_from_jax`). `precision` is the ladder rung the model
+    is built on (`coding/precision.py`, through the loader's path); inputs
+    stay float32, and the search runs on the decoder's float32 output at
+    every rung."""
 
-    def __init__(self, ae_config, pc_config, device="cuda", seed: int = 0):
-        self.model = build_model(ae_config, pc_config, device=device,
-                                 seed=seed)
+    def __init__(self, ae_config, pc_config, device="cuda", seed: int = 0,
+                 precision: str = "fp32"):
+        self.model = build_at_rung(ae_config, pc_config, device=device,
+                                   seed=seed, precision=precision)
         self.device = self.model.centers.device
-        self.config = ae_config
+        self.config = self.model.ae_config
         self.patch = tuple(int(v) for v in ae_config.y_patch_size)
-        impl = sifinder_lib.sifinder_impl(ae_config)
-        self.for_kernel = impl == "kernel" or (
-            impl == "auto" and self.device.type == "cuda")
+        self.for_kernel = sifinder_lib.prep_for_kernel(ae_config, self.device)
         self._factors: Dict[Tuple[int, int], Optional[tuple]] = {}
 
     def _tensor(self, x) -> torch.Tensor:
