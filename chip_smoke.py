@@ -4,9 +4,10 @@
 
 Phases; any failure raises, prints no result and exits non-zero:
   1. card check: needs torch.cuda; prints the card's name and power limit;
-  2. build: builds csrc/sifinder_argmax.cu and csrc/probclass_front.cu with
-     nvcc and csrc/range_coder.cpp with g++, all three at once, and prints
-     the build times and ptxas's register / spill lines;
+  2. build: builds csrc/sifinder_argmax.cu, csrc/probclass_front.cu and
+     csrc/decode_epilogue.cu with nvcc and csrc/range_coder.cpp with g++,
+     all four at once, and prints the build times and ptxas's register /
+     spill lines;
   3. kernel vs plain at 320x1224 with 20x24 patches: pearson_argmax at batch 2
      (random inputs with the Gaussian prior, and planted patches without it)
      and pearson_argmax_shared at batch 4, each against its plain torch
@@ -23,10 +24,13 @@ Phases; any failure raises, prints no result and exits non-zero:
   5. the codec at full width: probclass_front_logits (K3) against its plain
      version at B = 1, 5, 64, 128, 256 and the largest front (248) on blocks
      drawn from the centers with the full-width pc_default weights (within
-     1e-5, rows bit-identical across B), timed at the largest front beside
-     its bound and a cuDNN yardstick; then the symbols of
-     2 images from DeviceServer.encode coded in mode 3 (K3) and mode 2
-     (numpy engine), each decoded exactly, with one K3 launch per front;
+     1e-5, rows bit-identical across B and under a permutation, and
+     unchanged by NaN in every input no logit needs), timed at the largest
+     front beside its bound (the work the logit needs) and a cuDNN
+     yardstick; then the symbols of 2 images from DeviceServer.encode coded
+     in mode 3 (K3) and mode 2 (numpy engine), each decoded exactly, with
+     one K3 launch per front; K3 timed at each bucket of a pass beside its
+     bound, and its device time per pass;
      decode_si on the decoded symbols bit-equal to decode_si on the
      originals; compress_array -> decompress_array with and without a side
      image;
@@ -42,7 +46,10 @@ Phases; any failure raises, prints no result and exits non-zero:
      precision leg at 320x1224, batch 2, fp32, bf16 and int8, which must pass
      gate_precision (every stage timed, no build in the timed window, mode-2
      and mode-3 streams byte-identical across the rungs and exact round
-     trips) and launch K2, K3 and K4.
+     trips) and launch K2, K3 and K4; at the default seed, every rung's
+     streams must keep the pinned sha256 prefixes (STREAM_PINS).
+Kernel times are CUDA events around back-to-back runs that the host
+enqueued while the device slept, so they are device time.
 Then one line with the card, one JSON line with the kernels, and last the
 result line {"ok": true, "device": {...}}.
 """
@@ -88,6 +95,11 @@ K3_RTOL, K3_ATOL = 1e-5, 1e-5     # as tests/test_probclass_pallas.py:49
 K3_BATCHES = (1, 5, 64, 128, 256)   # and the largest front of the volume
 K4_RTOL, K4_ATOL = 1e-5, 1e-3     # as tests/test_epilogue_pallas.py:32
 LEG_REPS = 5
+# sha256 prefixes of the precision leg's streams at the default seed, every
+# rung: what the dense probclass front kernel gave; the pruned one must give
+# the same logits bit for bit, hence the same streams
+STREAM_PINS = {"wavefront_np": "54aab8cb7a425f84",
+               "wavefront_pl": "cff25dce13d128d5"}
 SOURCES = {
     "pearson_argmax": "dsin_tpu_torch/csrc/sifinder_argmax.cu",
     "pearson_argmax_shared": "dsin_tpu_torch/csrc/sifinder_argmax.cu",
@@ -107,10 +119,15 @@ def log(msg: str) -> None:
 
 
 def cuda_ms(fn, reps: int) -> float:
-    """Mean device time of fn() over `reps` runs after one warm-up."""
+    """Mean device time of fn() over `reps` runs after one warm-up. The
+    device first sleeps about 10 ms, so the host enqueues the runs ahead of
+    it: a short kernel is timed back to back on the device, not at the
+    host's launch rate."""
     fn()
+    torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -420,38 +437,38 @@ def build_phase():
                 log(f"    ptxas: {ln.strip()}")
 
 
-def k3_bound(batch: int, weights):
-    """(bound_ms, bound_by) of one K3 call on `batch` blocks: the four convs'
-    multiply-adds over the fp32 rate vs blocks, weights and logits over the
-    memory rate. A conv needs only the taps its causality mask keeps (13 of
-    18 in conv0, 14 in the others), each over Cin."""
-    taps = [int(pc_lib.make_mask(3, center).sum())
-            for center in (False, True, True, True)]
-    c, l_out = weights[0][0].shape[1], weights[3][0].shape[1]
-    outputs = [(196 * c, 1), (75 * c, c), (18 * c, c), (l_out, c)]
-    flops = 2.0 * batch * sum(n * t * cin
-                              for (n, cin), t in zip(outputs, taps))
+def k3_bound(batch: int, params):
+    """(bound_ms, bound_by) of one K3 call on `batch` blocks: the
+    multiply-adds the logit rows need over the fp32 rate (each needed output
+    of each layer over the taps its causality mask keeps and its inputs,
+    `pk.needed_fmas`: 611,424 a block at C = 24, L = 6) vs the blocks, the
+    compacted weights with their tables and the logits over the memory
+    rate."""
+    c, l_out = params.layout["channels"], params.layout["logits"]
+    flops = 2.0 * batch * pk.needed_fmas(c, l_out)
     nbytes = 4 * (batch * int(np.prod(pk.CONTEXT)) + batch * l_out
-                  + sum(w.numel() + b.numel() for w, b in weights))
+                  + params.buffer.numel())
     t_ops, t_bytes = flops / FP32_PEAK * 1e3, nbytes / HBM_RATE * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 def k3_phase(model, rng, dev, top: int):
     """K3 against its plain version on blocks drawn from the centers with
-    the model's probclass weights; rows bit-identical across B. Timed at
-    `top`, the largest front of the path's volume and its largest bucket."""
+    the model's probclass weights; rows bit-identical across B; NaN in every
+    input no logit needs changes no logit. Timed at `top`, the largest front
+    of the path's volume and its largest bucket."""
     weights = [(torch.from_numpy(w).to(dev), torch.from_numpy(b).to(dev))
                for w, b in pc_lib.front_weight_matrices(model.probclass)]
+    params = pk.prepare_front(weights)
     centers = model.centers.detach().cpu().numpy()
     batches = sorted(set(K3_BATCHES) | {top})
     n = max(batches)
     blocks = torch.from_numpy(rng.choice(centers, size=(n,) + pk.CONTEXT)
                               .astype(np.float32)).to(dev)
-    full = pk.probclass_front_logits(blocks, weights)
+    full = pk.probclass_front_logits(blocks, params)
     err = 0.0
     for b in batches:
-        got = pk.probclass_front_logits(blocks[:b].contiguous(), weights)
+        got = pk.probclass_front_logits(blocks[:b].contiguous(), params)
         ref = pk.probclass_front_logits_reference(blocks[:b], weights)
         torch.testing.assert_close(got, ref, rtol=K3_RTOL, atol=K3_ATOL)
         if not torch.equal(got, full[:b]):
@@ -460,8 +477,18 @@ def k3_phase(model, rng, dev, top: int):
         err = max(err, float((got - ref).abs().max()))
     perm = torch.randperm(n, generator=torch.Generator().manual_seed(0))
     if not torch.equal(pk.probclass_front_logits(
-            blocks[perm.to(dev)].contiguous(), weights), full[perm.to(dev)]):
+            blocks[perm.to(dev)].contiguous(), params), full[perm.to(dev)]):
         raise AssertionError("K3 rows depend on their batchmates' order")
+    keep = torch.zeros(pk.CONTEXT, dtype=torch.bool)
+    for p in pk.needed_positions(pk.KERNEL_SIZE)[0]:
+        keep[p] = True
+    drop = ~keep.to(dev)
+    nan = pk.probclass_front_logits(blocks.masked_fill(drop, float("nan")),
+                                    params)
+    if not (torch.equal(nan, pk.probclass_front_logits(
+            blocks.masked_fill(drop, 0.0), params)) and torch.equal(nan, full)):
+        raise AssertionError("K3 logits change with NaN in the "
+                             f"{int(drop.sum())} inputs no logit needs")
 
     timed_blocks = blocks[:top].contiguous()
 
@@ -470,14 +497,15 @@ def k3_phase(model, rng, dev, top: int):
             return model.probclass(timed_blocks[:, None]).reshape(top, -1)
 
     torch.testing.assert_close(yard(), full[:top], rtol=1e-4, atol=1e-4)
-    ms = cuda_ms(lambda: pk.probclass_front_logits(timed_blocks, weights), 50)
+    ms = cuda_ms(lambda: pk.probclass_front_logits(timed_blocks, params), 50)
     plain_ms = cuda_ms(
         lambda: pk.probclass_front_logits_reference(timed_blocks, weights), 10)
     lib_ms = cuda_ms(yard, 10)
-    b_ms, b_by = k3_bound(top, weights)
+    b_ms, b_by = k3_bound(top, params)
     log(f"  K3 vs plain at B={tuple(batches)}: max |kernel - plain| "
         f"{err:.3g} (rtol {K3_RTOL}, atol {K3_ATOL}); rows bit-identical "
-        f"across B and under a permutation")
+        f"across B and under a permutation; NaN in the {int(drop.sum())} "
+        f"unneeded inputs of each block changes no logit bit")
     log(f"  K3 at B={top}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"library (cuDNN conv3d ResShallow) {lib_ms:.4f} ms, bound "
         f"{b_ms:.4f} ms ({b_by}), {100 * b_ms / ms:.1f}% of bound")
@@ -578,24 +606,30 @@ def codec_path(server, codec, x, y, seed: int):
 
 def k3_pass_breakdown(codec, shape, pass_ms, rng, dev):
     """K3 device ms of one mode-3 pass (CUDA events at each bucket size of
-    the pass's fronts, times their count) beside the pass's host-clock ms
-    and the bound of the pass (each front's real blocks, no padding): the
-    rest is host work per front."""
+    the pass's fronts, each beside its bound, times their count) beside the
+    pass's host-clock ms and the bound of the pass (each front's real
+    blocks, no padding): the rest is host work per front."""
     fronts = codec._wavefronts(*shape)
     top = max(len(f) for f in fronts)
     buckets = collections.Counter(codec_lib.front_bucket(len(f), top)
                                   for f in fronts)
-    weights = codec._front_kernel_engine().weights
+    params = codec._front_kernel_engine().params
     blocks = torch.from_numpy(rng.choice(codec.centers, size=(top,)
                                          + pk.CONTEXT).astype(np.float32))
     blocks = blocks.to(dev)
-    kernel_ms = sum(n * cuda_ms(lambda: pk.probclass_front_logits(
-        blocks[:b], weights), 20) for b, n in buckets.items())
+    per_bucket = {b: cuda_ms(lambda: pk.probclass_front_logits(
+        blocks[:b], params), 50) for b in sorted(buckets)}
+    log("  K3 per bucket (blocks: fronts in the pass, kernel ms, bound us, "
+        "share of bound): " + "; ".join(
+            f"{b}: {buckets[b]}, {ms:.4f}, {1e3 * k3_bound(b, params)[0]:.4f}"
+            f", {100 * k3_bound(b, params)[0] / ms:.1f}%"
+            for b, ms in per_bucket.items()))
+    kernel_ms = sum(buckets[b] * ms for b, ms in per_bucket.items())
     host_ms = pass_ms - kernel_ms
-    bound_ms = sum(k3_bound(len(f), weights)[0] for f in fronts)
+    bound_ms = sum(k3_bound(len(f), params)[0] for f in fronts)
     log(f"  mode-3 pass of {len(fronts)} fronts, {sum(map(len, fronts))} "
         f"blocks (buckets {dict(sorted(buckets.items()))}): bound "
-        f"{bound_ms:.3f} ms; K3 device {kernel_ms:.1f} ms of "
+        f"{bound_ms:.3f} ms; K3 device {kernel_ms:.2f} ms of "
         f"{pass_ms:.1f} ms ({100 * kernel_ms / pass_ms:.1f}%); the rest, "
         f"{1e3 * host_ms / len(fronts):.0f} us per front, is host work "
         f"(block gather, copies, launch, softmax + tables, rANS)")
@@ -729,9 +763,17 @@ def leg_phase(seed: int, dev) -> int:
         f"{rung}: " + ", ".join(f"{k} {v:.3f}" for k, v in
                                 entry["stage_device_ms"].items())
         for rung, entry in section["per_rung"].items()))
+    if seed == 0:
+        for rung, entry in section["per_rung"].items():
+            for mode, pin in STREAM_PINS.items():
+                if not entry["stream_sha256"][mode].startswith(pin):
+                    raise AssertionError(
+                        f"precision leg {rung} {mode} stream sha256 "
+                        f"{entry['stream_sha256'][mode][:16]}, pinned {pin}")
     digests = section["per_rung"]["fp32"]["stream_sha256"]
     log(f"  streams byte-identical across {section['rungs']}: "
         + ", ".join(f"{m} {digests[m][:16]}" for m in leg_lib.MODES)
+        + ("" if seed else " (the pinned prefixes)")
         + "; every stream round-trips; steady builds "
         + str({r: e["steady_builds"]
                for r, e in section["per_rung"].items()}))

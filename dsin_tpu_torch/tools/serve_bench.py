@@ -141,7 +141,7 @@ def run_precision_section(ae_config: str, pc_config: str, bucket, reps: int,
         blocks = torch.from_numpy(rng.choice(
             codec.centers, size=(FRONT_BLOCKS, cd, cs, cs)).astype(
                 np.float32)).to(dev)
-        weights = codec._front_kernel_engine().weights
+        front = codec._front_kernel_engine().params
         epi = epi_lib.fold_epilogue_params(model.decoder, cfg.normalization)
         epi = epi._replace(wmat=epi.wmat.to(cdt))
         cin = epi.wmat.shape[0] // (epi_lib.K * epi_lib.K)
@@ -154,7 +154,7 @@ def run_precision_section(ae_config: str, pc_config: str, bucket, reps: int,
             "decode": lambda: model.decode(centers_lookup(model.centers,
                                                           sym)),
             "probclass_front_kernel":
-                lambda: pk.probclass_front_logits(blocks, weights),
+                lambda: pk.probclass_front_logits(blocks, front),
             "probclass_front_library":
                 lambda: model.probclass(blocks[:, None]),
             "si_search": lambda: sifinder_lib.synthesize_side_image_prepped(

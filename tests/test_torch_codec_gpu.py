@@ -11,7 +11,8 @@ Tolerances: the kernel and its plain torch version sum the same fp32
 products in another order, so logits agree within rtol/atol 1e-5 (the slack
 tests/test_probclass_pallas.py:49 allows between Pallas and XLA); rows of
 one block are bit-identical whatever the batch; mode-3 streams round-trip
-exactly.
+exactly. NaN in every input no logit needs changes no logit bit: the
+kernel reads only the positions `needed_positions` lists.
 """
 
 import numpy as np
@@ -87,6 +88,43 @@ def test_rows_are_bit_identical_across_batches(cuda):
     padded = torch.cat([blocks[:3], torch.zeros_like(blocks[:5])])
     assert torch.equal(pk.probclass_front_logits(padded, weights)[:3],
                        full[:3])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("full", [False, True], ids=["tiny", "pc_default"])
+def test_nan_in_unneeded_inputs_changes_no_logit(cuda, full):
+    _, res, centers = _context_model(full)
+    blocks, weights = _operands(res, centers, 130, cuda)
+    keep = torch.zeros(pk.CONTEXT, dtype=torch.bool)
+    for p in pk.needed_positions(3)[0]:
+        keep[p] = True
+    drop = ~keep.to(cuda)
+    nan = blocks.masked_fill(drop, float("nan"))
+    zero = blocks.masked_fill(drop, 0.0)
+    got = pk.probclass_front_logits(nan, weights)
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, pk.probclass_front_logits(zero, weights))
+    assert torch.equal(got, pk.probclass_front_logits(blocks, weights))
+
+
+@pytest.mark.gpu
+def test_prepared_params_equal_the_pairs(cuda):
+    _, res, centers = _context_model(True)
+    blocks, weights = _operands(res, centers, 64, cuda)
+    params = pk.prepare_front(weights)
+    assert params.buffer.device.type == "cuda"
+    assert torch.equal(pk.probclass_front_logits(blocks, params),
+                       pk.probclass_front_logits(blocks, weights))
+
+
+@pytest.mark.gpu
+def test_widths_off_the_float4_tile_raise(cuda):
+    weights = [(torch.zeros((18 * cin, cout), device=cuda),
+                torch.zeros(cout, device=cuda))
+               for cin, cout in [(1, 6), (6, 6), (6, 6), (6, L)]]
+    with pytest.raises(ValueError, match="multiple of 4"):
+        pk.probclass_front_logits(torch.zeros((4,) + pk.CONTEXT,
+                                              device=cuda), weights)
 
 
 @pytest.mark.gpu
