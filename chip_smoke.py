@@ -13,7 +13,9 @@ Phases; any failure raises, prints no result and exits non-zero:
      and pearson_argmax_shared at batch 4, each against its plain torch
      version; prints times (CUDA events), the bound and a yardstick library
      call (materialized F.conv2d score map + argmax, never called by the
-     port);
+     port); then sifinder_dtype='bfloat16' once through the kernel route:
+     K1 on the bfloat16-rounded operands against its plain version, and the
+     route's y_syn equal to what K1 gives there;
   4. the slice at the full width of ae_kitti_stereo + pc_default with seeded
      weights: one session, 4 requests (encode -> decode_si) and one
      from-scratch forward at batch 2, each checked for shape, finite values
@@ -41,7 +43,9 @@ Phases; any failure raises, prints no result and exits non-zero:
      operands are widened to float32, their products are exact there, so both
      sum the same float32 products in another order), rows bit-identical
      across the batch, the float32 image equal to the decoder's own output
-     within the same bound; timed beside its bound and the library chain
+     within the same bound; timed warm (back to back) and cold (a 128 MiB
+     write before each launch, timed alone and subtracted) beside its bound,
+     ptxas's registers and spill, and the library chain
      (F.conv_transpose2d + crop, affine, clip, 3x3 map); then the serve-bench
      precision leg at 320x1224, batch 2, fp32, bf16 and int8, which must pass
      gate_precision (every stage timed, no build in the timed window, mode-2
@@ -81,8 +85,11 @@ from dsin_tpu_torch.ops import color as color_lib
 from dsin_tpu_torch.ops import epilogue as ek
 from dsin_tpu_torch.ops import sifinder as sifinder_lib
 from dsin_tpu_torch.ops import sifinder_kernel as sk
+from dsin_tpu_torch.ops.patches import assemble_patches
 from dsin_tpu_torch.runtime import config_path, resolve_device
 from dsin_tpu_torch.serve.device import DeviceServer
+from dsin_tpu_torch.tools import k4_bench
+from dsin_tpu_torch.tools.k4_bench import warm_ms as cuda_ms
 from dsin_tpu_torch.tools import serve_bench as leg_lib
 
 H, W, PH, PW = 320, 1224, 20, 24
@@ -116,24 +123,6 @@ REPLACES = {
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def cuda_ms(fn, reps: int) -> float:
-    """Mean device time of fn() over `reps` runs after one warm-up. The
-    device first sleeps about 10 ms, so the host enqueues the runs ahead of
-    it: a short kernel is timed back to back on the device, not at the
-    host's launch rate."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(20_000_000)
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
 
 
 def stage_ms(steps) -> str:
@@ -234,6 +223,35 @@ def library_argmax(ops, shared: bool):
     return torch.argmax(score.reshape(b, p, -1), dim=2)
 
 
+def knob_phase(x: np.ndarray, y: np.ndarray, dev):
+    """`sifinder_dtype = 'bfloat16'` through the kernel route once: y_syn
+    from `synthesize_side_image` must be what K1 gives on the bfloat16-
+    rounded operands, and K1 on them must agree with the plain version on
+    the same operands under the margin rule."""
+    ae, _ = full_configs()
+    cfg = ae.replace(sifinder_impl="kernel", sifinder_dtype="bfloat16")
+    xt, yt = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+    sk.reset_launch_counts()
+    y_syn = sifinder_lib.synthesize_side_image(xt, yt, yt, None, PH, PW, cfg)
+    if sk.launch_counts["pearson_argmax"] != 1:
+        raise AssertionError(f"the bf16 knob's route: {sk.launch_counts}")
+    y_t, pk, inv, gh, gw_t = operands(x, y, False, dev)
+    ops = (sifinder_lib.round_operand(y_t, torch.bfloat16),
+           sifinder_lib.round_operand(pk, torch.bfloat16), inv, gh, gw_t)
+    got = sk.pearson_argmax(*ops, PH, PW)
+    check_agreement("pearson_argmax bf16-rounded operands b=2", ops, got,
+                    sk.pearson_argmax_reference(*ops, PH, PW))
+    wc = W - PW + 1
+    want = torch.stack([assemble_patches(sifinder_lib.gather_patches(
+        yt[i], torch.div(idx, wc, rounding_mode="floor"), idx % wc, PH, PW),
+        H, W) for i, idx in enumerate(got[1])])
+    if not torch.equal(y_syn, want):
+        raise AssertionError("the bf16 knob's route differs from K1 on the "
+                             "rounded operands")
+    log("  sifinder_dtype='bfloat16' through the kernel route: y_syn equal "
+        "to K1's on the rounded operands")
+
+
 def kernel_phase(seed: int, dev):
     rng = np.random.default_rng(seed)
     rows = {}
@@ -261,6 +279,8 @@ def kernel_phase(seed: int, dev):
     err = max(err, check_agreement(
         "pearson_argmax planted b=2", ops_p, sk.pearson_argmax(*ops_p, PH, PW),
         sk.pearson_argmax_reference(*ops_p, PH, PW), planted))
+
+    knob_phase(x, y, dev)
 
     reps = 5
     ms = cuda_ms(lambda: sk.pearson_argmax(*ops, PH, PW), reps)
@@ -693,6 +713,7 @@ def k4_phase(seed: int, dev):
         x_dec = model.decode(q)
     if tuple(x_pre.shape) != (2, H // 2, W // 2, 64):
         raise AssertionError(f"decoder activation {tuple(x_pre.shape)}")
+    log(f"  K4 ptxas: {k4_bench.ptxas_summary(ek.load_library().ptxas_log)}")
     rows = {}
     for dtype in (torch.float32, torch.bfloat16):
         xs, wmat = x_pre.to(dtype), epi.wmat.to(dtype)
@@ -719,6 +740,8 @@ def k4_phase(seed: int, dev):
                                        atol=K4_ATOL)
         inside = float(((ref_img > 0) & (ref_img < 255)).float().mean())
         ms = cuda_ms(lambda: ek.fused_decode_epilogue(*operands), 50)
+        cold, flush = k4_bench.cold_ms(
+            lambda: ek.fused_decode_epilogue(*operands))
         plain_ms = cuda_ms(lambda: ek.epilogue_reference(*operands), 10)
         lib_ms = cuda_ms(lambda: leg_lib.epilogue_library(
             xs, deconv, epi._replace(wmat=wmat)), 10)
@@ -727,9 +750,12 @@ def k4_phase(seed: int, dev):
         log(f"  K4 {name} at {tuple(xs.shape)}: max |kernel - plain| "
             f"{err:.3g} (rtol {K4_RTOL}, atol {K4_ATOL}), {100 * inside:.1f}%"
             f" of pixels inside the clip, image 1 alone bit-equal to the "
-            f"batch's; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
-            f"(conv_transpose2d chain) {lib_ms:.4f} ms, bound {b_ms:.4f} ms "
-            f"({b_by}), {100 * b_ms / ms:.1f}% of bound")
+            f"batch's; kernel {ms:.4f} ms warm, {cold:.4f} ms cold (L2 "
+            f"flushed by a {k4_bench.FLUSH_BYTES >> 20} MiB write before each "
+            f"launch, {flush:.4f} ms, subtracted), plain {plain_ms:.4f} ms, "
+            f"library (conv_transpose2d chain) {lib_ms:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by}), {100 * b_ms / ms:.1f}% of bound warm, "
+            f"{100 * b_ms / cold:.1f}% cold")
         rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                           bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
     log("  K4 float32 image vs the decoder's own output (conv2 + BN + "

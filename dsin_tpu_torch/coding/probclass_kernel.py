@@ -11,7 +11,8 @@ and its bound); this module builds it with `nvcc` at first use
   (`needed_fmas`);
 * `prepare_front(weights) -> FrontParams`: the compacted weights (masked
   rows dropped) and those tables packed into one device buffer, with the
-  layout the kernel reads; prepared once per engine;
+  layout the kernel reads; prepared once per engine. Any C: the buffer's
+  weights are padded to the kernel's float4 channel tile (`pad_channels`);
 * `probclass_front_logits(blocks, weights)`: (B, 5, 9, 9) float32 context
   blocks -> (B, L) float32 logits through the four masked convs. A CUDA
   tensor launches the kernel or raises; a CPU tensor takes the plain
@@ -46,6 +47,7 @@ KERNEL_SIZE = 3                            # the kernel's fixed filter geometry
 CONTEXT = pc_lib.context_shape(KERNEL_SIZE)          # (5, 9, 9)
 FILTER = pc_lib.filter_shape(KERNEL_SIZE)            # (2, 3, 3)
 FILTER_TAPS = int(np.prod(FILTER))                   # 18
+CHANNEL_TILE = 4                           # the kernel's float4 over channels
 
 # one count per wrapper call that launches the kernel; never incremented by
 # the plain version
@@ -166,13 +168,42 @@ def _align4(n: int) -> int:
     return -(-n // 4) * 4
 
 
+def pad_channels(weights) -> list:
+    """The four (W, b) pairs with C padded up to a multiple of
+    `CHANNEL_TILE`: zero weight rows for the added input channels, zero
+    weight columns and zero biases for the added output channels. An added
+    channel's activation is then ReLU(0) = 0 (conv2's skip adds act1's 0),
+    every added term is fmaf(0, 0, acc), and the real channels keep their
+    Cin-ascending order, so the logits keep their bits (a -0 may become
+    +0)."""
+    c = weights[0][0].shape[1]
+    cp = -(-c // CHANNEL_TILE) * CHANNEL_TILE
+    if cp == c:
+        return list(weights)
+    out = []
+    for i, (w, b) in enumerate(weights):
+        cin, cin_p = (1, 1) if i == 0 else (c, cp)
+        cout = w.shape[1]
+        cout_p = cp if i < 3 else cout
+        wp = w.new_zeros((FILTER_TAPS, cin_p, cout_p))
+        wp[:, :cin, :cout] = w.reshape(FILTER_TAPS, cin, cout)
+        bp = b.new_zeros(cout_p)
+        bp[:cout] = b
+        out.append((wp.reshape(FILTER_TAPS * cin_p, cout_p), bp))
+    return out
+
+
 def prepare_front(weights) -> FrontParams:
     """Pack the tables and the compacted weights into one buffer on the
     weights' device. Three segments, each staged by one bulk copy: the
     tables with w0 and b0; w1 and b1; w2, b2, w3 and b3. Every piece starts
     on a 16-byte boundary. The compacted W keeps the kept taps' rows in
-    their order: ((kept taps) * Cin, Cout)."""
-    c, l_out = _check_weights(weights)
+    their order: ((kept taps) * Cin, Cout), with C padded by
+    `pad_channels` (the layout's `channels` is the padded C; `weights`, the
+    plain version's, stay as given)."""
+    _check_weights(weights)
+    padded = pad_channels(weights)
+    c, l_out = _check_weights(padded)
     ks = KERNEL_SIZE
     grids, taps = _grids(ks), _layer_taps(ks)
     outs = needed_positions(ks)[1:] + [[(0, 0, 0)]]
@@ -195,7 +226,7 @@ def prepare_front(weights) -> FrontParams:
         tables.append((f"pos{i}", np.array(rows, np.int32).ravel()))
         lay[f"npos{i}"] = len(outs[i])
     mats = []              # (layout field, float32 words)
-    for i, (w, b) in enumerate(weights):
+    for i, (w, b) in enumerate(padded):
         rows = np.flatnonzero(pc_lib.make_mask(ks, i > 0).ravel())
         w = w.detach().cpu().numpy()
         kept = w.reshape(-1, w.shape[0] // FILTER_TAPS, w.shape[1])[rows]
@@ -280,9 +311,6 @@ def probclass_front_logits(blocks: torch.Tensor, weights):
                          f"got {blocks.device}")
     if params is None:
         params = prepare_front(pairs)
-    if params.layout["channels"] % 4:
-        raise ValueError(f"the probclass front kernel takes C a multiple of "
-                         f"4 (float4 tiles), got {params.layout['channels']}")
     lib = load_library()
     b, lay = blocks.shape[0], params.layout
     out = torch.empty((b, lay["logits"]), dtype=torch.float32,

@@ -27,7 +27,10 @@ and its bound); this module builds it with `nvcc` at first use
   bfloat16 values are exact in float32), so both sum the same float32
   products.
 
-The wrapper counts its launches in `launch_counts`.
+The wrapper counts its launches in `launch_counts`. `load_library(source)`
+and `launch(lib, ...)` build and run another version of the kernel's source
+with the same entry, uncounted, for a comparison on the card
+(`tools/k4_bench.py`).
 """
 
 from __future__ import annotations
@@ -131,11 +134,12 @@ class KernelLibrary(NamedTuple):
 
 
 @functools.lru_cache(maxsize=None)
-def load_library() -> KernelLibrary:
-    """Build `csrc/decode_epilogue.cu` into `build/` (keyed by a hash of the
-    source and flags) unless already built, and bind it. Raises on
-    failure."""
-    so, seconds, log = native_build.build(SOURCE, native_build.nvcc(),
+def load_library(source: Path = SOURCE) -> KernelLibrary:
+    """Build `source` (by default `csrc/decode_epilogue.cu`; another version
+    of it with the same entry for a comparison) into `build/` (keyed by a
+    hash of the source and flags) unless already built, and bind it. Raises
+    on failure."""
+    so, seconds, log = native_build.build(Path(source), native_build.nvcc(),
                                           NVCC_FLAGS, "decode_epilogue")
     lib = ctypes.CDLL(str(so))
     fn = lib.decode_epilogue
@@ -193,8 +197,18 @@ def fused_decode_epilogue(x: torch.Tensor, wmat: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"the epilogue kernel runs on CUDA tensors, got "
                          f"{x.device}")
-    lib = load_library()
-    n, h2, w2, _ = x.shape
+    img, srch = launch(load_library(), x, *epi)
+    launch_counts["fused_decode_epilogue"] += 1
+    return img, srch
+
+
+def launch(lib: KernelLibrary, x: torch.Tensor, wmat: torch.Tensor,
+           img_scale: torch.Tensor, img_bias: torch.Tensor,
+           st_mat: torch.Tensor, st_bias: torch.Tensor):
+    """Launch `lib`'s kernel on checked CUDA operands; raises on a refused
+    launch. The wrapper's launch, without its count (a comparison of two
+    builds times them through this)."""
+    n, h2, w2, cin = x.shape
     img = torch.empty((n, 2 * h2, 2 * w2, 3), dtype=torch.float32,
                       device=x.device)
     srch = torch.empty_like(img)
@@ -208,7 +222,6 @@ def fused_decode_epilogue(x: torch.Tensor, wmat: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"fused_decode_epilogue launch failed: CUDA error "
                            f"{err} ({lib.error_string(err).decode()})")
-    launch_counts["fused_decode_epilogue"] += 1
     return img, srch
 
 

@@ -19,6 +19,10 @@ Two implementations, chosen by the config key `sifinder_impl`:
     run their plain torch version for CPU tensors;
   * 'auto'   -- 'kernel' for CUDA tensors when the prior is the standard
     Gaussian or absent, else 'torch'.
+The config key `sifinder_dtype` ('float32', 'bfloat16' or 'float16'; missing
+or None = float32) rounds the correlation's two operands, the normalized
+x-hat patches and the transformed side image, to that dtype; the products are
+summed in float32 on every route (`sifinder_conv_dtype`).
 The L2/LAB mode and the row-tiled search are not ported yet.
 """
 
@@ -35,6 +39,13 @@ from dsin_tpu_torch.ops.patches import assemble_patches, extract_patches
 
 IMPLS = ("auto", "torch", "kernel")
 EPS = 1e-12          # inside the square roots of the Pearson normalizers
+CONV_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+               "float16": torch.float16}
+
+
+class PrepDtypeMismatch(ValueError):
+    """A SidePrep rounded to one `sifinder_dtype` used by a search under
+    another."""
 
 
 class SearchResult(NamedTuple):
@@ -59,6 +70,7 @@ class SidePrep(NamedTuple):
     inv_denom: Optional[torch.Tensor] = None  # (Hc, Wc) rsqrt form
     gh_k: Optional[torch.Tensor] = None    # (Hc, P), ones without a prior
     gw_t: Optional[torch.Tensor] = None    # (P, Wc), ones without a prior
+    conv_dtype: torch.dtype = torch.float32   # sifinder_dtype it serves
 
 
 def sifinder_impl(config) -> str:
@@ -69,6 +81,35 @@ def sifinder_impl(config) -> str:
         raise NotImplementedError("the L2/LAB search mode is not ported; "
                                   "set use_L2andLAB = False")
     return impl
+
+
+def sifinder_conv_dtype(config) -> torch.dtype:
+    """The one reading of the `sifinder_dtype` knob (the JAX package's
+    `sifinder_conv_dtype`): missing or None -> float32, else the named
+    dtype of `CONV_DTYPES`; anything else raises ValueError."""
+    val = getattr(config, "sifinder_dtype", None)
+    if val is None:
+        return torch.float32
+    if str(val) not in CONV_DTYPES:
+        raise ValueError(f"sifinder_dtype={val!r}: expected None or one of "
+                         f"{tuple(CONV_DTYPES)}")
+    return CONV_DTYPES[str(val)]
+
+
+def round_operand(t: torch.Tensor, conv_dtype: torch.dtype) -> torch.Tensor:
+    """`t` rounded to `conv_dtype` and held as float32: a product of two
+    such values is exact in float32, so a float32 sum of them is what JAX's
+    cast operands with `preferred_element_type=float32` compute."""
+    if conv_dtype == torch.float32:
+        return t
+    return t.to(conv_dtype).to(torch.float32)
+
+
+def _check_prep_dtype(prep: "SidePrep", conv_dtype: torch.dtype) -> None:
+    if prep.conv_dtype != conv_dtype:
+        raise PrepDtypeMismatch(
+            f"the SidePrep was built for sifinder_dtype {prep.conv_dtype}, "
+            f"the search runs {conv_dtype}: open the session again")
 
 
 def prep_for_kernel(config, device: torch.device) -> bool:
@@ -163,10 +204,13 @@ def standard_mask_factors(mask, img_h: int, img_w: int, patch_h: int,
 
 def build_side_prep(y_img: torch.Tensor, y_dec: torch.Tensor, patch_h: int,
                     patch_w: int, *, mask_factors=None,
-                    for_kernel: bool = False) -> SidePrep:
+                    for_kernel: bool = False,
+                    conv_dtype: torch.dtype = torch.float32) -> SidePrep:
     """SidePrep for one side image (tensors HWC). `mask_factors` is (gh, gw)
     from `gaussian_position_mask_factors`, or None for no prior.
-    `for_kernel=True` also builds the kernel's operands."""
+    `for_kernel=True` also builds the kernel's operands, with `y_t` rounded
+    to `conv_dtype` (the prep records it; a search under another dtype
+    raises `PrepDtypeMismatch`)."""
     r_img = color_lib.search_transform(y_dec)
     inv_std = 1.0 / torch.sqrt(window_variance(r_img, patch_h, patch_w) + EPS)
     gh = gw = None
@@ -174,7 +218,7 @@ def build_side_prep(y_img: torch.Tensor, y_dec: torch.Tensor, patch_h: int,
         gh, gw = (torch.as_tensor(m, dtype=torch.float32, device=y_img.device)
                   for m in mask_factors)
     prep = SidePrep(y_img=y_img, r_img=r_img, inv_window_std=inv_std,
-                    gh=gh, gw=gw)
+                    gh=gh, gw=gw, conv_dtype=conv_dtype)
     if for_kernel:
         from dsin_tpu_torch.ops import sifinder_kernel
         y_t, inv_denom = sifinder_kernel.side_from_transformed(
@@ -184,14 +228,18 @@ def build_side_prep(y_img: torch.Tensor, y_dec: torch.Tensor, patch_h: int,
             p_count = (y_img.shape[0] // patch_h) * (y_img.shape[1] // patch_w)
             gh = torch.ones((hc, p_count), device=y_img.device)
             gw = torch.ones((wc, p_count), device=y_img.device)
-        prep = prep._replace(y_t=y_t, inv_denom=inv_denom,
+        prep = prep._replace(y_t=round_operand(y_t, conv_dtype),
+                             inv_denom=inv_denom,
                              gh_k=gh.contiguous(), gw_t=gw.t().contiguous())
     return prep
 
 
-def _correlate(patches: torch.Tensor, image: torch.Tensor) -> torch.Tensor:
+def _correlate(patches: torch.Tensor, image: torch.Tensor,
+               conv_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """VALID correlation of image (H, W, C) with patches (P, ph, pw, C) as
-    filters -> (H - ph + 1, W - pw + 1, P)."""
+    filters -> (H - ph + 1, W - pw + 1, P); both operands rounded to
+    `conv_dtype`, the sum in float32."""
+    image, patches = (round_operand(t, conv_dtype) for t in (image, patches))
     out = F.conv2d(image.permute(2, 0, 1)[None], patches.permute(0, 3, 1, 2))
     return out[0].permute(1, 2, 0)
 
@@ -217,20 +265,22 @@ def gather_patches(y_image: torch.Tensor, rows: torch.Tensor,
 
 def search_single(x_dec: torch.Tensor, y_img: Optional[torch.Tensor],
                   y_dec: Optional[torch.Tensor], mask, patch_h: int,
-                  patch_w: int,
-                  prep: Optional[SidePrep] = None) -> SearchResult:
+                  patch_w: int, prep: Optional[SidePrep] = None,
+                  conv_dtype: torch.dtype = torch.float32) -> SearchResult:
     """Full search for one image pair (tensors HWC). `prep` skips the side
     half; a prep carrying prior factors supplies the prior itself (then
-    `mask` must be None)."""
+    `mask` must be None). `conv_dtype` rounds the correlation's operands."""
     h, w, _ = x_dec.shape
     if prep is None:
-        prep = build_side_prep(y_img, y_dec, patch_h, patch_w)
+        prep = build_side_prep(y_img, y_dec, patch_h, patch_w,
+                               conv_dtype=conv_dtype)
+    _check_prep_dtype(prep, conv_dtype)
     if prep.gh is not None:
         if mask is not None:
             raise ValueError("pass the prior as prep factors OR as mask")
         mask = prep.gh[:, None, :] * prep.gw[None, :, :]
     q = color_lib.search_transform(extract_patches(x_dec, patch_h, patch_w))
-    num = _correlate(normalized_patches(q), prep.r_img)
+    num = _correlate(normalized_patches(q), prep.r_img, conv_dtype)
     scores = num * prep.inv_window_std[..., None]
     if mask is not None:
         scores = scores * torch.as_tensor(mask, device=scores.device)
@@ -252,6 +302,7 @@ def synthesize_side_image(x_dec: torch.Tensor, y_img: torch.Tensor,
     (checked element for element), so 'kernel' with any other mask raises
     and 'auto' sends it to 'torch'."""
     impl = sifinder_impl(config)
+    conv_dtype = sifinder_conv_dtype(config)
     h, w = x_dec.shape[1], x_dec.shape[2]
     factors = (None if impl == "torch" else
                standard_mask_factors(mask, h, w, patch_h, patch_w))
@@ -271,10 +322,11 @@ def synthesize_side_image(x_dec: torch.Tensor, y_img: torch.Tensor,
                        np.ones((wc, p_count), np.float32))
         gh, gw = (torch.as_tensor(f, device=x_dec.device) for f in factors)
         return sifinder_kernel.fused_synthesize_side_image(
-            x_dec, y_img, y_dec, gh, gw, patch_h, patch_w)
+            x_dec, y_img, y_dec, gh, gw, patch_h, patch_w, conv_dtype)
     return torch.stack([
         search_single(x_dec[i], y_img[i], y_dec[i], mask, patch_h,
-                      patch_w).y_syn for i in range(x_dec.shape[0])])
+                      patch_w, conv_dtype=conv_dtype).y_syn
+        for i in range(x_dec.shape[0])])
 
 
 def synthesize_side_image_prepped(x_dec: torch.Tensor, prep: SidePrep,
@@ -282,8 +334,11 @@ def synthesize_side_image_prepped(x_dec: torch.Tensor, prep: SidePrep,
                                   config) -> torch.Tensor:
     """Batched y_syn (N, H, W, 3) against ONE cached SidePrep: the serving
     path. 'kernel' needs a prep built with `for_kernel=True`; 'auto' takes
-    the kernel for CUDA tensors when the prep carries it."""
+    the kernel for CUDA tensors when the prep carries it. The prep must
+    have been built under the config's `sifinder_dtype`."""
     impl = sifinder_impl(config)
+    conv_dtype = sifinder_conv_dtype(config)
+    _check_prep_dtype(prep, conv_dtype)
     if impl == "auto":
         impl = "kernel" if x_dec.is_cuda and prep.y_t is not None else "torch"
     if impl == "kernel":
@@ -292,4 +347,5 @@ def synthesize_side_image_prepped(x_dec: torch.Tensor, prep: SidePrep,
             x_dec, prep, patch_h, patch_w)
     return torch.stack([
         search_single(x_dec[i], None, None, None, patch_h, patch_w,
-                      prep=prep).y_syn for i in range(x_dec.shape[0])])
+                      prep=prep, conv_dtype=conv_dtype).y_syn
+        for i in range(x_dec.shape[0])])

@@ -277,14 +277,19 @@ def _assemble(y_img: torch.Tensor, best: torch.Tensor, ph: int, pw: int,
 
 def fused_synthesize_side_image(x_dec: torch.Tensor, y_img: torch.Tensor,
                                 y_dec: torch.Tensor, gh: torch.Tensor,
-                                gw: torch.Tensor, ph: int,
-                                pw: int) -> torch.Tensor:
+                                gw: torch.Tensor, ph: int, pw: int,
+                                conv_dtype: torch.dtype = torch.float32
+                                ) -> torch.Tensor:
     """Batched y_syn (N, H, W, 3) through `pearson_argmax`; gh (Hc, P) and
-    gw (Wc, P) the prior factors (ones for no prior)."""
-    pk = prepare_query(x_dec, ph, pw)
+    gw (Wc, P) the prior factors (ones for no prior). The correlation's
+    operands `pk` and `y_t` are rounded to `conv_dtype` and stay float32
+    tensors (the Pallas kernel's `compute_dtype`); the denominator and the
+    prior stay unrounded."""
+    pk = sifinder_lib.round_operand(prepare_query(x_dec, ph, pw), conv_dtype)
     sides = [side_from_transformed(color_lib.search_transform(yd), ph, pw)
              for yd in y_dec]
-    y_t = torch.stack([s[0] for s in sides])
+    y_t = sifinder_lib.round_operand(torch.stack([s[0] for s in sides]),
+                                     conv_dtype)
     inv_denom = torch.stack([s[1] for s in sides])
     wc = y_t.shape[-1] - pw + 1
     _, best = pearson_argmax(y_t, pk, inv_denom, gh.contiguous(),
@@ -296,11 +301,13 @@ def fused_synthesize_side_image(x_dec: torch.Tensor, y_img: torch.Tensor,
 def fused_synthesize_side_image_prepped(x_dec: torch.Tensor, prep, ph: int,
                                         pw: int) -> torch.Tensor:
     """Batched y_syn (N, H, W, 3) against ONE cached `SidePrep` built with
-    `for_kernel=True`: only the query prep runs per request."""
+    `for_kernel=True`: only the query prep runs per request, its patches
+    rounded to the dtype the prep's `y_t` was rounded to."""
     if prep.y_t is None:
         raise ValueError("prep lacks the kernel half: "
                          "build_side_prep(..., for_kernel=True)")
-    pk = prepare_query(x_dec, ph, pw)
+    pk = sifinder_lib.round_operand(prepare_query(x_dec, ph, pw),
+                                    prep.conv_dtype)
     wc = prep.y_t.shape[-1] - pw + 1
     _, best = pearson_argmax_shared(prep.y_t, pk, prep.inv_denom, prep.gh_k,
                                     prep.gw_t, ph, pw)

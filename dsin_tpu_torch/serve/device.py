@@ -75,7 +75,8 @@ class DeviceServer:
         return sifinder_lib.build_side_prep(
             y, y_dec, *self.patch,
             mask_factors=self._mask_factors(y.shape[0], y.shape[1]),
-            for_kernel=self.for_kernel)
+            for_kernel=self.for_kernel,
+            conv_dtype=sifinder_lib.sifinder_conv_dtype(self.config))
 
     @torch.inference_mode()
     def decode_si(self, symbols, prep: sifinder_lib.SidePrep) -> torch.Tensor:

@@ -136,7 +136,8 @@ def run_precision_section(ae_config: str, pc_config: str, bucket, reps: int,
                 bh, bw, ph, pw) if bool(cfg.use_gauss_mask) else None)
             prep = sifinder_lib.build_side_prep(
                 y_side, y_dec, ph, pw, mask_factors=factors,
-                for_kernel=sifinder_lib.prep_for_kernel(cfg, dev))
+                for_kernel=sifinder_lib.prep_for_kernel(cfg, dev),
+                conv_dtype=sifinder_lib.sifinder_conv_dtype(cfg))
         cd, cs, _ = codec.ctx_shape
         blocks = torch.from_numpy(rng.choice(
             codec.centers, size=(FRONT_BLOCKS, cd, cs, cs)).astype(

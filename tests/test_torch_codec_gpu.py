@@ -37,10 +37,12 @@ def cuda():
     return torch.device("cuda")
 
 
-def _context_model(full: bool, seed: int = 0):
+def _context_model(full: bool, seed: int = 0, c=None):
     """A ResShallow with the model's seeded Xavier-uniform weights, random
-    biases, and sorted centers."""
+    biases, and sorted centers; `c` overrides the config's width."""
     _, pc = full_configs() if full else tiny_configs()
+    if c is not None:
+        pc = pc.replace(arch_param__k=c)
     res = pc_lib.ResShallow(pc, L)
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
@@ -118,13 +120,39 @@ def test_prepared_params_equal_the_pairs(cuda):
 
 
 @pytest.mark.gpu
-def test_widths_off_the_float4_tile_raise(cuda):
-    weights = [(torch.zeros((18 * cin, cout), device=cuda),
-                torch.zeros(cout, device=cuda))
-               for cin, cout in [(1, 6), (6, 6), (6, 6), (6, L)]]
-    with pytest.raises(ValueError, match="multiple of 4"):
-        pk.probclass_front_logits(torch.zeros((4,) + pk.CONTEXT,
-                                              device=cuda), weights)
+def test_widths_off_the_float4_tile_give_the_plain_logits(cuda):
+    """C = 6: the prepared buffer pads the channels to 8 with zero weights
+    and biases. Padding moves no bit: the logits are torch.equal to the
+    kernel's on the same model padded to 12 channels by hand (another
+    buffer, the same real terms in the same order); they agree with the
+    plain version within the K3 tolerance (its matmuls sum in another
+    order); and C = 6 codes in mode 3 exactly."""
+    pc, res, centers = _context_model(False, c=6)
+    blocks, weights = _operands(res, centers, 130, cuda)
+    params = pk.prepare_front(weights)
+    assert params.layout["channels"] == 8
+    got = pk.probclass_front_logits(blocks, params)
+    wide = []
+    for i, (w, b) in enumerate(weights):
+        cin, cout = (1 if i == 0 else 6), w.shape[1]
+        wp = w.new_zeros((18, 1 if i == 0 else 12, 12 if i < 3 else cout))
+        wp[:, :cin, :cout] = w.reshape(18, cin, cout)
+        bp = b.new_zeros(wp.shape[2])
+        bp[:cout] = b
+        wide.append((wp.reshape(-1, wp.shape[2]), bp))
+    assert pk.prepare_front(wide).layout["channels"] == 12
+    assert torch.equal(got, pk.probclass_front_logits(blocks, wide))
+    torch.testing.assert_close(
+        got, pk.probclass_front_logits_reference(blocks, weights),
+        rtol=1e-5, atol=1e-5)
+    codec = codec_lib.BottleneckCodec(pc_lib.front_weight_matrices(res),
+                                      centers, pc, device=cuda)
+    symbols = np.random.default_rng(4).integers(0, L, (8, 5, 6))
+    pk.reset_launch_counts()
+    stream = codec.encode(symbols, mode="wavefront_pl")
+    assert pk.launch_counts["probclass_front_logits"] == len(
+        codec._wavefronts(*symbols.shape))
+    np.testing.assert_array_equal(codec.decode(stream), symbols)
 
 
 @pytest.mark.gpu

@@ -56,9 +56,9 @@ def _x(shape, dev, seed=0):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [
     (2, 160, 612, 64),      # the main path: 320x1224 images at batch 2
-    (1, 5, 9, 64),          # smaller than one 8x32 tile
+    (1, 5, 9, 64),          # smaller than one 32x24 tile
     (3, 17, 45, 64),        # ragged in both directions
-    (1, 8, 32, 64),         # exactly one tile
+    (1, 8, 32, 64),         # two tiles wide, a quarter of one high
 ])
 def test_kernel_matches_plain(cuda, epi, shape, dtype):
     x = _x(shape, cuda, seed=shape[1]).to(dtype)
@@ -70,6 +70,59 @@ def test_kernel_matches_plain(cuda, epi, shape, dtype):
     assert tuple(img.shape) == (n, 2 * h2, 2 * w2, 3)
     torch.testing.assert_close(img, ref_img, rtol=RTOL, atol=ATOL)
     torch.testing.assert_close(srch, ref_srch, rtol=RTOL, atol=ATOL)
+
+
+def _epi_for(cin, dev, seed):
+    """Operands for another Cin: a seeded (25*Cin, 3) deconv matrix, an
+    affine that keeps most pixels inside the clip, the identity map."""
+    rng = np.random.default_rng(seed)
+    return epi_lib.EpilogueParams(
+        torch.from_numpy((rng.normal(size=(25 * cin, 3)) / np.sqrt(
+            25 * cin)).astype(np.float32)).to(dev),
+        torch.full((1, 3), 40.0, device=dev),
+        torch.full((1, 3), 120.0, device=dev),
+        torch.eye(3, device=dev), torch.zeros((1, 3), device=dev))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [
+    (1, 33, 612, 64),      # W2 = 25 tiles of 24 + 12; odd H2, one row past
+    (3, 17, 37, 64),       # W2 off the 6-wide strip and the 24-wide tile
+    (1, 31, 1, 64),        # one column
+    (3, 5, 37, 1),         # Cin 1: staged by ordinary loads
+    (1, 9, 612, 3),        # Cin 3: not a whole 4-channel group
+    (3, 7, 37, 128),       # the widest Cin the kernel takes
+    (1, 64, 96, 24),       # Cin a multiple of 4, not of the 8-channel chunk
+    (1, 32, 24, 64),       # exactly one tile
+])
+def test_tile_edges_match_plain(cuda, shape, dtype):
+    n, h2, w2, cin = shape
+    epi = _epi_for(cin, cuda, seed=cin)
+    x = _x(shape, cuda, seed=h2 + w2).to(dtype)
+    wmat = epi.wmat.to(dtype)
+    img, srch = epi_lib.fused_decode_epilogue(x, wmat, *epi[1:])
+    ref_img, ref_srch = epi_lib.epilogue_reference(x, wmat, *epi[1:])
+    torch.cuda.synchronize()
+    assert tuple(img.shape) == (n, 2 * h2, 2 * w2, 3)
+    torch.testing.assert_close(img, ref_img, rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(srch, ref_srch, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_misaligned_input_takes_the_ordinary_loads(cuda, epi, dtype):
+    """x that starts off a 4-channel boundary (a contiguous view at an odd
+    element offset) cannot be copied by cp.async; the kernel stages it
+    with ordinary loads and gives the same bits as an aligned copy."""
+    shape = (1, 12, 40, 64)
+    flat = _x((1 + int(np.prod(shape)),), cuda, seed=9).to(dtype)
+    x = flat[1:].view(shape)
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    wmat = epi.wmat.to(dtype)
+    got = epi_lib.fused_decode_epilogue(x, wmat, *epi[1:])
+    want = epi_lib.fused_decode_epilogue(x.clone(), wmat, *epi[1:])
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 @pytest.mark.gpu

@@ -150,3 +150,70 @@ def test_wrapper_refuses_bf16(cuda):
     y_t, pk, inv, gh, gw_t = _operands(x, x, 20, 24, True, cuda)
     with pytest.raises(TypeError, match="float32"):
         sk.pearson_argmax(y_t.bfloat16(), pk, inv, gh, gw_t, 20, 24)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shared", [False, True], ids=["K1", "K2"])
+def test_bf16_rounded_operands_match_plain(cuda, shared):
+    """`sifinder_dtype = 'bfloat16'`: `pk` and `y_t` rounded to bfloat16 and
+    held as float32 run the unchanged float32 kernel; it agrees with the
+    plain version on the same rounded operands under the margin rule."""
+    rng = np.random.default_rng(17)
+    h, w, ph, pw = 100, 1224, 20, 24
+    x = rng.uniform(0, 255, (3, h, w, 3)).astype(np.float32)
+    y = rng.uniform(0, 255, (1 if shared else 3, h, w, 3)).astype(np.float32)
+    if shared:
+        y = np.repeat(y, 3, 0)
+    y_t, pk, inv, gh, gw_t = _operands(x, y, ph, pw, True, cuda)
+    y_t = sifinder_lib.round_operand(y_t, torch.bfloat16)
+    pk = sifinder_lib.round_operand(pk, torch.bfloat16)
+    ops = (y_t, pk, inv, gh, gw_t)
+    if shared:
+        got = sk.pearson_argmax_shared(y_t[0].contiguous(), pk,
+                                       inv[0].contiguous(), gh, gw_t, ph, pw)
+    else:
+        got = sk.pearson_argmax(*ops, ph, pw)
+    ref = sk.pearson_argmax_reference(*ops, ph, pw)
+    torch.cuda.synchronize()
+    _assert_agree(ops, ph, pw, got, ref)
+
+
+@pytest.mark.gpu
+def test_the_knob_reaches_the_kernel_route(cuda):
+    """The kernel route under 'bfloat16' on the card against the torch
+    route on the CPU under the same knob (y_syn equal wherever the plain
+    top-two margin is clear), and a float32 prep refused by a bfloat16
+    search."""
+    from dsin_tpu_torch.config import Config
+    rng = np.random.default_rng(3)
+    h, w, ph, pw = 40, 48, 8, 12
+    x = rng.uniform(0, 255, (2, h, w, 3)).astype(np.float32)
+    y = np.clip(x[:, ::-1] * 0.6 + rng.uniform(0, 255, x.shape) * 0.4,
+                0, 255).astype(np.float32)
+    x_hat = (x + rng.normal(0, 4, x.shape)).astype(np.float32)
+
+    def cfg(impl):
+        return Config({"use_L2andLAB": False, "sifinder_impl": impl,
+                       "sifinder_dtype": "bfloat16"})
+
+    args = [torch.from_numpy(a) for a in (x_hat, y, y)]
+    sk.reset_launch_counts()
+    got = sifinder_lib.synthesize_side_image(
+        *[a.to(cuda) for a in args], None, ph, pw, cfg("kernel"))
+    assert sk.launch_counts["pearson_argmax"] == 1
+    want = sifinder_lib.synthesize_side_image(*args, None, ph, pw,
+                                              cfg("torch"))
+    for i in range(2):
+        res = sifinder_lib.search_single(*[a[i] for a in args], None, ph, pw,
+                                         conv_dtype=torch.bfloat16)
+        flat = torch.sort(res.score_map.reshape(-1, res.score_map.shape[-1]),
+                          0).values
+        clear = (flat[-1] - flat[-2] > ATOL_MARGIN).reshape(h // ph, w // pw)
+        diff = (got[i].cpu() - want[i]).abs().reshape(
+            h // ph, ph, w // pw, pw, 3).amax(dim=(1, 3, 4))
+        assert bool((diff[clear] == 0).all())
+    prep = sifinder_lib.build_side_prep(
+        args[1][0].to(cuda), args[2][0].to(cuda), ph, pw, for_kernel=True)
+    with pytest.raises(sifinder_lib.PrepDtypeMismatch):
+        sifinder_lib.synthesize_side_image_prepped(
+            args[0].to(cuda), prep, ph, pw, cfg("kernel"))

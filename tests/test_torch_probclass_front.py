@@ -207,12 +207,68 @@ def test_prepared_params_on_the_cpu_take_the_plain_version():
 
 
 def test_engine_on_the_cpu_takes_any_width():
-    """C = 6 is off the kernel's float4 tile (the card refuses it), but the
-    engine prepares its buffer and the CPU runs the plain version."""
+    """C = 6 is off the kernel's float4 tile: the engine's buffer pads it to
+    8, and the CPU runs the plain version on the unpadded weights."""
     mats = _weights(6)
     engine = pk.ProbclassFrontKernel(mats, torch.device("cpu"))
-    assert engine.params.layout["channels"] == 6
+    assert engine.params.layout["channels"] == 8
+    assert engine.params.weights[1][0].shape == (18 * 6, 6)
     blocks = _blocks(3, seed=5)
     want = pk.probclass_front_logits_reference(torch.from_numpy(blocks),
                                                _torch(mats)).numpy()
     assert np.array_equal(engine.front_logits(blocks), want)
+
+
+@pytest.mark.parametrize("width", [1, 5, 6, 7, 12])
+def test_padded_channels_leave_the_plain_logits_bit_equal(width):
+    """`pad_channels` adds zero rows, columns and biases up to a multiple of
+    4: the plain version on the padded weights gives the same logits bit for
+    bit (torch.equal: a -0 may become +0)."""
+    mats = _torch(_weights(width, seed=7))
+    padded = pk.pad_channels(mats)
+    cp = -(-width // 4) * 4
+    assert [tuple(w.shape) for w, _ in padded] == [
+        (18, cp), (18 * cp, cp), (18 * cp, cp), (18 * cp, L)]
+    for (w, b), (pw_, pb) in zip(mats, padded):
+        cin = w.shape[0] // 18
+        assert torch.equal(pw_.reshape(18, -1, pw_.shape[1])[
+            :, :cin, :w.shape[1]].reshape(w.shape), w)
+        assert torch.equal(pb[:b.shape[0]], b)
+        assert int(pw_.count_nonzero()) == int(w.count_nonzero())
+        assert not bool(pb[b.shape[0]:].any())
+    blocks = torch.from_numpy(_blocks(130, seed=8))
+    assert torch.equal(pk.probclass_front_logits_reference(blocks, padded),
+                       pk.probclass_front_logits_reference(blocks, mats))
+
+
+def test_a_padded_buffer_walks_to_the_unpadded_logits():
+    """C = 6: the buffer holds the weights padded to 8 (they expand back to
+    `pad_channels`' matrices), and the kernel's walk of it agrees with the
+    plain version on the unpadded weights, reading only needed inputs."""
+    mats = _weights(6, seed=9)
+    params = pk.prepare_front(_torch(mats))
+    assert params.layout["channels"] == 8
+    for (w, b), (ew, eb) in zip(pk.pad_channels(_torch(mats)),
+                                _expand(params)):
+        assert np.array_equal(ew, w.numpy()) and np.array_equal(eb, b.numpy())
+    blocks = _blocks(64, seed=9)
+    want = pk.probclass_front_logits_reference(torch.from_numpy(blocks),
+                                               _torch(mats)).numpy()
+    np.testing.assert_allclose(_walk(blocks, params), want, rtol=1e-5,
+                               atol=1e-5)
+    nan = blocks.copy()
+    nan[np.broadcast_to(_unneeded_mask(), blocks.shape)] = np.nan
+    assert np.isfinite(_walk(nan, params)).all()
+
+
+def test_padded_plain_logits_match_pallas_at_c6():
+    """The JAX package's Pallas kernel (interpret mode) codes C = 6 as it
+    is; the port's plain version on the padded weights agrees with it."""
+    mats = _weights(6, seed=10)
+    blocks = _blocks(5, seed=10)
+    flat = [a for w, b in mats for a in (w, b[None])]
+    jwant = np.asarray(jax_pallas.probclass_front_logits(
+        blocks, *flat, interpret=True))
+    got = pk.probclass_front_logits_reference(
+        torch.from_numpy(blocks), pk.pad_channels(_torch(mats))).numpy()
+    np.testing.assert_allclose(got, jwant, rtol=1e-5, atol=1e-5)
