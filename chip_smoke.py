@@ -51,7 +51,24 @@ Phases; any failure raises, prints no result and exits non-zero:
      gate_precision (every stage timed, no build in the timed window, mode-2
      and mode-3 streams byte-identical across the rungs and exact round
      trips) and launch K2, K3 and K4; at the default seed, every rung's
-     streams must keep the pinned sha256 prefixes (STREAM_PINS).
+     streams must keep the pinned sha256 prefixes (STREAM_PINS);
+  7. the test run at full width: a synthetic stereo test split of 4 pairs at
+     375x1242 (`data/synthetic.py`, PNGs by `data/png.py`) with its
+     KITTI-format manifest in a temporary directory; the seeded model saved
+     by `train/checkpoint.save_checkpoint` (AE and siNet partitions, the
+     pc-config hash and seed in the manifest), restored bit-equal into
+     another model with the manifest verified, and a copy with one byte of
+     `params_decoder.msgpack`'s array data flipped refused with
+     ManifestMismatch; then `dsin_tpu_torch.main.run` in test mode
+     (load_model, real_bpp, mode 3) at the 320x1224 eval crop, with K1 and K3
+     launch counts read around it. Each image's x_with_si and bpp must equal
+     `entry.make_forward` on the same crop and weights bit for bit (the same
+     modules and the same K1 factors; the run checks the prior once, the
+     forward per call), its real bpp must be its mode-3 stream's, which
+     decodes exactly, with a coding gap >= -32 bits - 0.02% of the ideal
+     bits (GAP_FLOOR_SHARE), and every score list and PNG must be written,
+     the PNGs reading back bit-equal; prints the per-image stage times, the
+     save, restore and prior-check times.
 Kernel times are CUDA events around back-to-back runs that the host
 enqueued while the device slept, so they are device time.
 Then one line with the card, one JSON line with the kernels, and last the
@@ -63,8 +80,11 @@ from __future__ import annotations
 import argparse
 import collections
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -76,8 +96,13 @@ from dsin_tpu_torch.coding import cli as cli_lib
 from dsin_tpu_torch.coding import codec as codec_lib
 from dsin_tpu_torch.coding import probclass_kernel as pk
 from dsin_tpu_torch.coding import rans
-from dsin_tpu_torch.coding.loader import make_codec
-from dsin_tpu_torch.entry import entry, full_configs
+from dsin_tpu_torch import main as main_lib
+from dsin_tpu_torch.coding.loader import make_codec, restore_checkpoint
+from dsin_tpu_torch.data import png
+from dsin_tpu_torch.data import synthetic
+from dsin_tpu_torch.data.manifest import read_pair_manifest
+from dsin_tpu_torch.entry import entry, full_configs, make_forward
+from dsin_tpu_torch.eval.reporting import ScoreLists
 from dsin_tpu_torch.models import probclass as pc_lib
 from dsin_tpu_torch.models.dsin import build_model
 from dsin_tpu_torch.models.quantizer import centers_lookup
@@ -91,6 +116,7 @@ from dsin_tpu_torch.serve.device import DeviceServer
 from dsin_tpu_torch.tools import k4_bench
 from dsin_tpu_torch.tools.k4_bench import warm_ms as cuda_ms
 from dsin_tpu_torch.tools import serve_bench as leg_lib
+from dsin_tpu_torch.train import checkpoint as ckpt_lib
 
 H, W, PH, PW = 320, 1224, 20, 24
 FP32_PEAK = 67e12          # H100 SXM fp32 outside the tensor cores, 700 W
@@ -806,6 +832,182 @@ def leg_phase(seed: int, dev) -> int:
     return launches["fused_decode_epilogue"]
 
 
+TEST_PAIRS, KITTI_H, KITTI_W = 4, 375, 1242
+# Lower bound of a test image's coding gap, as a share of its ideal bits.
+# One rANS step sets x' = floor(x/f)*M + x mod f + c, which can fall below
+# x*M/f by up to M - f, so one message's payload can undercut its ideal
+# length by more than the 32-bit state flush, and by more the more symbols
+# it holds: the JAX package's own coder, on the CPU, gives a mode-2 stream
+# more than 32 bits under its ideal on image 2 of this split at the default
+# seed (the port's stream is byte-identical). The exact round trip is
+# checked beside it.
+GAP_FLOOR_SHARE = 2e-4
+
+
+def checkpoint_checks(model, ae, pc, ckpt_dir: str, seed: int, dev):
+    """Save the model, restore it bit-equal into another with the manifest
+    verified, and refuse a copy with one flipped byte of array data.
+    Returns (save ms, restore ms, checkpoint bytes)."""
+    state = ckpt_lib.state_from_model(model)
+    t0 = time.perf_counter()
+    ckpt_lib.save_checkpoint(ckpt_dir, state, manifest_extra={
+        "pc_config_sha256": ckpt_lib.config_sha256(pc), "seed": seed})
+    save_ms = 1e3 * (time.perf_counter() - t0)
+    other = build_model(ae, pc, device=dev, seed=seed + 2)
+    t0 = time.perf_counter()
+    info = restore_checkpoint(other, ckpt_dir)
+    torch.cuda.synchronize()
+    restore_ms = 1e3 * (time.perf_counter() - t0)
+    if info["status"] != "verified":
+        raise AssertionError(f"the manifest did not verify: {info['status']}")
+    want, got = model.state_dict(), other.state_dict()
+    if set(want) != set(got) or not all(torch.equal(want[k], got[k])
+                                        for k in want):
+        raise AssertionError("the restored state_dict differs from the saved "
+                             "model's")
+    tampered = ckpt_dir + ".tampered"
+    shutil.copytree(ckpt_dir, tampered)
+    path = os.path.join(tampered, "params_decoder.msgpack")
+    with open(path, "r+b") as f:
+        f.seek(-5, os.SEEK_END)          # inside the last kernel's floats
+        byte = f.read(1)
+        f.seek(-5, os.SEEK_END)
+        f.write(bytes([byte[0] ^ 1]))
+    try:
+        restore_checkpoint(build_model(ae, pc, device=dev, seed=seed), tampered)
+    except ckpt_lib.ManifestMismatch as e:
+        log(f"  tampered decoder partition refused: {str(e)[:90]}...")
+    else:
+        raise AssertionError("a flipped byte in params_decoder.msgpack "
+                             "loaded without ManifestMismatch")
+    nbytes = sum(v["bytes"] for v in info["manifest"]["files"].values())
+    return save_ms, restore_ms, nbytes
+
+
+def test_run_phase(seed: int, dev):
+    """The test entry point at full width from a checkpoint the port wrote;
+    returns the K1 and K3 launches of the run."""
+    ae, pc = full_configs()
+    h, w = ae.eval_crop_size
+    ph, pw = ae.y_patch_size
+    with tempfile.TemporaryDirectory(prefix="dsin-test-run-") as root:
+        t0 = time.perf_counter()
+        manifests = synthetic.write_corpus(root, 0, 0, TEST_PAIRS, KITTI_H,
+                                           KITTI_W, seed=seed)
+        os.rename(manifests["test"], os.path.join(root, "test.txt"))
+        corpus_s = time.perf_counter() - t0
+        cfg = ae.replace(load_model=True, load_train_step=False,
+                         train_model=False, test_model=True,
+                         root_data=root, file_path_test="test.txt")
+        name = ckpt_lib.model_name_for(cfg, "smoke")
+        cfg = cfg.replace(load_model_name=name)
+        # seeded apart from the run's own init (seed 0), so the restore
+        # visibly replaces every weight
+        model = build_model(cfg, pc, device=dev, seed=seed + 1)
+        save_ms, restore_ms, nbytes = checkpoint_checks(
+            model, cfg, pc, os.path.join(root, "weights", name), seed, dev)
+        log(f"  {TEST_PAIRS} synthetic pairs at {KITTI_H}x{KITTI_W} written "
+            f"in {corpus_s:.1f} s; checkpoint of {nbytes} bytes: save "
+            f"{save_ms:.1f} ms, restore + manifest check {restore_ms:.1f} ms,"
+            f" state_dict bit-equal")
+
+        records = []
+        sk.reset_launch_counts()
+        pk.reset_launch_counts()
+        t0 = time.perf_counter()
+        results = main_lib.run(
+            cfg, pc, out_root=root, real_bpp=True, device=dev,
+            on_image=lambda exp, i, rec: records.append((exp, i, rec)))
+        run_s = time.perf_counter() - t0
+        launches = {"pearson_argmax": sk.launch_counts["pearson_argmax"],
+                    "probclass_front_logits":
+                        pk.launch_counts["probclass_front_logits"]}
+        exp = records[0][0]
+        if len(records) != TEST_PAIRS:
+            raise AssertionError(f"the test loop scored {len(records)} images")
+        if exp.eval_mask is None or exp.eval_mask.factors is None:
+            raise AssertionError("the eval prior did not check as the "
+                                 "standard Gaussian")
+        codec = make_codec(model)
+        fronts = len(codec._wavefronts(ae.num_chan_bn, h // 8, w // 8))
+        if launches != {"pearson_argmax": TEST_PAIRS,
+                        "probclass_front_logits": TEST_PAIRS * fronts}:
+            raise AssertionError(f"test-run launches {launches}, expected "
+                                 f"one K1 per image and one K3 per front "
+                                 f"({fronts} a volume)")
+        want_sd = model.state_dict()
+        if not all(torch.equal(v, want_sd[k])
+                   for k, v in exp.model.state_dict().items()):
+            raise AssertionError("the run's restored weights differ from "
+                                 "the saved model's")
+
+        forward = make_forward(model, h, w)
+        pairs = read_pair_manifest(os.path.join(root, "test.txt"), root)
+        bpps = ScoreLists.load_list(exp.images_dir, "bpp", exp.model_name)
+        reals = ScoreLists.load_list(exp.images_dir, "real_bpp",
+                                     exp.model_name)
+        stage = collections.defaultdict(list)
+        for _, i, rec in records:
+            out = rec["out"]
+            x_si, bpp = forward(rec["x"], rec["y"])
+            if not (np.array_equal(out["x_with_si"], x_si.cpu().numpy())
+                    and float(out["bpp"]) == float(bpp)):
+                raise AssertionError(
+                    f"image {i}: the test loop's x_with_si / bpp differ from "
+                    f"entry.make_forward's (max |diff| "
+                    f"{np.abs(out['x_with_si'] - x_si.cpu().numpy()).max()}, "
+                    f"bpp {float(out['bpp'])} vs {float(bpp)})")
+            check_image(f"test image {i}", torch.from_numpy(out["x_with_si"]),
+                        (1, h, w, 3), clipped=False)
+            vol = np.ascontiguousarray(np.transpose(out["symbols"][0],
+                                                    (2, 0, 1)))
+            stream = codec.encode(vol, mode="wavefront_pl")
+            real = len(stream) * 8.0 / (h * w)
+            gap = codec.coding_gap(vol, stream)
+            if real != reals[i] or bpps[i] != float(out["bpp"]):
+                raise AssertionError(f"image {i}: score lists hold bpp "
+                                     f"{bpps[i]}, real {reals[i]}; the run "
+                                     f"gave {float(out['bpp'])}, {real}")
+            if gap["gap_bits"] < -32 - GAP_FLOOR_SHARE * gap["ideal_bits"]:
+                raise AssertionError(f"image {i}: coding gap {gap} below "
+                                     f"-32 bits - {GAP_FLOOR_SHARE} of the "
+                                     f"ideal")
+            if not np.array_equal(codec.decode(stream), vol):
+                raise AssertionError(f"image {i}: the mode-3 stream does not "
+                                     f"decode to its symbols")
+            want_png = np.clip(out["x_with_si"][0], 0, 255).astype(np.uint8)
+            path = os.path.join(exp.images_dir, f"{i}_{bpps[i]:.4f}bpp.png")
+            if not np.array_equal(png.read_png(path), want_png):
+                raise AssertionError(f"{path} does not read back bit-equal")
+            t0 = time.perf_counter()
+            for p in pairs[i]:
+                png.read_png(p)
+            stage["png_decode_pair"].append(1e3 * (time.perf_counter() - t0))
+            for k, v in rec["ms"].items():
+                stage[k].append(v)
+            log(f"  image {i}: bpp {bpps[i]:.4f}, real {reals[i]:.4f} (gap "
+                f"{gap['gap_bits']:.1f} bits, exact round trip), psnr "
+                f"{rec['scores']['psnr']:.2f}, ms-ssim "
+                f"{rec['scores']['ms_ssim']:.4f}; x_with_si and bpp "
+                f"bit-equal to entry.make_forward")
+        for metric in ScoreLists.METRICS:
+            if len(ScoreLists.load_list(exp.images_dir, metric,
+                                        exp.model_name)) != TEST_PAIRS:
+                raise AssertionError(f"score list {metric} incomplete")
+        log(f"  test run {run_s:.1f} s, launches {launches} ({fronts} fronts "
+            f"a volume); means {json.dumps(results)}")
+        mask = exp.eval_mask.mask
+        log(f"  eval prior ({mask.numel() * mask.element_size() / 1e9:.2f} GB"
+            f" at {h}x{w}, {ph}x{pw} patches) checked once: "
+            f"{exp.mask_check_ms:.1f} ms; restore in the run "
+            f"{exp.restore_ms:.1f} ms")
+        log("  per-image ms (host clock; forward includes the pull of its "
+            "outputs): " + ", ".join(
+                f"{k} " + "/".join(f"{v:.1f}" for v in vals)
+                for k, vals in stage.items()))
+    return launches
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -820,27 +1022,31 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    log(f"[1/6] card: {card}; torch {torch.__version__}, CUDA "
+    log(f"[1/7] card: {card}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}")
 
-    log("[2/6] build")
+    log("[2/7] build")
     build_phase()
 
-    log(f"[3/6] kernel vs plain at {H}x{W}, patches {PH}x{PW}, seed "
+    log(f"[3/7] kernel vs plain at {H}x{W}, patches {PH}x{PW}, seed "
         f"{args.seed}")
     rows = kernel_phase(args.seed, dev)
 
-    log("[4/6] the slice at full width (ae_kitti_stereo + pc_default)")
+    log("[4/7] the slice at full width (ae_kitti_stereo + pc_default)")
     launches = slice_phase(args.seed, dev)
 
-    log("[5/6] the codec at full width (ae_kitti_stereo + pc_default)")
+    log("[5/7] the codec at full width (ae_kitti_stereo + pc_default)")
     rows["probclass_front_logits"], launches["probclass_front_logits"] = \
         codec_phase(args.seed, dev)
 
-    log("[6/6] the precision ladder: K4 and the serve-bench precision leg "
+    log("[6/7] the precision ladder: K4 and the serve-bench precision leg "
         "(ae_kitti_stereo + pc_default)")
     rows["fused_decode_epilogue"] = k4_phase(args.seed, dev)
     launches["fused_decode_epilogue"] = leg_phase(args.seed, dev)
+
+    log("[7/7] the test run at full width (ae_kitti_stereo + pc_default) "
+        "from a checkpoint the port wrote")
+    test_run_phase(args.seed, dev)
 
     kernels = [dict(name=name, route="cuda", source=SOURCES[name],
                     replaces=REPLACES[name], launches=launches[name], **r)

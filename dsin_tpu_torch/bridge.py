@@ -1,4 +1,4 @@
-"""Weights of the JAX package -> the port's `state_dict`.
+"""Weights of the JAX package <-> the port's `state_dict`.
 
 Input: the flax `params` and `batch_stats` trees as nested dicts of numpy
 arrays (for instance `jax.tree_util.tree_map(np.asarray, variables)`), with
@@ -15,7 +15,11 @@ Layout rules:
     multiplied in at use);
   * batch norm scale/bias/mean/var -> weight/bias/running_mean/running_var.
 
-Reading `.msgpack` checkpoints is not part of this module yet.
+`jax_from_state_dict` is the inverse: the port's state_dict -> the JAX
+`params` / `batch_stats` trees (numpy, flax's module names, the kernels back
+in HWIO / DHWIO with the transposed convs flipped back), and
+`state_dict_from_jax(*jax_from_state_dict(sd))` equals `sd`. The `.msgpack`
+checkpoint files themselves are read and written by `train/checkpoint.py`.
 """
 
 from __future__ import annotations
@@ -53,6 +57,82 @@ def _kernel(path, value: np.ndarray) -> np.ndarray:
     if value.ndim == 4:
         return value.transpose(3, 2, 0, 1)
     raise ValueError(f"unexpected kernel rank {value.ndim} at {'/'.join(path)}")
+
+
+_INVERSE_SEGMENTS = {"res": "_ResGroupStack_0", "bn": "BatchNorm_0"}
+_CONV_SEGMENT = re.compile(r"^conv(\d+)$")
+# the decoder's three upsampling ConvBNs are the transposed convs
+_TRANSPOSED = re.compile(r"^decoder\.conv\d+\.conv\.weight$")
+_BN_INVERSE = {v: k for k, v in _BN_LEAVES.items()}
+
+
+def _jax_path(key: str):
+    """'decoder.res.blocks.3.conv0.conv.weight' -> the flax module path and
+    the leaf's torch name ('weight')."""
+    parts = key.split(".")
+    partition, names, leaf = parts[0], parts[1:-1], parts[-1]
+    path, i = [partition], 0
+    while i < len(names):
+        name = names[i]
+        match = _CONV_SEGMENT.match(name)
+        if name == "blocks":
+            path.append(f"_ResBlock_{names[i + 1]}")
+            i += 1
+        elif match and partition == "probclass":
+            path.append(f"_MaskedConv3D_{match.group(1)}")
+        elif match and partition in ("encoder", "decoder"):
+            path.append(f"_ConvBN_{match.group(1)}")
+        elif name == "conv":
+            path.append("ConvTranspose_0" if _TRANSPOSED.match(key)
+                        else "Conv_0")
+        else:
+            path.append(_INVERSE_SEGMENTS.get(name, name))
+        i += 1
+    return path, leaf
+
+
+def _jax_kernel(key: str, value: np.ndarray) -> np.ndarray:
+    if _TRANSPOSED.match(key):
+        return value.transpose(2, 3, 0, 1)[::-1, ::-1]
+    if value.ndim == 5:
+        return value.transpose(2, 3, 4, 1, 0)
+    if value.ndim == 4:
+        return value.transpose(2, 3, 1, 0)
+    raise ValueError(f"unexpected weight rank {value.ndim} at {key}")
+
+
+def _put(tree: Dict[str, Any], path, value) -> None:
+    for name in path[:-1]:
+        tree = tree.setdefault(name, {})
+    tree[path[-1]] = value
+
+
+def jax_from_state_dict(state_dict: Dict[str, torch.Tensor]):
+    """The port's state_dict -> (params, batch_stats): the JAX package's
+    trees as C-contiguous float32 numpy arrays, what its checkpoints hold.
+    `num_batches_tracked` has no JAX counterpart and is dropped."""
+    params: Dict[str, Any] = {}
+    batch_stats: Dict[str, Any] = {}
+    for key, tensor in state_dict.items():
+        if key.endswith("num_batches_tracked"):
+            continue
+        value = tensor.detach().float().cpu().numpy()
+        if key == "centers":
+            params["centers"] = np.ascontiguousarray(value)
+            continue
+        path, leaf = _jax_path(key)
+        if path[-1] == "BatchNorm_0":
+            name = _BN_INVERSE[leaf]
+            tree = batch_stats if name in ("mean", "var") else params
+            _put(tree, path + [name], np.ascontiguousarray(value))
+        elif leaf == "weight":
+            _put(params, path + ["kernel"],
+                 np.ascontiguousarray(_jax_kernel(key, value)))
+        elif leaf == "bias":
+            _put(params, path + ["bias"], np.ascontiguousarray(value))
+        else:
+            raise KeyError(f"unmapped state_dict entry {key}")
+    return params, batch_stats
 
 
 def _walk(tree: Dict[str, Any], path=()):

@@ -8,7 +8,7 @@ sees it, so the stream is the same with or without it.
 
 The cores work on arrays (`compress_array(x) -> blob`,
 `decompress_array(blob, side=None) -> image`); `compress` / `decompress`
-wrap them with image files (PIL, imported at use).
+wrap them with PNG files (`data/png.py`).
 
 File format (little-endian, v3; the JAX package's bytes):
     b"DSIM" | u8 version | u16 img_h | u16 img_w | u32 init_seed
@@ -24,7 +24,8 @@ that disagrees with it is an error.
 Without a checkpoint the weights come from each package's own seeded init
 (a `torch.Generator` here, a JAX PRNG key in the JAX package), so a
 seed-only DSIM file decodes only in the package that wrote it; checkpoints
-are the cross-package route, and reading them is not ported yet.
+(`--ckpt`, the JAX package's `.msgpack` format) are the cross-package
+route.
 
 Usage:
     python -m dsin_tpu_torch.coding.cli compress x.png out.dsin
@@ -44,6 +45,7 @@ import torch
 
 from dsin_tpu_torch.coding.codec import decode_batch, encode_batch
 from dsin_tpu_torch.coding.loader import load_model_state, make_codec
+from dsin_tpu_torch.data.png import read_png, write_png
 from dsin_tpu_torch.models.quantizer import centers_lookup
 from dsin_tpu_torch.ops import sifinder as sifinder_lib
 from dsin_tpu_torch.runtime import config_path
@@ -169,10 +171,8 @@ def decompress_array(blob: bytes, side=None, ae_config: str = DEFAULT_AE,
 
 
 def read_image(path: str) -> np.ndarray:
-    """PNG/JPEG -> (H, W, 3) uint8."""
-    from PIL import Image
-    with Image.open(path) as im:
-        return np.asarray(im.convert("RGB"), dtype=np.uint8)
+    """PNG -> (H, W, 3) uint8 RGB."""
+    return read_png(path)
 
 
 def compress(x_path: str, out_path: str, ae_config: str = DEFAULT_AE,
@@ -191,12 +191,11 @@ def decompress(in_path: str, out_path: str, ae_config: str = DEFAULT_AE,
                pc_config: str = DEFAULT_PC, ckpt: Optional[str] = None,
                side: Optional[str] = None, seed: Optional[int] = None,
                device="cuda") -> dict:
-    from PIL import Image
     with open(in_path, "rb") as f:
         blob = f.read()
     img = decompress_array(blob, None if side is None else read_image(side),
                            ae_config, pc_config, ckpt, seed, device)
-    Image.fromarray(img).save(out_path)
+    write_png(img, out_path)
     return {"shape": img.shape[:2], "with_si": side is not None}
 
 
@@ -214,7 +213,8 @@ def main(argv=None) -> None:
         sp.add_argument("--ae_config", default=DEFAULT_AE)
         sp.add_argument("--pc_config", default=DEFAULT_PC)
         sp.add_argument("--ckpt", default=None,
-                        help="checkpoint dir (not ported yet: raises)")
+                        help="checkpoint dir (the JAX package's format); "
+                             "without it the weights come from --seed")
         sp.add_argument("--device", default="cuda",
                         help="cuda (default; raises without a card) or cpu")
     sub.choices["compress"].add_argument(

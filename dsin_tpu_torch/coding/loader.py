@@ -1,40 +1,76 @@
 """Model and codec construction for the codec's entry points (counterpart of
-the JAX package's `coding/loader.py:28-133`).
+the JAX package's `coding/loader.py:28-182`).
 
 `load_model_state` builds the port's DSIN from its own seeded init
-(`models/dsin.build_model`) on a rung of the precision ladder
+(`models/dsin.build_model`), restores a checkpoint's partitions over it when
+given one (`train/checkpoint.py`, the JAX package's `.msgpack` format, the
+manifest verified), and casts it to a rung of the precision ladder
 (`coding/precision.py`); `make_codec` is the one `BottleneckCodec`
-construction the call sites share. The port's modules are fully
-convolutional and eager, so no image shape is needed to build them.
-Restoring a checkpoint is not ported yet: the JAX package's partitions are
-`.msgpack` files, and their reader waits for its own slice (ROADMAP Queue 1
-item 5).
+construction the call sites share; `params_digest` is the JAX package's
+parameter digest. The port's modules are fully convolutional and eager, so
+no image shape is needed to build them.
 """
 
 from __future__ import annotations
 
+import hashlib
+import warnings
 from typing import Optional
+
+import numpy as np
+import torch
 
 from dsin_tpu_torch.coding import precision as precision_lib
 from dsin_tpu_torch.coding.codec import BottleneckCodec
 from dsin_tpu_torch.config import parse_config_file
 from dsin_tpu_torch.models.dsin import DSIN, build_model
+from dsin_tpu_torch.train import checkpoint as ckpt_lib
 
 
 def build_at_rung(ae_config, pc_config, device="cuda", seed: int = 0,
-                  precision: str = "fp32") -> DSIN:
+                  precision: str = "fp32",
+                  ckpt_dir: Optional[str] = None) -> DSIN:
     """The seeded DSIN of two parsed configs on `device`, cast to the ladder
-    rung `precision`. At a rung other than fp32 the AE config's
-    `compute_dtype` follows the rung; the float32 weights are built first
-    and cast afterwards, and the entropy-critical tripwire runs last."""
+    rung `precision`. With `ckpt_dir` the AE partitions (+ siNet when the
+    config builds it) are restored over the seeded weights and verified
+    against the checkpoint's manifest (typed `ManifestMismatch`; a
+    pre-manifest checkpoint loads with a UserWarning). At a rung other than
+    fp32 the AE config's `compute_dtype` follows the rung; the float32
+    weights are built and restored first, cast afterwards (identity is
+    checked against the checkpoint's own bytes), and the entropy-critical
+    tripwire runs last."""
     policy = precision_lib.PrecisionPolicy(precision)
     if policy.rung != "fp32":
         ae_config = ae_config.replace(compute_dtype=policy.compute_dtype)
     model = build_model(ae_config, pc_config, device=device, seed=seed)
+    if ckpt_dir:
+        restore_checkpoint(model, ckpt_dir)
     if policy.rung != "fp32":
         policy.cast_model(model)
         precision_lib.check_entropy_critical(model)
     return model
+
+
+def restore_checkpoint(model: DSIN, ckpt_dir: str) -> dict:
+    """Restore `AE_PARTITIONS` (+ 'sinet' iff the model has siNet) and the
+    batch statistics from `ckpt_dir` into the float32 `model`, verified
+    against the manifest as the JAX loader verifies it. Returns the
+    verification record."""
+    parts = list(ckpt_lib.AE_PARTITIONS)
+    if model.sinet is not None:
+        parts.append("sinet")
+    state = ckpt_lib.restore_partitions(
+        ckpt_dir, ckpt_lib.state_from_model(model), parts)
+    info = ckpt_lib.verify_manifest(ckpt_dir, state, parts,
+                                    pc_config=model.pc_config)
+    if info["status"] == "legacy":
+        warnings.warn(
+            f"checkpoint {ckpt_dir} predates manifest.json — loaded "
+            f"WITHOUT identity verification (re-save it to gain "
+            f"digest/pc-hash checks and hot-swap eligibility)",
+            stacklevel=3)
+    ckpt_lib.load_state(model, state)
+    return info
 
 
 def load_model_state(ae_config_path: str, pc_config_path: str,
@@ -42,22 +78,78 @@ def load_model_state(ae_config_path: str, pc_config_path: str,
                      need_sinet: bool = False, seed: int = 0,
                      device="cuda", precision: str = "fp32") -> DSIN:
     """The DSIN model of the two config files on `device` (the card by
-    default; raises without one), its weights from `seed`, on the ladder
-    rung `precision`. siNet is built iff `need_sinet`, whatever the config's
-    `AE_only` says; the seeded autoencoder, probclass and centers are the
-    same either way, and probclass and centers are float32 at every rung."""
-    if ckpt_dir:
-        raise NotImplementedError(
-            f"restoring {ckpt_dir!r}: reading the JAX package's .msgpack "
-            f"checkpoints is not ported yet (ROADMAP Queue 1 item 5); "
-            f"without a checkpoint the weights come from the seeded init")
+    default; raises without one) on the ladder rung `precision`: its
+    weights from the checkpoint `ckpt_dir` (AE partitions, + siNet iff
+    `need_sinet`), or from `seed` without one. siNet is built iff
+    `need_sinet`, whatever the config's `AE_only` says; probclass and
+    centers are float32 at every rung."""
     ae_cfg = parse_config_file(ae_config_path).replace(
         AE_only=not need_sinet)
     pc_cfg = parse_config_file(pc_config_path)
     return build_at_rung(ae_cfg, pc_cfg, device=device, seed=seed,
-                         precision=precision)
+                         precision=precision, ckpt_dir=ckpt_dir)
 
 
 def make_codec(model: DSIN) -> BottleneckCodec:
     """The one BottleneckCodec construction every call site shares."""
     return BottleneckCodec.for_model(model)
+
+
+def treedef_repr(tree) -> str:
+    """JAX's `repr(treedef)` of a tree of dicts, tuples, lists and None with
+    array leaves: 'PyTreeDef({'a': *, 'b': (*, *)})', dict keys sorted as
+    `jax.tree_util.tree_flatten` sorts them."""
+    def node(t) -> str:
+        if isinstance(t, dict):
+            return "{" + ", ".join(f"{k!r}: {node(t[k])}"
+                                   for k in sorted(t)) + "}"
+        if isinstance(t, tuple):
+            inner = ", ".join(node(v) for v in t)
+            return "(" + inner + ("," if len(t) == 1 else "") + ")"
+        if isinstance(t, list):
+            return "[" + ", ".join(node(v) for v in t) + "]"
+        return "None" if t is None else "*"
+    return f"PyTreeDef({node(tree)})"
+
+
+def tree_leaves(tree) -> list:
+    """The leaves in `jax.tree_util.tree_flatten`'s order."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [leaf for v in tree for leaf in tree_leaves(v)]
+    return [] if tree is None else [tree]
+
+
+def _leaf_fields(leaf):
+    """(dtype text, shape text, bytes) of a leaf as numpy states them; a
+    bfloat16 tensor as ml_dtypes' bfloat16 array would."""
+    if isinstance(leaf, torch.Tensor):
+        t = leaf.detach().cpu().contiguous()
+        if t.dtype == torch.bfloat16:
+            return "bfloat16", str(tuple(t.shape)), \
+                t.view(torch.int16).numpy().tobytes()
+        leaf = t.numpy()
+    arr = np.asarray(leaf)
+    return str(arr.dtype), str(arr.shape), arr.tobytes()
+
+
+def params_digest(tree, rung: str = "fp32") -> str:
+    """The JAX package's order-stable parameter digest (v2): sha256 over the
+    length-prefixed fields tag, rung, `repr(treedef)` and per leaf (dtype,
+    shape, bytes); the first 16 hex digits. `tree` is the JAX layout
+    (`train/checkpoint.ModelState` trees), not the port's state_dict."""
+    h = hashlib.sha256()
+
+    def _field(data: bytes) -> None:
+        h.update(len(data).to_bytes(8, "little"))
+        h.update(data)
+
+    _field(b"dsin-params-digest-v2")
+    _field(str(rung).encode())
+    _field(treedef_repr(tree).encode())
+    for leaf in tree_leaves(tree):
+        for text_or_bytes in _leaf_fields(leaf):
+            _field(text_or_bytes if isinstance(text_or_bytes, bytes)
+                   else text_or_bytes.encode())
+    return h.hexdigest()[:16]

@@ -202,6 +202,25 @@ def standard_mask_factors(mask, img_h: int, img_w: int, patch_h: int,
     return gh, gw
 
 
+class CheckedMask(NamedTuple):
+    """A position prior checked once against the standard Gaussian prior
+    (`check_mask`): `factors` is what `standard_mask_factors` returned for
+    `mask` ((gh, gw), or None for any other mask). A search given it skips
+    the element-for-element check, which costs a pass over the whole
+    (Hc, Wc, P) mask, and takes the route the check would have chosen."""
+    mask: torch.Tensor
+    factors: Optional[tuple]
+
+
+def check_mask(mask, patch_h: int, patch_w: int) -> CheckedMask:
+    """Check an (Hc, Wc, P) prior once, for every search at its image size
+    (H = Hc + patch_h - 1, W = Wc + patch_w - 1)."""
+    mask = torch.as_tensor(mask)
+    hc, wc = mask.shape[:2]
+    return CheckedMask(mask, standard_mask_factors(
+        mask, hc + patch_h - 1, wc + patch_w - 1, patch_h, patch_w))
+
+
 def build_side_prep(y_img: torch.Tensor, y_dec: torch.Tensor, patch_h: int,
                     patch_w: int, *, mask_factors=None,
                     for_kernel: bool = False,
@@ -297,15 +316,25 @@ def search_single(x_dec: torch.Tensor, y_img: Optional[torch.Tensor],
 def synthesize_side_image(x_dec: torch.Tensor, y_img: torch.Tensor,
                           y_dec: torch.Tensor, mask, patch_h: int,
                           patch_w: int, config) -> torch.Tensor:
-    """Batched y_syn (N, H, W, 3) from batched inputs. `mask` is None or an
-    (Hc, Wc, P) prior; the kernel takes only the standard Gaussian prior
-    (checked element for element), so 'kernel' with any other mask raises
-    and 'auto' sends it to 'torch'."""
+    """Batched y_syn (N, H, W, 3) from batched inputs. `mask` is None, an
+    (Hc, Wc, P) prior, or a `CheckedMask` of one; the kernel takes only the
+    standard Gaussian prior (checked element for element here, or once by
+    `check_mask`), so 'kernel' with any other mask raises and 'auto' sends
+    it to 'torch'."""
     impl = sifinder_impl(config)
     conv_dtype = sifinder_conv_dtype(config)
     h, w = x_dec.shape[1], x_dec.shape[2]
-    factors = (None if impl == "torch" else
-               standard_mask_factors(mask, h, w, patch_h, patch_w))
+    if isinstance(mask, CheckedMask):
+        want = (h - patch_h + 1, w - patch_w + 1,
+                (h // patch_h) * (w // patch_w))
+        if tuple(mask.mask.shape) != want:
+            raise ValueError(f"the checked mask has shape "
+                             f"{tuple(mask.mask.shape)}, images {h}x{w} "
+                             f"with {patch_h}x{patch_w} patches need {want}")
+        mask, factors = mask.mask, mask.factors
+    else:
+        factors = (None if impl == "torch" else
+                   standard_mask_factors(mask, h, w, patch_h, patch_w))
     if impl == "auto":
         impl = ("kernel" if x_dec.is_cuda and (mask is None or factors)
                 else "torch")

@@ -1,0 +1,459 @@
+"""Partitioned checkpoints in the JAX package's format (counterpart of its
+`train/checkpoint.py`): the same files, manifest and messages, so a
+checkpoint written by either package restores in the other.
+
+A checkpoint directory holds one flax-msgpack file per parameter partition
+(`params_{encoder,decoder,centers,probclass,sinet}.msgpack`, `centers` a
+bare array), `batch_stats.msgpack`, `manifest.json` and `meta.json`, written
+through `utils/flax_msgpack.py`. The trees are the JAX package's layout
+(HWIO kernels, flax module names) as numpy arrays: a `ModelState`, which
+`state_from_model` builds from the port's DSIN through `bridge.py` and
+`load_state` loads back. The port has no optimizer yet, so it writes no
+`opt_state.msgpack` (the manifest lists only the files written) and
+`restore_for_mode` refuses `load_train_step`.
+
+Durability as in the JAX package: `save_checkpoint` stages everything into
+a fsynced `<dir>.tmp-<pid>` sibling, rotates the live dir aside to
+`<dir>.prev-NNNNNN` and renames the staged dir into place, so a kill at any
+point leaves a complete checkpoint that `latest_checkpoint` resolves; the
+manifest is written before `meta.json`, the completeness marker. Loaders
+verify what they restored against the manifest (`verify_manifest`) and
+refuse a mismatch with a typed `ManifestMismatch`.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import os
+import shutil
+import time
+from typing import Any, Dict, Iterable, List, NamedTuple, Optional
+
+from dsin_tpu_torch import bridge
+from dsin_tpu_torch.utils import flax_msgpack
+from dsin_tpu_torch.utils.integrity import IntegrityError, frame_crc
+
+AE_PARTITIONS = ("encoder", "decoder", "centers", "probclass")
+
+MANIFEST_NAME = "manifest.json"
+#: loaders refuse a manifest from a future version
+MANIFEST_VERSION = 1
+WRITE_ATTEMPTS = 3          # bounded retry on transient OSError
+TRAINING_ITEM = "ROADMAP Queue 1, training"
+
+
+class ManifestMismatch(ValueError):
+    """A checkpoint's manifest disagrees with what a loader restored (wrong
+    params bytes, different pc config, different bucket ladder, future
+    format)."""
+
+
+class ModelState(NamedTuple):
+    """The JAX package's trees of one model: `params` {partition: tree},
+    `batch_stats` {"encoder": ..., "decoder": ...}, numpy leaves in the
+    JAX layout; `step` the optimizer step (0 without training)."""
+    params: Dict[str, Any]
+    batch_stats: Dict[str, Any]
+    step: int = 0
+
+
+def state_from_model(model, step: int = 0) -> ModelState:
+    """The port's DSIN -> its JAX-layout trees (`bridge.jax_from_state_dict`)."""
+    params, batch_stats = bridge.jax_from_state_dict(model.state_dict())
+    return ModelState(params, batch_stats, step)
+
+
+def load_state(model, state: ModelState) -> None:
+    """Load JAX-layout trees into the port's DSIN (strict)."""
+    model.load_state_dict(bridge.state_dict_from_jax(state.params,
+                                                     state.batch_stats),
+                          strict=True)
+
+
+def _fsync_dir(path: str) -> None:
+    """Flush a directory's entry table; best-effort where dirs can't be
+    opened."""
+    try:
+        fd = os.open(path, os.O_RDONLY)
+    except OSError:
+        return
+    try:
+        os.fsync(fd)
+    except OSError:
+        pass
+    finally:
+        os.close(fd)
+
+
+def _write_bytes_durable(path: str, data: bytes) -> None:
+    """write + flush + fsync, with a bounded retry on transient OSError
+    (the JAX package's WRITE_RETRY: 3 attempts, 0.05 s doubling)."""
+    for attempt in range(WRITE_ATTEMPTS):
+        try:
+            with open(path, "wb") as f:
+                f.write(data)
+                f.flush()
+                os.fsync(f.fileno())
+            return
+        except OSError:
+            if attempt == WRITE_ATTEMPTS - 1:
+                raise
+            time.sleep(0.05 * 2 ** attempt)
+
+
+def _write_msgpack(path: str, tree) -> Dict[str, int]:
+    data = flax_msgpack.serialize(tree)
+    _write_bytes_durable(path, data)
+    return {"bytes": len(data), "crc32": frame_crc(data)}
+
+
+def _read_msgpack(path: str):
+    with open(path, "rb") as f:
+        return flax_msgpack.deserialize(f.read())
+
+
+def _tree_digest(tree) -> str:
+    """The one parameter digest (`coding/loader.py params_digest`)."""
+    from dsin_tpu_torch.coding.loader import params_digest
+    return params_digest(tree)
+
+
+def config_sha256(config) -> str:
+    """Canonical-text hash of a Config (str() round-trips through
+    parse_config, so equal semantics hash equal)."""
+    return hashlib.sha256(str(config).encode()).hexdigest()[:16]
+
+
+def build_manifest(state: ModelState,
+                   files: Optional[Dict[str, Dict[str, int]]] = None,
+                   extra: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
+    """Format version, per-partition content digests, the whole-tree
+    `params_digest`, per-file CRC32s, and the caller's identity (`extra`:
+    the pc-config hash, the init seed, a bucket ladder)."""
+    manifest: Dict[str, Any] = {
+        "manifest_version": MANIFEST_VERSION,
+        "step": int(state.step),
+        "partitions": sorted(state.params.keys()),
+        "partition_digests": {part: _tree_digest(sub)
+                              for part, sub in state.params.items()},
+        "batch_stats_digest": _tree_digest(state.batch_stats),
+        "params_digest": _tree_digest((state.params, state.batch_stats)),
+    }
+    if files is not None:
+        manifest["files"] = dict(sorted(files.items()))
+    if extra:
+        if "canary" in extra:
+            raise NotImplementedError(
+                "manifest_extra['canary']: validating canary goldens needs "
+                "the serve control plane's quality module, which is not "
+                "ported yet (ROADMAP Queue 1, the serve control plane)")
+        manifest.update(extra)
+    return manifest
+
+
+def _restore_like(template, loaded, what: str):
+    """`loaded` checked against the template's structure (dict keys at
+    every level; a leaf where the template has a leaf), as flax's
+    `from_state_dict` checks it."""
+    if isinstance(template, dict):
+        if not isinstance(loaded, dict) or set(loaded) != set(template):
+            raise ValueError(
+                f"{what}: the checkpoint's keys "
+                f"{sorted(loaded) if isinstance(loaded, dict) else loaded!r}"
+                f" do not match the model's {sorted(template)}")
+        return {k: _restore_like(template[k], loaded[k], f"{what}/{k}")
+                for k in template}
+    if isinstance(loaded, dict):
+        raise ValueError(f"{what}: the checkpoint holds a tree where the "
+                         f"model has an array")
+    return loaded
+
+
+def _prev_dirs(parent: str, name: str) -> List[str]:
+    """Rotated `<name>.prev-NNNNNN` siblings, oldest first."""
+    prefix = f"{name}.prev-"
+    try:
+        entries = os.listdir(parent)
+    except OSError:
+        return []
+    return sorted(os.path.join(parent, e) for e in entries
+                  if e.startswith(prefix))
+
+
+def _rescue_nested_dirs(src_dir: str, live_dir: str) -> None:
+    """Move foreign subdirectories (nested checkpoints: a checkpoint's own
+    payload is files only) out of a rotated-aside dir into the live dir;
+    the live dir's copy, when one exists, is newer and wins."""
+    try:
+        entries = os.listdir(src_dir)
+    except OSError:
+        return
+    moved = False
+    for entry in entries:
+        src = os.path.join(src_dir, entry)
+        dst = os.path.join(live_dir, entry)
+        if os.path.isdir(src) and not os.path.exists(dst):
+            try:
+                os.rename(src, dst)
+                moved = True
+            except OSError:
+                pass
+    if moved:
+        _fsync_dir(live_dir)
+
+
+def save_checkpoint(ckpt_dir: str, state: ModelState, *,
+                    best_val: Optional[float] = None,
+                    extra_meta: Optional[Dict[str, Any]] = None,
+                    manifest_extra: Optional[Dict[str, Any]] = None,
+                    keep_last: int = 1) -> None:
+    """Save the partitions and batch statistics of `state`, durably: the
+    live dir is replaced only by a complete, fsynced copy (a kill while
+    staging leaves it untouched, a kill between the renames leaves the
+    newest `.prev-*` complete). `keep_last` bounds the rotated history."""
+    ckpt_dir = os.path.abspath(ckpt_dir)
+    parent, name = os.path.split(ckpt_dir)
+    os.makedirs(parent or ".", exist_ok=True)
+    for entry in os.listdir(parent):
+        if entry.startswith(f"{name}.tmp-"):
+            shutil.rmtree(os.path.join(parent, entry), ignore_errors=True)
+
+    tmp = os.path.join(parent, f"{name}.tmp-{os.getpid()}")
+    os.makedirs(tmp)
+    files: Dict[str, Dict[str, int]] = {}
+    for part, sub in state.params.items():
+        fname = f"params_{part}.msgpack"
+        files[fname] = _write_msgpack(os.path.join(tmp, fname), sub)
+    files["batch_stats.msgpack"] = _write_msgpack(
+        os.path.join(tmp, "batch_stats.msgpack"), state.batch_stats)
+    # manifest before meta: meta.json marks a complete checkpoint
+    manifest = build_manifest(state, files=files, extra=manifest_extra)
+    _write_bytes_durable(os.path.join(tmp, MANIFEST_NAME),
+                         json.dumps(manifest, indent=2).encode())
+    meta = {"step": int(state.step),
+            "partitions": sorted(state.params.keys())}
+    if best_val is not None:
+        meta["best_val"] = float(best_val)
+    if extra_meta:
+        meta.update(extra_meta)
+    _write_bytes_durable(os.path.join(tmp, "meta.json"),
+                         json.dumps(meta, indent=2).encode())
+    _fsync_dir(tmp)
+
+    if os.path.isdir(ckpt_dir):
+        prevs = _prev_dirs(parent, name)
+        next_idx = (int(os.path.basename(prevs[-1]).rsplit("-", 1)[1]) + 1
+                    if prevs else 1)
+        os.rename(ckpt_dir, os.path.join(parent,
+                                         f"{name}.prev-{next_idx:06d}"))
+    os.rename(tmp, ckpt_dir)
+    _fsync_dir(parent)
+    for prev in reversed(_prev_dirs(parent, name)):
+        _rescue_nested_dirs(prev, ckpt_dir)
+    for old in _prev_dirs(parent, name)[:-keep_last if keep_last else None]:
+        _rescue_nested_dirs(old, ckpt_dir)
+        shutil.rmtree(old, ignore_errors=True)
+
+
+def latest_checkpoint(ckpt_dir: str) -> Optional[str]:
+    """The most recent complete checkpoint for `ckpt_dir`: the dir itself
+    when its meta.json exists, else the newest `<dir>.prev-*` that has one
+    (a kill between the renames), else None."""
+    ckpt_dir = os.path.abspath(ckpt_dir)
+    if os.path.exists(os.path.join(ckpt_dir, "meta.json")):
+        return ckpt_dir
+    parent, name = os.path.split(ckpt_dir)
+    for prev in reversed(_prev_dirs(parent, name)):
+        if os.path.exists(os.path.join(prev, "meta.json")):
+            return prev
+    return None
+
+
+def load_meta(ckpt_dir: str) -> Dict[str, Any]:
+    """Parse `meta.json`; corruption or truncation raises a typed
+    `IntegrityError`."""
+    path = os.path.join(ckpt_dir, "meta.json")
+    with open(path, "rb") as f:
+        raw = f.read()
+    try:
+        return json.loads(raw.decode("utf-8"))
+    except (ValueError, UnicodeDecodeError) as e:
+        raise IntegrityError(
+            f"checkpoint meta {path} is corrupt or truncated "
+            f"({len(raw)} bytes): {e} — the save was torn or the file "
+            f"rotted; resolve a complete checkpoint via "
+            f"latest_checkpoint() instead") from e
+
+
+def load_manifest(ckpt_dir: str) -> Optional[Dict[str, Any]]:
+    """Parse `manifest.json`, or None for a pre-manifest checkpoint; a
+    manifest that does not parse raises a typed IntegrityError."""
+    path = os.path.join(ckpt_dir, MANIFEST_NAME)
+    try:
+        with open(path, "rb") as f:
+            raw = f.read()
+    except FileNotFoundError:
+        return None
+    try:
+        manifest = json.loads(raw.decode("utf-8"))
+    except (ValueError, UnicodeDecodeError) as e:
+        raise IntegrityError(
+            f"checkpoint manifest {path} is corrupt or truncated "
+            f"({len(raw)} bytes): {e} — refusing to trust this "
+            f"checkpoint's identity") from e
+    if not isinstance(manifest, dict):
+        raise IntegrityError(
+            f"checkpoint manifest {path} is not a JSON object "
+            f"({type(manifest).__name__})")
+    return manifest
+
+
+def verify_manifest(ckpt_dir: str, state: ModelState,
+                    partitions: Iterable[str], *,
+                    batch_stats_loaded: bool = True, pc_config=None,
+                    buckets=None) -> Dict[str, Any]:
+    """Check a restored state against the checkpoint's manifest: format
+    version, the digest of every partition in `partitions` and of the batch
+    statistics, and, where both sides state them, the pc-config hash and
+    the bucket ladder. Returns {"status": "verified", "manifest": ...} or
+    {"status": "legacy", "manifest": None} for a pre-manifest checkpoint;
+    any disagreement raises ManifestMismatch."""
+    manifest = load_manifest(ckpt_dir)
+    if manifest is None:
+        return {"status": "legacy", "manifest": None}
+    version = manifest.get("manifest_version")
+    if not isinstance(version, int) or version < 1 \
+            or version > MANIFEST_VERSION:
+        raise ManifestMismatch(
+            f"checkpoint {ckpt_dir} has manifest_version {version!r}; "
+            f"this loader understands 1..{MANIFEST_VERSION} — refusing "
+            f"to guess what a different format promises")
+    part_digests = manifest.get("partition_digests", {})
+    for part in partitions:
+        want = part_digests.get(part)
+        if want is None:
+            raise ManifestMismatch(
+                f"checkpoint {ckpt_dir} manifest records no digest for "
+                f"restored partition {part!r} (has: "
+                f"{sorted(part_digests)})")
+        got = _tree_digest(state.params[part])
+        if got != want:
+            raise ManifestMismatch(
+                f"checkpoint {ckpt_dir} partition {part!r} digest "
+                f"mismatch: manifest {want}, restored {got} — the "
+                f"restored bytes are not the bytes this manifest "
+                f"describes")
+    if batch_stats_loaded and "batch_stats_digest" in manifest:
+        got = _tree_digest(state.batch_stats)
+        if got != manifest["batch_stats_digest"]:
+            raise ManifestMismatch(
+                f"checkpoint {ckpt_dir} batch_stats digest mismatch: "
+                f"manifest {manifest['batch_stats_digest']}, restored "
+                f"{got}")
+    if pc_config is not None and "pc_config_sha256" in manifest:
+        got = config_sha256(pc_config)
+        if got != manifest["pc_config_sha256"]:
+            raise ManifestMismatch(
+                f"checkpoint {ckpt_dir} was trained with a different "
+                f"probability-model config (manifest pc hash "
+                f"{manifest['pc_config_sha256']}, loader built {got}) — "
+                f"its entropy streams would not decode against this "
+                f"model")
+    if buckets is not None and manifest.get("buckets") is not None:
+        want_b = [list(b) for b in manifest["buckets"]]
+        got_b = [list(b) for b in buckets]
+        if want_b != got_b:
+            raise ManifestMismatch(
+                f"checkpoint {ckpt_dir} was published for bucket ladder "
+                f"{want_b}, this service runs {got_b} — a swapped-in "
+                f"model must serve the SAME ladder or routed streams "
+                f"break")
+    return {"status": "verified", "manifest": manifest}
+
+
+def verify_files(ckpt_dir: str, manifest: Dict[str, Any]) -> Dict[str, int]:
+    """CRC-check every payload file the manifest lists against the bytes on
+    disk. Returns {"files": n, "bytes": total}; a size or CRC disagreement
+    raises a typed IntegrityError."""
+    files = manifest.get("files") or {}
+    total = 0
+    for fname, want in files.items():
+        path = os.path.join(ckpt_dir, fname)
+        try:
+            with open(path, "rb") as f:
+                data = f.read()
+        except FileNotFoundError:
+            raise IntegrityError(
+                f"checkpoint {ckpt_dir} is missing {fname!r} that its "
+                f"manifest lists") from None
+        if len(data) != want.get("bytes") or \
+                frame_crc(data) != want.get("crc32"):
+            raise IntegrityError(
+                f"checkpoint file {path} does not match its manifest "
+                f"entry (got {len(data)} bytes crc 0x{frame_crc(data):08x}, "
+                f"manifest says {want}) — rotted or torn; refusing it")
+        total += len(data)
+    return {"files": len(files), "bytes": total}
+
+
+def restore_partitions(ckpt_dir: str, state: ModelState,
+                       partitions: Iterable[str], *,
+                       load_batch_stats: bool = True) -> ModelState:
+    """Restore the named partitions into `state`, leaving the rest at their
+    current values. A missing partition file raises FileNotFoundError
+    (restoring 'sinet' from an AE-only checkpoint is a real error)."""
+    params = dict(state.params)
+    for part in partitions:
+        path = os.path.join(ckpt_dir, f"params_{part}.msgpack")
+        if not os.path.exists(path):
+            raise FileNotFoundError(
+                f"checkpoint {ckpt_dir} has no partition {part!r}")
+        params[part] = _restore_like(state.params[part], _read_msgpack(path),
+                                     f"params_{part}")
+    batch_stats = state.batch_stats
+    if load_batch_stats:
+        bs_path = os.path.join(ckpt_dir, "batch_stats.msgpack")
+        if os.path.exists(bs_path):
+            batch_stats = _restore_like(state.batch_stats,
+                                        _read_msgpack(bs_path), "batch_stats")
+    return state._replace(params=params, batch_stats=batch_stats)
+
+
+def restore_for_mode(ckpt_dir: str, state: ModelState,
+                     ae_config) -> ModelState:
+    """The JAX package's mode logic for a test run: the AE partitions
+    (encoder/decoder/centers/probclass), plus siNet for a test-only SI run.
+    `load_train_step` (optimizer state and step) waits for training."""
+    if bool(ae_config.load_train_step):
+        raise NotImplementedError(
+            "load_train_step restores optimizer state, which waits for "
+            f"training in the port ({TRAINING_ITEM})")
+    parts = list(AE_PARTITIONS)
+    if (ae_config.test_model and not ae_config.train_model
+            and not bool(ae_config.AE_only)):
+        parts.append("sinet")
+    return restore_partitions(ckpt_dir, state, parts)
+
+
+def write_sidecars(root: str, model_name: str, ae_config, pc_config,
+                   iteration: int, total_iterations: int,
+                   best_val: float) -> None:
+    """`last_saved_*.txt` + `configs_*.txt` sidecars."""
+    os.makedirs(root, exist_ok=True)
+    with open(os.path.join(root, f"last_saved_{model_name}.txt"), "w") as f:
+        f.write(f"{os.path.join(root, model_name)}\n"
+                f"last saved iteration number: {iteration}/{total_iterations}\n"
+                f"last saved val loss: {best_val}")
+    cfg_path = os.path.join(root, f"configs_{model_name}.txt")
+    if not os.path.exists(cfg_path):
+        with open(cfg_path, "w") as f:
+            f.write("#  ae configs:\n" + str(ae_config))
+            f.write("\n\n#  pc configs:\n" + str(pc_config))
+
+
+def model_name_for(ae_config, timestamp: str) -> str:
+    """'target_bpp<bpp>_<AE_only_|sinet_><ts>'."""
+    target_bpp = ae_config.H_target / (64.0 / ae_config.num_chan_bn)
+    mode = "_AE_only_" if ae_config.AE_only else "_sinet_"
+    return f"target_bpp{target_bpp}{mode}{timestamp}"

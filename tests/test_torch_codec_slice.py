@@ -275,9 +275,13 @@ def test_model_output_does_not_depend_on_input_layout(configs):
         assert torch.equal(model.encode(x_cl).z, enc.z)
 
 
-def test_loader_refuses_a_checkpoint(configs):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        load_model_state(*configs[:2], ckpt_dir="weights/m", device="cpu")
+def test_loader_refuses_a_checkpoint(configs, tmp_path):
+    """A checkpoint directory without the partition files is refused with
+    the JAX loader's FileNotFoundError (reading checkpoints is ported:
+    tests/test_torch_checkpoint.py)."""
+    with pytest.raises(FileNotFoundError, match="has no partition"):
+        load_model_state(*configs[:2], ckpt_dir=str(tmp_path / "m"),
+                         device="cpu")
 
 
 def test_array_cores_round_trip(configs):
