@@ -68,7 +68,26 @@ Phases; any failure raises, prints no result and exits non-zero:
      decodes exactly, with a coding gap >= -32 bits - 0.02% of the ideal
      bits (GAP_FLOOR_SHARE), and every score list and PNG must be written,
      the PNGs reading back bit-equal; prints the per-image stage times, the
-     save, restore and prior-check times.
+     save, restore and prior-check times;
+  8. training at full width, batch 1 at the 320x960 training crop: K1
+     against its plain version at that shape with the Gaussian prior, timed
+     beside its bound; one train step of ae_kitti_stereo + pc_default from
+     seeded weights on a crop of a synthetic KITTI-sized pair, which must
+     launch K1 once, give finite metrics, move every trained parameter and
+     every running statistic (and no statistic under bn_stats = 'frozen');
+     the same step with the search's plain version on the card (indices
+     equal beyond the 1e-4 margin; where all are equal, y_syn, the loss,
+     the gradients and the new state bit-equal); the same step twice from
+     one state, and a save / restore with opt_state.msgpack between two
+     steps, both bit-equal; then `dsin_tpu_torch.main.run` training 6 steps
+     on a synthetic split of 375x1242 pairs, validating and saving a
+     periodic checkpoint every 4 steps, testing the best-val checkpoint
+     with real bpp, and a second run resuming it (numbering, best_val) for
+     2 more: K1 once per step, validation batch and test image, K3 once per
+     front; last the ms per train step (median of 5 warm steps, host clock)
+     split by CUDA events into forward, backward and optimizer, the peak
+     memory, and the same at compute_dtype = 'bfloat16'.
+Each phase's wall time is printed after the last phase.
 Kernel times are CUDA events around back-to-back runs that the host
 enqueued while the device slept, so they are device time.
 Then one line with the card, one JSON line with the kernels, and last the
@@ -100,6 +119,7 @@ from dsin_tpu_torch import main as main_lib
 from dsin_tpu_torch.coding.loader import make_codec, restore_checkpoint
 from dsin_tpu_torch.data import png
 from dsin_tpu_torch.data import synthetic
+from dsin_tpu_torch.data.loader import random_pair_crops
 from dsin_tpu_torch.data.manifest import read_pair_manifest
 from dsin_tpu_torch.entry import entry, full_configs, make_forward
 from dsin_tpu_torch.eval.reporting import ScoreLists
@@ -117,6 +137,8 @@ from dsin_tpu_torch.tools import k4_bench
 from dsin_tpu_torch.tools.k4_bench import warm_ms as cuda_ms
 from dsin_tpu_torch.tools import serve_bench as leg_lib
 from dsin_tpu_torch.train import checkpoint as ckpt_lib
+from dsin_tpu_torch.train import optim as optim_lib
+from dsin_tpu_torch.train import step as step_lib
 
 H, W, PH, PW = 320, 1224, 20, 24
 FP32_PEAK = 67e12          # H100 SXM fp32 outside the tensor cores, 700 W
@@ -176,18 +198,20 @@ def smooth_images(rng, n: int, extra_w: int = 0) -> np.ndarray:
     return up.permute(0, 2, 3, 1).contiguous().numpy()
 
 
-def operands(x: np.ndarray, y: np.ndarray, prior: bool, dev):
-    """Kernel operands (y_t, pk, inv_denom, gh, gw_t) from NHWC images,
-    through the port's own preps."""
-    pk = sk.prepare_query(torch.from_numpy(x).to(dev), PH, PW)
-    sides = [sk.side_from_transformed(color_lib.search_transform(
-        torch.from_numpy(yi).to(dev)), PH, PW) for yi in y]
+def operands(x, y, prior: bool, dev):
+    """Kernel operands (y_t, pk, inv_denom, gh, gw_t) from NHWC images
+    (numpy arrays or tensors), through the port's own preps."""
+    x, y = (torch.as_tensor(t).to(dev) for t in (x, y))
+    h, w = x.shape[1:3]
+    pk = sk.prepare_query(x, PH, PW)
+    sides = [sk.side_from_transformed(color_lib.search_transform(yi), PH, PW)
+             for yi in y]
     if prior:
-        gh, gw = sifinder_lib.gaussian_position_mask_factors(H, W, PH, PW)
+        gh, gw = sifinder_lib.gaussian_position_mask_factors(h, w, PH, PW)
     else:
-        p = (H // PH) * (W // PW)
-        gh = np.ones((H - PH + 1, p), np.float32)
-        gw = np.ones((W - PW + 1, p), np.float32)
+        p = (h // PH) * (w // PW)
+        gh = np.ones((h - PH + 1, p), np.float32)
+        gw = np.ones((w - PW + 1, p), np.float32)
     return (torch.stack([s[0] for s in sides]),
             pk, torch.stack([s[1] for s in sides]),
             torch.from_numpy(gh).to(dev),
@@ -1008,6 +1032,400 @@ def test_run_phase(seed: int, dev):
     return launches
 
 
+# -- phase 8: training at full width ----------------------------------------
+
+TRAIN_PAIRS, VAL_PAIRS, RUN_TEST_PAIRS = 4, 2, 2
+RUN_STEPS, RESUME_STEPS, RUN_EVERY = 6, 2, 4
+TIMED_STEPS = 5
+
+
+def train_configs(**over):
+    """ae_kitti_stereo + pc_default as they train: batch 1 at the 320x960
+    crop."""
+    ae, pc = full_configs()
+    return (ae.replace(**over) if over else ae), pc
+
+
+def train_crops(seed: int, n: int, crop):
+    """n seeded random crops (with flips) of synthetic KITTI-sized stereo
+    pairs, the loader's own cropping: (x, y) float32 batches of one."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        left, right = synthetic.make_stereo_pair(rng, KITTI_H, KITTI_W)
+        (crop6,) = random_pair_crops(np.concatenate([left, right], -1),
+                                     crop[0], crop[1], 1, True, rng)
+        out.append((crop6[None, ..., :3].astype(np.float32),
+                    crop6[None, ..., 3:].astype(np.float32)))
+    return out
+
+
+def trainer(ae, pc, dev, seed: int, mask, on_phase=None):
+    """A seeded model, its optimizer and its train step."""
+    model = build_model(ae, pc, device=dev, seed=seed)
+    optimizer = optim_lib.Optimizer(model, ae, pc,
+                                    main_lib.DEFAULT_NUM_TRAIN_IMGS)
+    step = step_lib.make_train_step(model, optimizer, si_mask=mask,
+                                    on_phase=on_phase)
+    return model, optimizer, step
+
+
+def snapshot(model, optimizer):
+    """Every tensor of the training state, cloned: parameters, running
+    statistics, gradients, moments and step counts."""
+    out = {f"state/{k}": v.detach().clone()
+           for k, v in model.state_dict().items()}
+    out.update({f"grad/{n}": p.grad.detach().clone()
+                for n, p in model.named_parameters() if p.grad is not None})
+    for label, group in optimizer.groups.items():
+        for slot, tensors in group.slots.items():
+            out.update({f"{label}/{slot}/{n}": t.detach().clone()
+                        for n, t in tensors.items()})
+        out[f"{label}/count"] = torch.tensor(group.count)
+    return out
+
+
+def assert_bit_equal(a: dict, b: dict, what: str):
+    if set(a) != set(b):
+        raise AssertionError(f"{what}: different tensors "
+                             f"{sorted(set(a) ^ set(b))[:4]}")
+    bad = [k for k in a if not torch.equal(a[k], b[k])]
+    if bad:
+        diff = {k: float((a[k].double() - b[k].double()).abs().max())
+                for k in bad}
+        worst = max(diff, key=diff.get)
+        raise AssertionError(f"{what}: {len(bad)} of {len(a)} tensors "
+                             f"differ, the most {worst} by {diff[worst]:.3g}")
+
+
+def k1_at_training_shape(seed: int, dev, crop):
+    """K1 against its plain version at batch 1 on the training crop with
+    the Gaussian prior; its time beside its bound and the library call."""
+    rng = np.random.default_rng(seed + 4)
+    h, w = crop
+    x = rng.uniform(0, 255, (1, h, w, 3)).astype(np.float32)
+    y = rng.uniform(0, 255, (1, h, w, 3)).astype(np.float32)
+    ops = operands(x, y, True, dev)
+    err = check_agreement(f"pearson_argmax random+prior b=1 {h}x{w}", ops,
+                          sk.pearson_argmax(*ops, PH, PW),
+                          sk.pearson_argmax_reference(*ops, PH, PW))
+    ms = cuda_ms(lambda: sk.pearson_argmax(*ops, PH, PW), 5)
+    plain_ms = cuda_ms(lambda: sk.pearson_argmax_reference(*ops, PH, PW), 2)
+    lib_ms = cuda_ms(lambda: library_argmax(ops, False), 2)
+    b_ms, b_by = bound(ops, False)
+    p = ops[1].shape[1]
+    hc, wc = ops[2].shape[-2:]
+    log(f"  K1 at the training shape (batch 1, {h}x{w}, P = {p}, a {hc}x{wc}"
+        f" map): kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, library "
+        f"{lib_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}), "
+        f"{100 * b_ms / ms:.1f}% of bound, max |val - plain| {err:.3g}")
+
+
+def search_operands(model, x, y):
+    """The train step's search inputs: x-hat of the train-mode forward,
+    y-hat of the side image's inference forward."""
+    with torch.no_grad():
+        x_dec = model.decode(model.encode(x, True).qbar, True)
+        y_dec = model.decode(model.encode(y).qbar)
+    return x_dec, y_dec
+
+
+def one_step_checks(seed: int, dev, ae, pc, mask, batches):
+    """The first train step at full width through K1, then the same step
+    with the search's plain version on the card, and with frozen
+    statistics. Returns the kernel route's (model, optimizer, step)."""
+    x, y = batches[0]
+    model, optimizer, step = trainer(ae, pc, dev, seed, mask)
+    before = snapshot(model, optimizer)
+    sk.reset_launch_counts()
+    _, metrics = step(x, y)
+    torch.cuda.synchronize()
+    launches = dict(sk.launch_counts)
+    if launches != {"pearson_argmax": 1, "pearson_argmax_shared": 0}:
+        raise AssertionError(f"one train step launched {launches}")
+    scalars = {k: float(v) for k, v in metrics.items()}
+    if not all(np.isfinite(v) for v in scalars.values()):
+        raise AssertionError(f"non-finite train metrics {scalars}")
+    after = snapshot(model, optimizer)
+    trained = [n for n, label in optimizer.labels.items()
+               if label != "frozen"]
+    still = [n for n in trained
+             if torch.equal(before[f"state/{n}"], after[f"state/{n}"])]
+    if still:
+        raise AssertionError(f"{len(still)} trained parameters did not "
+                             f"move: {still[:4]}")
+    stats = [k for k in before if "running_" in k]
+    unmoved = [k for k in stats if torch.equal(before[k], after[k])]
+    if unmoved:
+        raise AssertionError(f"{len(unmoved)} running statistics did not "
+                             f"move: {unmoved[:4]}")
+    log(f"  one step at {x.shape[1]}x{x.shape[2]}, batch 1: K1 launched "
+        f"once; all {len(trained)} trained parameters and {len(stats)} "
+        f"running statistics moved; " + ", ".join(
+            f"{k} {v:.4f}" for k, v in scalars.items()))
+
+    # the same step with the search's plain version on the card
+    model_p, optimizer_p, step_p = trainer(
+        ae.replace(sifinder_impl="torch"), pc, dev, seed, mask)
+    x_t, y_t = (torch.from_numpy(t).to(dev) for t in (x, y))
+    x_dec, y_dec = search_operands(model_p, x_t, y_t)
+    ops = operands(x_dec, y_dec, True, dev)
+    got = sk.pearson_argmax(*ops, PH, PW)
+    ref = sk.pearson_argmax_reference(*ops, PH, PW)
+    check_agreement("the step's own search operands, K1 vs plain", ops, got,
+                    ref)
+    all_equal = torch.equal(got[1], ref[1])
+    syn = {impl: sifinder_lib.synthesize_side_image(
+        x_dec, y_t, y_dec, mask, PH, PW, ae.replace(sifinder_impl=impl))
+        for impl in ("kernel", "torch")}
+    _, metrics_p = step_p(x, y)
+    torch.cuda.synchronize()
+    if all_equal:
+        if not torch.equal(syn["kernel"], syn["torch"]):
+            raise AssertionError("equal indices, different y_syn")
+        if float(metrics_p["loss"]) != scalars["loss"]:
+            raise AssertionError(f"loss {float(metrics_p['loss'])} (plain "
+                                 f"search) vs {scalars['loss']} (K1)")
+        assert_bit_equal(after, snapshot(model_p, optimizer_p),
+                         "the step through K1 vs through the plain search")
+        log("  the same step with the plain search on the card: every index "
+            "equal; y_syn, the loss, every gradient, the new parameters, "
+            "statistics and moments bit-equal")
+    else:
+        log(f"  the same step with the plain search on the card: "
+            f"{int((got[1] != ref[1]).sum())} indices differ, all within the "
+            f"{MARGIN_ATOL} top-two margin; loss "
+            f"{float(metrics_p['loss']):.6f} vs {scalars['loss']:.6f}")
+    del model_p, optimizer_p, step_p
+
+    # bn_stats = 'frozen': batch statistics normalize, nothing is recorded
+    model_f, optimizer_f, step_f = trainer(ae.replace(bn_stats="frozen"),
+                                           pc, dev, seed, mask)
+    frozen_before = snapshot(model_f, optimizer_f)
+    step_f(x, y)
+    frozen_after = snapshot(model_f, optimizer_f)
+    moved = [k for k in stats if not torch.equal(frozen_before[k],
+                                                 frozen_after[k])]
+    if moved:
+        raise AssertionError(f"bn_stats = 'frozen' moved {moved[:4]}")
+    log("  bn_stats = 'frozen': the running statistics unchanged")
+    return model, optimizer, step
+
+
+def determinism_and_resume(seed: int, dev, ae, pc, mask, batches, first,
+                           root: str):
+    """The first step again from the same state (bit-equal), then a save at
+    step 1 with its optimizer state, a restore into a model of another seed
+    with load_train_step, and step 2 there against the uninterrupted step 2
+    (bit-equal)."""
+    model, optimizer, step = first
+    model_c, optimizer_c, step_c = trainer(ae, pc, dev, seed, mask)
+    step_c(*batches[0])
+    torch.cuda.synchronize()
+    assert_bit_equal(snapshot(model, optimizer),
+                     snapshot(model_c, optimizer_c),
+                     "the same step twice from the same state")
+    ckpt = os.path.join(root, "weights", "step1")
+    t0 = time.perf_counter()
+    ckpt_lib.save_checkpoint(ckpt, ckpt_lib.state_from_model(
+        model_c, optimizer=optimizer_c))
+    save_ms = 1e3 * (time.perf_counter() - t0)
+    model_d, optimizer_d, step_d = trainer(ae, pc, dev, seed + 7, mask)
+    t0 = time.perf_counter()
+    state = ckpt_lib.restore_for_mode(
+        ckpt, ckpt_lib.state_from_model(model_d, optimizer=optimizer_d),
+        ae.replace(load_model=True, load_train_step=True))
+    ckpt_lib.load_state(model_d, state, optimizer_d)
+    torch.cuda.synchronize()
+    restore_ms = 1e3 * (time.perf_counter() - t0)
+    if optimizer_d.step != 1:
+        raise AssertionError(f"restored step {optimizer_d.step}")
+    step(*batches[1])
+    step_d(*batches[1])
+    torch.cuda.synchronize()
+    assert_bit_equal(snapshot(model, optimizer), snapshot(model_d,
+                                                          optimizer_d),
+                     "step 2 after a save and restore vs step 2 "
+                     "uninterrupted")
+    nbytes = sum(os.path.getsize(os.path.join(ckpt, f))
+                 for f in os.listdir(ckpt))
+    log(f"  determinism: the same step twice from one state, bit-equal "
+        f"(parameters, statistics, gradients, moments); resume: saved at "
+        f"step 1 with opt_state.msgpack ({nbytes} bytes, {save_ms:.1f} ms), "
+        f"restored into a model of another seed with load_train_step "
+        f"({restore_ms:.1f} ms): step 2 bit-equal to the uninterrupted one")
+
+
+def run_phase(seed: int, dev, root: str):
+    """`main.run` with train_model and test_model on a synthetic split of
+    KITTI-sized pairs, then a resumed run; launch counts read around each."""
+    t0 = time.perf_counter()
+    manifests = synthetic.write_corpus(root, TRAIN_PAIRS, VAL_PAIRS,
+                                       RUN_TEST_PAIRS, KITTI_H, KITTI_W,
+                                       seed=seed)
+    for split, path in manifests.items():
+        os.rename(path, os.path.join(root, f"{split}.txt"))
+    corpus_s = time.perf_counter() - t0
+    ae, pc = train_configs(
+        root_data=root, file_path_train="train.txt",
+        file_path_val="val.txt", file_path_test="test.txt", test_model=True,
+        validate_every=RUN_EVERY, checkpoint_every=RUN_EVERY,
+        decrease_val_steps=False, show_every=2)
+    h, w = ae.eval_crop_size
+    fronts = len(make_codec(build_model(ae, pc, device="cpu"))._wavefronts(
+        ae.num_chan_bn, h // 8, w // 8))
+    runs = []
+    for steps in (RUN_STEPS, RESUME_STEPS):
+        cfg = ae if not runs else ae.replace(
+            load_model=True, load_train_step=True,
+            load_model_name=runs[0]["exp"].model_name)
+        seen = []
+        sk.reset_launch_counts()
+        pk.reset_launch_counts()
+        t0 = time.perf_counter()
+        results = main_lib.run(
+            cfg, pc, out_root=root, max_steps=steps, real_bpp=True,
+            device=dev, on_image=lambda exp, i, rec: seen.append(exp))
+        secs = time.perf_counter() - t0
+        launches = {"pearson_argmax": sk.launch_counts["pearson_argmax"],
+                    "probclass_front_logits":
+                        pk.launch_counts["probclass_front_logits"]}
+        if len(seen) != RUN_TEST_PAIRS or results["steps"] != steps:
+            raise AssertionError(f"run: {results['steps']} steps, "
+                                 f"{len(seen)} test images")
+        exp = seen[0]
+        runs.append(dict(exp=exp, results=results))
+        start = exp.step - steps
+        validations = sum(1 for j in range(start, exp.step)
+                          if (j + 1) % RUN_EVERY == 0 or j + 1 == exp.step)
+        want = {"pearson_argmax": steps + validations * VAL_PAIRS
+                + RUN_TEST_PAIRS,
+                "probclass_front_logits": RUN_TEST_PAIRS * fronts}
+        if launches != want:
+            raise AssertionError(f"run of {steps} steps from step {start}: "
+                                 f"launches {launches}, expected {want} "
+                                 f"({validations} validations of "
+                                 f"{VAL_PAIRS} batches, {RUN_TEST_PAIRS} "
+                                 f"test images, {fronts} fronts each)")
+        if not np.isfinite(results["best_val"]):
+            raise AssertionError(f"best_val {results['best_val']}")
+        log(f"  run from step {start}: {steps} steps, {validations} "
+            f"validations, {RUN_TEST_PAIRS} test images with real bpp in "
+            f"{secs:.1f} s; launches {launches} (= steps + validation "
+            f"batches + test images, and {fronts} fronts an image); best_val "
+            f"{results['best_val']:.4f}, test bpp {results['bpp']:.4f} (real "
+            f"{results['real_bpp']:.4f}), psnr {results['psnr']:.2f}")
+    first, second = runs
+    ckpt = first["exp"].ckpt_dir
+    meta = ckpt_lib.load_meta(ckpt)
+    files = ckpt_lib.load_manifest(ckpt)["files"]
+    periodic = ckpt_lib.load_meta(os.path.join(ckpt, "periodic"))
+    if ("opt_state.msgpack" not in files
+            or periodic.get("kind") != "periodic"
+            or meta["best_val"] != first["results"]["best_val"]):
+        raise AssertionError(f"checkpoints: files {sorted(files)}, periodic "
+                             f"{periodic}, meta {meta}")
+    if (second["exp"].step != RUN_STEPS + RESUME_STEPS
+            or second["exp"].restored_best_val != meta["best_val"]):
+        raise AssertionError(f"resume: step {second['exp'].step}, best_val "
+                             f"{second['exp'].restored_best_val} vs "
+                             f"{meta['best_val']}")
+    nbytes = sum(f["bytes"] for f in files.values())
+    log(f"  {TRAIN_PAIRS}/{VAL_PAIRS}/{RUN_TEST_PAIRS} synthetic pairs at "
+        f"{KITTI_H}x{KITTI_W} written in {corpus_s:.1f} s; a best-val "
+        f"checkpoint (step {meta['step']}, {nbytes} bytes with "
+        f"opt_state.msgpack) and a periodic one; the resumed run continued "
+        f"at step {RUN_STEPS}, read best_val {meta['best_val']:.4f}, and "
+        f"restore_best_for_test scored the test split")
+
+
+def time_train_step(dev, ae, pc, mask, batches, label: str):
+    """ms per train step (host clock around synchronised steps, median of
+    the warm ones), its forward / backward / optimizer split (CUDA events
+    from the step's phase hook) and the peak device memory of a step."""
+    marks = []
+
+    def on_phase(name):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((name, ev))
+
+    _, _, step = trainer(ae, pc, dev, 0, mask, on_phase=on_phase)
+    for x, y in batches[:2]:                  # warm-up: cuDNN plans, K1
+        step(x, y)
+    torch.cuda.synchronize()
+    host, split = [], collections.defaultdict(list)
+    for i in range(TIMED_STEPS):
+        x, y = batches[i % len(batches)]
+        marks.clear()
+        torch.cuda.reset_peak_memory_stats()
+        on_phase("start")
+        t0 = time.perf_counter()
+        step(x, y)
+        torch.cuda.synchronize()
+        host.append(1e3 * (time.perf_counter() - t0))
+        for (_, a), (name, b) in zip(marks, marks[1:]):
+            split[name].append(a.elapsed_time(b))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    med = {k: float(np.median(v)) for k, v in split.items()}
+    log(f"  {label}: {float(np.median(host)):.2f} ms per step (median of "
+        f"{TIMED_STEPS} warm, host clock: "
+        + "/".join(f"{v:.1f}" for v in host) + "); device ms forward "
+        f"{med['forward']:.2f}, backward {med['backward']:.2f}, optimizer "
+        f"{med['optimizer']:.2f}; peak {peak:.2f} GiB")
+    profile_step(step, *batches[0], float(np.median(host)))
+
+
+def profile_step(step, x, y, step_ms: float):
+    """One more step under torch.profiler: its kernel time on the device,
+    that time's share of the median step, and the kernels that take most
+    of it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        step(x, y)
+        torch.cuda.synchronize()
+    # the kernels themselves: an operator's own entry counts its kernels'
+    # time again
+    events = [e for e in prof.key_averages()
+              if e.device_type != torch.autograd.DeviceType.CPU]
+
+    def device_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+
+    total = sum(device_us(e) for e in events) / 1e3
+    if total <= 0:
+        log("  torch.profiler saw no device time on this card")
+        return
+    top = sorted(events, key=device_us, reverse=True)[:8]
+    log(f"  profiled step: {total:.2f} ms of kernels on the device, "
+        f"{100 * total / step_ms:.1f}% of the {step_ms:.2f} ms step; most: "
+        + "; ".join(f"{e.key[:48]} x{e.count} {device_us(e) / 1e3:.2f} ms"
+                    for e in top))
+
+
+def train_phase(seed: int, dev):
+    ae, pc = train_configs()
+    crop = tuple(ae.crop_size)
+    k1_at_training_shape(seed, dev, crop)
+    mask = sifinder_lib.check_mask(main_lib.gaussian_prior(
+        crop[0], crop[1], PH, PW, dev), PH, PW)
+    if mask.factors is None:
+        raise AssertionError("the training prior did not check as the "
+                             "standard Gaussian")
+    batches = train_crops(seed + 5, 3, crop)
+    first = one_step_checks(seed, dev, ae, pc, mask, batches)
+    with tempfile.TemporaryDirectory(prefix="dsin-train-") as root:
+        determinism_and_resume(seed, dev, ae, pc, mask, batches, first, root)
+        del first
+        run_phase(seed, dev, root)
+    time_train_step(dev, ae, pc, mask, batches, "float32 train step")
+    time_train_step(dev, ae.replace(compute_dtype="bfloat16"), pc, mask,
+                    batches, "bfloat16 train step (compute_dtype)")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1022,32 +1440,37 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    log(f"[1/7] card: {card}; torch {torch.__version__}, CUDA "
+    rows, launches, walls = {}, {}, []
+
+    def phase(title, fn):
+        log(f"[{len(walls) + 2}/8] {title}")
+        t0 = time.perf_counter()
+        out = fn()
+        walls.append((len(walls) + 2, time.perf_counter() - t0))
+        return out
+
+    log(f"[1/8] card: {card}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}")
-
-    log("[2/7] build")
-    build_phase()
-
-    log(f"[3/7] kernel vs plain at {H}x{W}, patches {PH}x{PW}, seed "
-        f"{args.seed}")
-    rows = kernel_phase(args.seed, dev)
-
-    log("[4/7] the slice at full width (ae_kitti_stereo + pc_default)")
-    launches = slice_phase(args.seed, dev)
-
-    log("[5/7] the codec at full width (ae_kitti_stereo + pc_default)")
+    phase("build", build_phase)
+    rows.update(phase(f"kernel vs plain at {H}x{W}, patches {PH}x{PW}, seed "
+                      f"{args.seed}", lambda: kernel_phase(args.seed, dev)))
+    launches.update(phase("the slice at full width (ae_kitti_stereo + "
+                          "pc_default)", lambda: slice_phase(args.seed, dev)))
     rows["probclass_front_logits"], launches["probclass_front_logits"] = \
-        codec_phase(args.seed, dev)
+        phase("the codec at full width (ae_kitti_stereo + pc_default)",
+              lambda: codec_phase(args.seed, dev))
 
-    log("[6/7] the precision ladder: K4 and the serve-bench precision leg "
-        "(ae_kitti_stereo + pc_default)")
-    rows["fused_decode_epilogue"] = k4_phase(args.seed, dev)
-    launches["fused_decode_epilogue"] = leg_phase(args.seed, dev)
+    def ladder():
+        rows["fused_decode_epilogue"] = k4_phase(args.seed, dev)
+        launches["fused_decode_epilogue"] = leg_phase(args.seed, dev)
 
-    log("[7/7] the test run at full width (ae_kitti_stereo + pc_default) "
-        "from a checkpoint the port wrote")
-    test_run_phase(args.seed, dev)
-
+    phase("the precision ladder: K4 and the serve-bench precision leg "
+          "(ae_kitti_stereo + pc_default)", ladder)
+    phase("the test run at full width (ae_kitti_stereo + pc_default) from a "
+          "checkpoint the port wrote", lambda: test_run_phase(args.seed, dev))
+    phase("training at full width (ae_kitti_stereo + pc_default, 320x960, "
+          "batch 1)", lambda: train_phase(args.seed, dev))
+    log("phase wall s: " + ", ".join(f"[{i}] {t:.1f}" for i, t in walls))
     kernels = [dict(name=name, route="cuda", source=SOURCES[name],
                     replaces=REPLACES[name], launches=launches[name], **r)
                for name, r in rows.items()]

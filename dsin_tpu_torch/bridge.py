@@ -18,14 +18,17 @@ Layout rules:
 `jax_from_state_dict` is the inverse: the port's state_dict -> the JAX
 `params` / `batch_stats` trees (numpy, flax's module names, the kernels back
 in HWIO / DHWIO with the transposed convs flipped back), and
-`state_dict_from_jax(*jax_from_state_dict(sd))` equals `sd`. The `.msgpack`
-checkpoint files themselves are read and written by `train/checkpoint.py`.
+`state_dict_from_jax(*jax_from_state_dict(sd))` equals `sd`. An optimizer's
+moments take exactly the layout transform of their parameter
+(`jax_params_tree`, `named_from_jax_tree`): Adam and momentum are
+elementwise, so the carry is exact. The `.msgpack` checkpoint files
+themselves are read and written by `train/checkpoint.py`.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -107,6 +110,30 @@ def _put(tree: Dict[str, Any], path, value) -> None:
     tree[path[-1]] = value
 
 
+def _jax_leaf(key: str):
+    """A state_dict key -> (its flax path, whether it is a batch
+    statistic)."""
+    if key == "centers":
+        return ["centers"], False
+    path, leaf = _jax_path(key)
+    if path[-1] == "BatchNorm_0":
+        name = _BN_INVERSE[leaf]
+        return path + [name], name in ("mean", "var")
+    if leaf in ("weight", "bias"):
+        return path + ["kernel" if leaf == "weight" else "bias"], False
+    raise KeyError(f"unmapped state_dict entry {key}")
+
+
+def _jax_value(key: str, tensor: torch.Tensor) -> np.ndarray:
+    """A state_dict value -> a C-contiguous float32 array in the JAX
+    layout, a copy (never a view of a CPU tensor that later changes)."""
+    value = tensor.detach().float().cpu().numpy()
+    if key != "centers" and key.endswith(".weight") \
+            and ".bn." not in key:
+        value = _jax_kernel(key, value)
+    return np.array(value, order="C", copy=True)
+
+
 def jax_from_state_dict(state_dict: Dict[str, torch.Tensor]):
     """The port's state_dict -> (params, batch_stats): the JAX package's
     trees as C-contiguous float32 numpy arrays, what its checkpoints hold.
@@ -116,23 +143,30 @@ def jax_from_state_dict(state_dict: Dict[str, torch.Tensor]):
     for key, tensor in state_dict.items():
         if key.endswith("num_batches_tracked"):
             continue
-        value = tensor.detach().float().cpu().numpy()
-        if key == "centers":
-            params["centers"] = np.ascontiguousarray(value)
-            continue
-        path, leaf = _jax_path(key)
-        if path[-1] == "BatchNorm_0":
-            name = _BN_INVERSE[leaf]
-            tree = batch_stats if name in ("mean", "var") else params
-            _put(tree, path + [name], np.ascontiguousarray(value))
-        elif leaf == "weight":
-            _put(params, path + ["kernel"],
-                 np.ascontiguousarray(_jax_kernel(key, value)))
-        elif leaf == "bias":
-            _put(params, path + ["bias"], np.ascontiguousarray(value))
-        else:
-            raise KeyError(f"unmapped state_dict entry {key}")
+        path, is_stat = _jax_leaf(key)
+        _put(batch_stats if is_stat else params, path,
+             _jax_value(key, tensor))
     return params, batch_stats
+
+
+def jax_params_tree(named: Dict[str, Optional[torch.Tensor]]):
+    """Per-parameter tensors keyed by the port's parameter names (an
+    optimizer's moments) -> one tree in the JAX params layout, each tensor
+    transformed as its parameter is (HWIO kernels, transposed convs
+    flipped back); a None value becomes an empty map, as flax writes an
+    optax leaf that a group's mask leaves out."""
+    tree: Dict[str, Any] = {}
+    for key, tensor in named.items():
+        path, _ = _jax_leaf(key)
+        _put(tree, path, {} if tensor is None else _jax_value(key, tensor))
+    return tree
+
+
+def named_from_jax_tree(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The inverse of `jax_params_tree`: the arrays of a JAX params-layout
+    tree keyed by the port's parameter names, in the port's layout; empty
+    maps are left out."""
+    return state_dict_from_jax(tree, {})
 
 
 def _walk(tree: Dict[str, Any], path=()):

@@ -1,40 +1,56 @@
-"""The test run of DSIN: score a checkpoint on a test split (counterpart of
-the JAX package's `main.py`, its test half).
+"""Train / validate / test orchestration of DSIN and its CLI (counterpart of
+the JAX package's `main.py`).
 
-Parse the two config files, build the model (seeded weights), restore the
-configured checkpoint (`load_model`, `train/checkpoint.py`), then run the
-test split through the eval forward (`train/step.py make_inference_step`):
-center crops at `eval_crop_size` from a KITTI-format pair manifest, one
-image at a time under the concrete Gaussian prior (checked once per
-`Experiment`), reconstruction PNGs and per-image score lists
-(`eval/reporting.py`). With `--real_bpp` each bottleneck is also coded by
-the rANS codec (`coding/codec.py`: on the card in mode 3, through the
-probclass front kernel; on the CPU in mode 2, the JAX package's bytes) and
-the stream's bits per pixel are scored beside the estimate.
+Parse the two config files, build the model (seeded weights) and its
+two-group optimizer (`train/optim.py`), restore the configured checkpoint
+(`load_model`, with `load_train_step` also the optimizer state and step, and
+the best validation loss from `meta.json`), then:
 
-Training (`train_model = True`: its backward pass, optimizers and loop),
-`--distributed`, `--profile_dir` and `save_plots` are not ported yet and
-raise NotImplementedError.
+* `train_model`: the fetch -> step -> validate loop over random crops of the
+  train split (`data/loader.py`, prefetched on a thread): one
+  `train/step.make_train_step` step per batch on one device, the metrics of
+  step j read after step j+1 is enqueued, validation on center crops of the
+  val split at `crop_size` under the training prior (the interval shrinks
+  in the last half of training), the best-val checkpoint with its
+  `opt_state.msgpack` and sidecars, periodic checkpoints
+  (`checkpoint_every`), an emergency checkpoint on any exception, a
+  divergence guard and an optional stop once the rate target is met. A
+  restored step continues the numbering.
+* `test_model`: after training, the best-val checkpoint is restored
+  (`restore_best_for_test`); then the test split through the eval forward
+  (`train/step.py make_inference_step`): center crops at `eval_crop_size`,
+  one image at a time under the concrete Gaussian prior (checked once per
+  `Experiment`), reconstruction PNGs and per-image score lists
+  (`eval/reporting.py`). With `--real_bpp` each bottleneck is also coded by
+  the rANS codec (`coding/codec.py`: on the card in mode 3, through the
+  probclass front kernel; on the CPU in mode 2, the JAX package's bytes)
+  and the stream's bits per pixel are scored beside the estimate.
+
+Multi-device training (`--distributed`, `spatial_shards`), `--profile_dir`,
+`--replicate_to` and `save_plots` are not ported yet and raise
+NotImplementedError naming their ROADMAP item.
 
 CLI:
     python -m dsin_tpu_torch.main -ae_config <path> -pc_config <path> \
-        [--out_root DIR] [--data_root DIR] [--max_test_images N] \
-        [--real_bpp] [--device cpu]
+        [--out_root DIR] [--data_root DIR] [--max_steps N] \
+        [--max_val_batches N] [--max_test_images N] [--real_bpp] \
+        [--device cpu]
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import os
 import time
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Iterator, Optional
 
 import numpy as np
 import torch
 
 from dsin_tpu_torch.coding.loader import make_codec
 from dsin_tpu_torch.config import Config, parse_config_file
-from dsin_tpu_torch.data.loader import PairDataset
+from dsin_tpu_torch.data.loader import PairDataset, Prefetcher
 from dsin_tpu_torch.data.manifest import read_pair_manifest
 from dsin_tpu_torch.eval.reporting import (ScoreLists, image_output_path,
                                            save_image)
@@ -42,15 +58,47 @@ from dsin_tpu_torch.models.dsin import build_model
 from dsin_tpu_torch.ops import sifinder as sifinder_lib
 from dsin_tpu_torch.runtime import config_path
 from dsin_tpu_torch.train import checkpoint as ckpt_lib
+from dsin_tpu_torch.train import optim as optim_lib
 from dsin_tpu_torch.train import step as step_lib
+from dsin_tpu_torch.utils.logging import JsonlLogger, StepTimer, color_print
+from dsin_tpu_torch.utils.signals import install_interrupt_handlers
 
-def _not_ported(what: str) -> NotImplementedError:
+#: train-split size when the manifest is missing (KITTI stereo's 1576 pairs)
+DEFAULT_NUM_TRAIN_IMGS = 1576
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} waits for training in the port ({ckpt_lib.TRAINING_ITEM})")
+        f"{what} is not ported yet (ROADMAP Queue 1, {item})")
+
+
+def get_validate_every(iteration: int, total_iterations: int,
+                       validate_every: int,
+                       decrease_val_steps: bool) -> int:
+    """The validation interval: halved after half the iterations, quartered
+    after three quarters (late improvements are rarer, so best-val
+    checkpointing samples finer)."""
+    if not decrease_val_steps:
+        return validate_every
+    if iteration >= (3 * total_iterations) // 4:
+        return max(validate_every // 4, 1)
+    if iteration >= total_iterations // 2:
+        return max(validate_every // 2, 1)
+    return validate_every
+
+
+def gaussian_prior(h: int, w: int, ph: int, pw: int,
+                   device) -> torch.Tensor:
+    """The (Hc, Wc, P) Gaussian position prior of h x w images on
+    `device`."""
+    return torch.as_tensor(sifinder_lib.gaussian_position_mask(h, w, ph, pw),
+                           device=device)
 
 
 class Experiment:
-    """Owns the model, the eval step and the datasets of one test run."""
+    """Owns the model, its optimizer, the steps and the datasets of one
+    run. The train step, the validation step and the training prior exist
+    only when the config trains (`train_model`)."""
 
     def __init__(self, ae_config: Config, pc_config: Config,
                  out_root: str = ".", seed: int = 0, device="cuda"):
@@ -58,30 +106,62 @@ class Experiment:
         self.pc_config = pc_config
         self.out_root = out_root
         self.seed = seed
+        if int(ae_config.get("spatial_shards", 1) or 1) > 1:
+            raise _not_ported("spatial_shards > 1 (width-sharded training)",
+                              "multi-device training")
         self.model = build_model(ae_config, pc_config, device=device,
                                  seed=seed)
         self.device = self.model.centers.device
-        self.step = 0
         self.restore_ms = None
+        self.restored_best_val = float("inf")
+
+        train_manifest = os.path.join(ae_config.root_data,
+                                      ae_config.file_path_train)
+        self.num_train_imgs = (
+            len(read_pair_manifest(train_manifest, root=ae_config.root_data))
+            if os.path.exists(train_manifest) else DEFAULT_NUM_TRAIN_IMGS)
+        self.optimizer = optim_lib.Optimizer(
+            self.model, ae_config, pc_config, self.num_train_imgs)
 
         ph, pw = (int(v) for v in ae_config.y_patch_size)
         eh, ew = ae_config.get("eval_crop_size", ae_config.crop_size)
         self.eval_mask = None
         self.mask_check_ms = 0.0
         if ae_config.use_gauss_mask:
-            mask = torch.as_tensor(sifinder_lib.gaussian_position_mask(
-                eh, ew, ph, pw), device=self.device)
+            mask = gaussian_prior(eh, ew, ph, pw, self.device)
             t0 = time.perf_counter()
             self.eval_mask = sifinder_lib.check_mask(mask, ph, pw)
             self.mask_check_ms = 1e3 * (time.perf_counter() - t0)
+            del mask
         self.infer_step = step_lib.make_inference_step(
             self.model, si_mask=self.eval_mask)
+        if ae_config.train_model:
+            ch, cw = ae_config.crop_size
+            self.train_mask = (sifinder_lib.check_mask(
+                gaussian_prior(ch, cw, ph, pw, self.device), ph, pw)
+                if ae_config.use_gauss_mask else None)
+            grad_accum = int(ae_config.get("grad_accum_steps", 1) or 1)
+            if grad_accum > 1:
+                color_print(
+                    f"grad_accum_steps={grad_accum}: BatchNorm statistics "
+                    f"and the rate hinge are evaluated per micro-batch "
+                    f"(see the JAX package's train/step.py on when this "
+                    f"differs from the full-batch step)", "yellow")
+            self.train_step = step_lib.make_train_step(
+                self.model, self.optimizer, si_mask=self.train_mask,
+                grad_accum=grad_accum)
+            self.val_step = step_lib.make_eval_step(
+                self.model, si_mask=self.train_mask)
 
         stamp = time.strftime("%Y%m%d_%H%M%S")
         self.model_name = ckpt_lib.model_name_for(ae_config, stamp)
         self.weights_root = os.path.join(out_root, "weights")
         self.ckpt_dir = os.path.join(self.weights_root, self.model_name)
         self.images_dir = os.path.join(out_root, "images", self.model_name)
+
+    @property
+    def step(self) -> int:
+        return self.optimizer.step
 
     # -- data ---------------------------------------------------------------
 
@@ -98,15 +178,33 @@ class Experiment:
             train=train, num_crops_per_img=cfg.num_crops_per_img,
             do_flips=cfg.get("do_flips", True))
 
-    # -- restore ------------------------------------------------------------
+    # -- checkpoints --------------------------------------------------------
 
-    def _restore(self, restore_fn) -> None:
-        state = restore_fn(ckpt_lib.state_from_model(self.model, self.step))
-        ckpt_lib.load_state(self.model, state)
-        self.step = int(state.step)
+    def _manifest_extra(self) -> dict:
+        """The trainer's identity in every checkpoint manifest: the
+        pc-config hash a loader re-derives from its own config, and the
+        init seed."""
+        return {"pc_config_sha256": ckpt_lib.config_sha256(self.pc_config),
+                "seed": self.seed}
+
+    def _save(self, ckpt_dir: str, **kwargs) -> None:
+        ckpt_lib.save_checkpoint(
+            ckpt_dir, ckpt_lib.state_from_model(self.model,
+                                                optimizer=self.optimizer),
+            manifest_extra=self._manifest_extra(), **kwargs)
+
+    def _restore(self, restore_fn, train_step: bool = False) -> None:
+        """Restore through `restore_fn(template) -> state`; with
+        `train_step`, the template holds the optimizer state and the
+        restored one replaces it."""
+        optimizer = self.optimizer if train_step else None
+        state = restore_fn(ckpt_lib.state_from_model(
+            self.model, self.step, optimizer))
+        ckpt_lib.load_state(self.model, state, optimizer)
 
     def maybe_restore(self) -> None:
         cfg = self.ae_config
+        self.restored_best_val = float("inf")
         if not cfg.load_model:
             return
         t0 = time.perf_counter()
@@ -115,17 +213,224 @@ class Experiment:
         # `.prev-*` behind: resolve whichever complete checkpoint survives
         if not os.path.exists(os.path.join(load_dir, "meta.json")):
             load_dir = ckpt_lib.latest_checkpoint(load_dir) or load_dir
-        self._restore(lambda s: ckpt_lib.restore_for_mode(load_dir, s, cfg))
+        resume = bool(cfg.load_train_step)
+        self._restore(lambda s: ckpt_lib.restore_for_mode(load_dir, s, cfg),
+                      train_step=resume)
+        if resume:
+            # a true resume of the same phase seeds best-val tracking, so
+            # its first validation is not always an "improvement"; a phase
+            # switch (AE-only weights warm-starting siNet training) changes
+            # the loss, and the old best_val stays unused
+            self.restored_best_val = float(
+                ckpt_lib.load_meta(load_dir).get("best_val", float("inf")))
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.restore_ms = 1e3 * (time.perf_counter() - t0)
-        print(f"restored from {load_dir} (step {self.step})", flush=True)
+        color_print(f"restored from {load_dir} (step {self.step}, best_val "
+                    f"{self.restored_best_val})", "green")
+
+    # -- train --------------------------------------------------------------
+
+    def validate(self, val_batches: Iterator,
+                 max_batches: Optional[int] = None) -> float:
+        losses = []
+        for i, (x, y) in enumerate(val_batches):
+            if max_batches is not None and i >= max_batches:
+                break
+            losses.append(float(self.val_step(x, y)["loss"]))
+        if not losses:
+            # inf never improves, so best-val checkpoints stop: say why
+            color_print("validation saw ZERO batches (val split smaller "
+                        "than batch_size?) - val_loss=inf, no best-val "
+                        "checkpoint will be saved", "red")
+            return float("inf")
+        return float(np.mean(losses))
+
+    def _validate_and_maybe_save(self, i: int, iterations: int,
+                                 best_val: float, val_losses, logger,
+                                 max_val_batches: Optional[int],
+                                 force_save: bool = False) -> float:
+        """One validation pass and best-val checkpointing; returns the new
+        best_val. `force_save` writes the checkpoint without an improvement
+        (the rate-target stop keeps the weights that meet the rate)."""
+        cfg = self.ae_config
+        with self._dataset("val", train=False) as val_ds:
+            val_loss = self.validate(val_ds.batches(loop=False),
+                                     max_batches=max_val_batches)
+        val_losses.append(val_loss)
+        improved = val_loss < best_val
+        color_print(f"[{i + 1}] val_loss={val_loss:.4f} "
+                    f"(best {min(best_val, val_loss):.4f})",
+                    "green" if improved else "yellow")
+        logger.log(i + 1, {"val_loss": val_loss})
+        if improved:
+            best_val = val_loss
+        if (improved or force_save) and cfg.get("save_model", True):
+            self._save(self.ckpt_dir, best_val=best_val)
+            ckpt_lib.write_sidecars(
+                self.weights_root, self.model_name, cfg, self.pc_config,
+                iteration=i + 1, total_iterations=iterations,
+                best_val=best_val)
+        return best_val
+
+    def train(self, max_steps: Optional[int] = None,
+              max_val_batches: Optional[int] = None,
+              log_path: Optional[str] = None,
+              until_rate_target: bool = False,
+              rate_window: int = 200) -> Dict[str, float]:
+        """The fetch -> step -> validate loop; returns summary stats.
+        `max_steps` counts the steps to run from the restored step (None:
+        the config's iterations), `max_val_batches` bounds each validation.
+
+        `until_rate_target=True` stops once the mean H_soft over the last
+        `rate_window` steps is at most H_target (the rate hinge's whole
+        purpose), with a closing validation and a forced save.
+
+        Metrics lag dispatch by one step: step i+1 is enqueued before step
+        i's metrics are read on the host, so host work (batch decode,
+        logging, the device-to-host copy) overlaps device work. So the
+        rate-target stop overshoots by one step, and a validation or
+        checkpoint at boundary j reads the state after step j+1."""
+        if until_rate_target and rate_window < 1:
+            raise ValueError(f"rate_window must be >= 1, got {rate_window}")
+        # SIGINT may be inherited ignored and SIGTERM kills without
+        # unwinding: both must reach the emergency save below
+        install_interrupt_handlers()
+        cfg = self.ae_config
+        start = min(self.step, cfg.iterations)
+        iterations = (min(cfg.iterations, start + max_steps)
+                      if max_steps else cfg.iterations)
+        train_ds = self._dataset("train", train=True)
+        train_it = Prefetcher(train_ds.batches())
+        logger = JsonlLogger(log_path or os.path.join(
+            self.out_root, "logs", f"{self.model_name}.jsonl"))
+        timer = StepTimer()
+        checkpoint_every = cfg.get("checkpoint_every", None)
+        best_val = self.restored_best_val
+        accum: Dict[str, float] = {}
+        n_accum = 0
+        val_losses = []
+        h_recent: "collections.deque" = collections.deque(maxlen=rate_window)
+        # divergence guard: stop when the val loss sits above
+        # divergence_factor x best_val for divergence_patience consecutive
+        # validations (0 disables); the best-val checkpoint keeps the run's
+        # artifact
+        div_factor = float(cfg.get("divergence_factor", 1.5))
+        div_patience = int(cfg.get("divergence_patience", 3) or 0)
+        div_bad = 0
+        diverged = False
+
+        def process(j, metrics):
+            """Host handling of step j's metrics (step j+1 may already be
+            enqueued). Returns whether an early stop fired."""
+            nonlocal accum, n_accum, best_val, div_bad, diverged
+            timer.tick()
+            for k in ("loss", "bpp", "H_real", "d_loss", "si_l1"):
+                accum[k] = accum.get(k, 0.0) + float(metrics[k])
+            n_accum += 1
+
+            if until_rate_target:
+                h_recent.append(float(metrics["H_soft"]))
+                if (len(h_recent) == rate_window
+                        and float(np.mean(h_recent)) <= cfg.H_target):
+                    color_print(
+                        f"[{j + 1}] rate target reached: mean H_soft over "
+                        f"the last {rate_window} steps "
+                        f"{float(np.mean(h_recent)):.4f} <= H_target "
+                        f"{cfg.H_target}", "green", bold=True)
+                    best_val = self._validate_and_maybe_save(
+                        j, iterations, best_val, val_losses, logger,
+                        max_val_batches, force_save=True)
+                    return True
+
+            if (j + 1) % cfg.show_every == 0 or j + 1 == iterations:
+                means = {k: v / n_accum for k, v in accum.items()}
+                accum, n_accum = {}, 0
+                ips = timer.images_per_sec(cfg.batch_size)
+                color_print(
+                    f"[{j + 1}/{iterations}] loss={means['loss']:.4f} "
+                    f"bpp={means['bpp']:.4f} d={means['d_loss']:.4f} "
+                    f"{ips:.2f} img/s", "cyan")
+                logger.log(j + 1, means, images_per_sec=ips)
+
+            # a periodic (not best-val) checkpoint bounds the work a crash
+            # loses
+            if checkpoint_every and (j + 1) % checkpoint_every == 0:
+                self._save(os.path.join(self.ckpt_dir, "periodic"),
+                           extra_meta={"kind": "periodic"})
+
+            ve = get_validate_every(j, iterations, cfg.validate_every,
+                                    cfg.get("decrease_val_steps", True))
+            if (j + 1) % ve == 0 or j + 1 == iterations:
+                best_val = self._validate_and_maybe_save(
+                    j, iterations, best_val, val_losses, logger,
+                    max_val_batches)
+                val_loss = val_losses[-1]
+                # only finite over finite counts: an inf val_loss means an
+                # empty val split (its own warning), not divergence
+                if (div_patience and np.isfinite(val_loss)
+                        and np.isfinite(best_val)
+                        and val_loss > div_factor * best_val):
+                    div_bad += 1
+                    if div_bad >= div_patience:
+                        diverged = True
+                        color_print(
+                            f"[{j + 1}] DIVERGENCE STOP: val_loss above "
+                            f"{div_factor:g}x best_val ({best_val:.4f}) for "
+                            f"{div_bad} consecutive validations; the "
+                            f"best-val checkpoint is the run's artifact",
+                            "red", bold=True)
+                        return True
+                else:
+                    div_bad = 0
+            return False
+
+        pending = None   # (step index, metrics on the device)
+        try:
+            for i in range(start, iterations):
+                x, y = next(train_it)
+                _, metrics = self.train_step(x, y)
+                if pending is not None and process(*pending):
+                    pending = None
+                    break
+                pending = (i, metrics)
+            if pending is not None:
+                process(*pending)
+        except BaseException as e:
+            # emergency save of the in-flight state; BaseException, so that
+            # Ctrl-C and SIGTERM (KeyboardInterrupt) reach it too. Guarded:
+            # a save that raises must not mask the original error. With the
+            # lag-1 loop a crash can arrive before the completed step was
+            # processed, hence `pending`.
+            if (cfg.get("save_model", True)
+                    and (timer.total_steps > 0 or pending is not None)
+                    and not isinstance(e, GeneratorExit)):
+                emergency = os.path.join(self.ckpt_dir, "emergency")
+                try:
+                    self._save(emergency, extra_meta={"kind": "emergency",
+                                                      "error": repr(e)})
+                    color_print(f"crash at step {self.step}; state saved to "
+                                f"{emergency}", "red", bold=True)
+                except Exception as save_err:  # noqa: BLE001
+                    color_print(f"crash AND emergency save failed "
+                                f"({save_err!r}); state lost", "red",
+                                bold=True)
+            raise
+        finally:
+            logger.close()
+            train_ds.close()
+
+        return {"steps": timer.total_steps, "best_val": best_val,
+                "last_val": val_losses[-1] if val_losses else float("inf"),
+                "diverged_stop": diverged,
+                "images_per_sec": timer.images_per_sec(cfg.batch_size)}
 
     def restore_best_for_test(self, extra_candidates=()) -> Optional[str]:
         """Restore the best-val checkpoint among this run's ckpt_dir and
         `extra_candidates` (resolved through `.prev-*`; unreadable meta
-        skipped), unless the live weights already are it. Returns the
-        restored dir or None."""
+        skipped), unless the live weights already are it: the test scores
+        what the run ships, not a training tail that may have drifted past
+        its best validation. Returns the restored dir or None."""
         best_dir, best_val, best_meta = None, float("inf"), None
         for cand in (self.ckpt_dir, *extra_candidates):
             if not os.path.exists(os.path.join(cand, "meta.json")):
@@ -144,8 +449,9 @@ class Experiment:
             return None
         self._restore(lambda s: ckpt_lib.restore_partitions(
             best_dir, s, best_meta["partitions"]))
-        print(f"test restores the best-val checkpoint {best_dir} (step "
-              f"{best_meta.get('step')}, val {best_val})", flush=True)
+        color_print(f"test restores the best-val checkpoint {best_dir} "
+                    f"(step {best_meta.get('step')}, val {best_val}) over "
+                    f"the last training iterate", "yellow", bold=True)
         return best_dir
 
     # -- test ---------------------------------------------------------------
@@ -182,7 +488,7 @@ class Experiment:
             test_ds.close()
         means = lists.means()
         if means:
-            print(f"test means: {means}", flush=True)
+            color_print(f"test means: {means}", "magenta", bold=True)
         return means
 
     def _run_test_loop(self, test_ds, lists, codec, cfg, max_images,
@@ -230,28 +536,41 @@ class Experiment:
 
 
 def run(ae_config: Config, pc_config: Config, out_root: str = ".",
+        max_steps: Optional[int] = None,
+        max_val_batches: Optional[int] = None,
         max_test_images: Optional[int] = None, real_bpp: bool = False,
-        device="cuda",
+        device="cuda", seed: int = 0,
         on_image: Optional[Callable] = None) -> Dict[str, float]:
-    """Config-driven orchestration of a test run; `train_model` raises."""
-    if ae_config.train_model:
-        raise _not_ported("train_model = True")
-    exp = Experiment(ae_config, pc_config, out_root=out_root, device=device)
+    """Config-driven orchestration: restore, train, then test the best-val
+    checkpoint."""
+    exp = Experiment(ae_config, pc_config, out_root=out_root, seed=seed,
+                     device=device)
     exp.maybe_restore()
     results: Dict[str, float] = {}
+    if ae_config.train_model:
+        results.update(exp.train(max_steps=max_steps,
+                                 max_val_batches=max_val_batches))
     if ae_config.test_model:
+        if ae_config.train_model:
+            # never score the in-memory training tail: test what the run
+            # ships
+            exp.restore_best_for_test()
         results.update(exp.test(max_images=max_test_images,
                                 real_bpp=real_bpp, on_image=on_image))
     return results
 
 
 def parse_args(argv=None):
-    p = argparse.ArgumentParser(description="dsin_tpu_torch test run")
+    p = argparse.ArgumentParser(description="dsin_tpu_torch trainer")
     p.add_argument("-ae_config", default=config_path("ae_kitti_stereo"))
     p.add_argument("-pc_config", default=config_path("pc_default"))
     p.add_argument("--out_root", default=".")
     p.add_argument("--data_root", default=None,
                    help="override ae config root_data")
+    p.add_argument("--max_steps", type=int, default=None,
+                   help="train steps to run from the restored step")
+    p.add_argument("--max_val_batches", type=int, default=None,
+                   help="batches per validation pass")
     p.add_argument("--max_test_images", type=int, default=None)
     p.add_argument("--real_bpp", action="store_true",
                    help="at test time, also encode each bottleneck with the "
@@ -260,6 +579,8 @@ def parse_args(argv=None):
                    help="cuda (default; raises without a card) or cpu")
     p.add_argument("--profile_dir", default=None,
                    help="not ported: traces a few train steps")
+    p.add_argument("--replicate_to", default=None,
+                   help="not ported: replicates best-val checkpoints")
     p.add_argument("--distributed", action="store_true",
                    help="not ported: multi-host training")
     return p.parse_args(argv)
@@ -268,17 +589,21 @@ def parse_args(argv=None):
 def main(argv=None) -> None:
     args = parse_args(argv)
     if args.distributed:
-        raise _not_ported("--distributed")
+        raise _not_ported("--distributed", "multi-device training")
     if args.profile_dir:
-        raise _not_ported("--profile_dir")
+        raise _not_ported("--profile_dir", "--profile_dir")
+    if args.replicate_to:
+        raise _not_ported("--replicate_to", "checkpoint replication")
     ae_config = parse_config_file(args.ae_config)
     pc_config = parse_config_file(args.pc_config)
     if args.data_root:
         ae_config = ae_config.replace(root_data=args.data_root)
     results = run(ae_config, pc_config, out_root=args.out_root,
+                  max_steps=args.max_steps,
+                  max_val_batches=args.max_val_batches,
                   max_test_images=args.max_test_images,
                   real_bpp=args.real_bpp, device=args.device)
-    print(f"done: {results}", flush=True)
+    color_print(f"done: {results}", "green", bold=True)
 
 
 if __name__ == "__main__":

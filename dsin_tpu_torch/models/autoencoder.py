@@ -4,8 +4,10 @@
 Encoder: two stride-2 5x5 convs (n/2, then n) -> B groups of three residual
 blocks with a group skip -> one residual block without activation + outer
 skip -> stride-2 5x5 conv to the bottleneck (C channels + 1 heatmap channel).
-The decoder mirrors it with stride-2 transposed convs. Batch norm (eps 1e-5,
-inference statistics) follows every conv. Subsampling factor 8.
+The decoder mirrors it with stride-2 transposed convs. Batch norm (eps 1e-5;
+the running statistics at inference, the batch's in training) follows every
+conv. Subsampling factor 8. `remat` recomputes each residual block in the
+backward pass.
 
 Public functions take and return NHWC tensors; the modules run NCHW.
 
@@ -40,6 +42,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from dsin_tpu_torch.models import quantizer as quantizer_lib
 
@@ -121,17 +124,52 @@ def _transpose_crop(kernel: int, stride: int) -> int:
     return kernel - 1 - pad_a
 
 
-def batch_norm(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
-    """Inference batch norm over NCHW `x` in flax's order and promotion:
-    float32 statistics, mul = rsqrt(var + eps) * scale, y = (x - mean) * mul
-    + bias in float32, the result in promote(x, scale, bias)."""
+BN_MOMENTUM = 0.9
+
+
+def batch_norm(x: torch.Tensor, bn: nn.BatchNorm2d, train: bool = False,
+               stats: Optional[dict] = None) -> torch.Tensor:
+    """Batch norm over NCHW `x` in flax's order and promotion: float32
+    statistics, mul = rsqrt(var + eps) * scale, y = (x - mean) * mul + bias
+    in float32, the result in promote(x, scale, bias).
+
+    Inference (`train=False`) normalizes by the running statistics. Training
+    normalizes by the batch's, computed as flax 0.12's `_compute_stats`
+    computes them: float32 means of x and x**2 and the fast, biased variance
+    max(0, mean(x**2) - mean(x)**2). `stats`, when given, receives
+    {bn: (mean, var)} of the batch, detached, the first time each module
+    runs (a rematerialized block runs again in the backward pass and must
+    not record twice); `apply_batch_stats` folds them into the running
+    statistics. Without `stats` the running statistics stay as they are
+    (`bn_stats = 'frozen'`)."""
     shape = (1, -1, 1, 1)
-    mean = bn.running_mean.float().reshape(shape)
-    mul = torch.rsqrt(bn.running_var.float() + bn.eps) * bn.weight
-    y = (x - mean) * mul.reshape(shape) + bn.bias.reshape(shape)
+    if train:
+        xf = x.float()
+        mean = xf.mean(dim=(0, 2, 3))
+        var = torch.clamp(torch.square(xf).mean(dim=(0, 2, 3))
+                          - torch.square(mean), min=0.0)
+        if stats is not None and bn not in stats:
+            stats[bn] = (mean.detach(), var.detach())
+    else:
+        mean, var = bn.running_mean.float(), bn.running_var.float()
+    mul = torch.rsqrt(var + bn.eps) * bn.weight
+    y = (x - mean.reshape(shape)) * mul.reshape(shape) \
+        + bn.bias.reshape(shape)
     return y.to(torch.promote_types(torch.promote_types(x.dtype,
                                                         bn.weight.dtype),
                                     bn.bias.dtype))
+
+
+@torch.no_grad()
+def apply_batch_stats(stats: dict) -> None:
+    """Fold the batch statistics `batch_norm` recorded into each module's
+    running statistics, in flax's order: momentum * running + (1 - momentum)
+    * batch, with the biased batch variance."""
+    for bn, (mean, var) in stats.items():
+        bn.running_mean.copy_(BN_MOMENTUM * bn.running_mean
+                              + (1 - BN_MOMENTUM) * mean)
+        bn.running_var.copy_(BN_MOMENTUM * bn.running_var
+                             + (1 - BN_MOMENTUM) * var)
 
 
 class ConvBN(nn.Module):
@@ -149,7 +187,8 @@ class ConvBN(nn.Module):
         self.conv = conv_cls(cin, cout, kernel, stride=stride, bias=False)
         self.bn = nn.BatchNorm2d(cout, eps=1e-5, momentum=0.1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                stats: Optional[dict] = None) -> torch.Tensor:
         h, w = x.shape[-2:]
         x, weight = x.to(self.dtype), self.conv.weight.to(self.dtype)
         if self.transpose:
@@ -161,7 +200,7 @@ class ConvBN(nn.Module):
             left, right = _same_pads(w, self.kernel, self.stride)
             x = F.conv2d(F.pad(x, (left, right, top, bottom)), weight,
                          stride=self.stride)
-        x = batch_norm(x, self.bn)
+        x = batch_norm(x, self.bn, train, stats)
         return F.relu(x) if self.relu else x
 
 
@@ -176,31 +215,41 @@ class ResBlock(nn.Module):
                             dtype=dtype)
         self.conv1 = ConvBN(features, features, 3, relu=False, dtype=dtype)
 
-    def forward(self, x):
-        return self.conv1(self.conv0(x)) + x
+    def forward(self, x, train: bool = False, stats: Optional[dict] = None):
+        return self.conv1(self.conv0(x, train, stats), train, stats) + x
 
 
 class ResGroupStack(nn.Module):
     """B groups of three residual blocks, each group with its own skip, then a
-    residual block without activation and an outer skip."""
+    residual block without activation and an outer skip. `remat=True` runs
+    each block under `torch.utils.checkpoint` while gradients are recorded:
+    its activations are recomputed in the backward pass instead of stored.
+    The numbers and the parameter names are the same either way."""
 
     def __init__(self, features: int, num_groups: int,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, remat: bool = False):
         super().__init__()
         self.num_groups = num_groups
+        self.remat = remat
         blocks = [ResBlock(features, dtype=dtype)
                   for _ in range(3 * num_groups)]
         blocks.append(ResBlock(features, relu_first=False, dtype=dtype))
         self.blocks = nn.ModuleList(blocks)
 
-    def forward(self, x):
+    def _block(self, i: int, x, train: bool, stats: Optional[dict]):
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(self.blocks[i], x, train, stats,
+                              use_reentrant=False)
+        return self.blocks[i](x, train, stats)
+
+    def forward(self, x, train: bool = False, stats: Optional[dict] = None):
         outer = x
         for g in range(self.num_groups):
             inner = x
             for i in range(3):
-                x = self.blocks[3 * g + i](x)
+                x = self._block(3 * g + i, x, train, stats)
             x = x + inner
-        return self.blocks[-1](x) + outer
+        return self._block(len(self.blocks) - 1, x, train, stats) + outer
 
 
 class Encoder(nn.Module):
@@ -214,12 +263,15 @@ class Encoder(nn.Module):
         c_out = config.num_chan_bn + 1 if config.heatmap else config.num_chan_bn
         self.conv0 = ConvBN(3, n // 2, 5, stride=2, dtype=dt)
         self.conv1 = ConvBN(n // 2, n, 5, stride=2, dtype=dt)
-        self.res = ResGroupStack(n, config.arch_param_B, dtype=dt)
+        self.res = ResGroupStack(n, config.arch_param_B, dtype=dt,
+                                 remat=bool(config.get("remat", False)))
         self.conv2 = ConvBN(n, c_out, 5, stride=2, relu=False, dtype=dt)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                stats: Optional[dict] = None) -> torch.Tensor:
         x = normalize_image(x, self.config.normalization).permute(0, 3, 1, 2)
-        x = self.conv2(self.res(self.conv1(self.conv0(x))))
+        for layer in (self.conv0, self.conv1, self.res, self.conv2):
+            x = layer(x, train, stats)
         return x.permute(0, 2, 3, 1)
 
 
@@ -234,22 +286,28 @@ class Decoder(nn.Module):
         dt = compute_dtype(config)
         self.conv0 = ConvBN(config.num_chan_bn, n, 3, stride=2, transpose=True,
                             dtype=dt)
-        self.res = ResGroupStack(n, config.arch_param_B, dtype=dt)
+        self.res = ResGroupStack(n, config.arch_param_B, dtype=dt,
+                                 remat=bool(config.get("remat", False)))
         self.conv1 = ConvBN(n, n // 2, 5, stride=2, transpose=True, dtype=dt)
         self.conv2 = ConvBN(n // 2, 3, 5, stride=2, transpose=True, relu=False,
                             dtype=dt)
 
-    def forward(self, q: torch.Tensor) -> torch.Tensor:
+    def forward(self, q: torch.Tensor, train: bool = False,
+                stats: Optional[dict] = None) -> torch.Tensor:
         x = q.permute(0, 3, 1, 2)
-        x = self.conv2(self.conv1(self.res(self.conv0(x)))).float()
+        for layer in (self.conv0, self.res, self.conv1, self.conv2):
+            x = layer(x, train, stats)
+        x = x.float()
         x = denormalize_image(x.permute(0, 2, 3, 1), self.config.normalization)
         return torch.clamp(x, 0.0, 255.0)
 
 
-def encode(encoder: Encoder, x: torch.Tensor,
-           centers: torch.Tensor) -> EncoderOutput:
-    """Encoder + heatmap gating + quantization (inference)."""
-    bottleneck = encoder(x)
+def encode(encoder: Encoder, x: torch.Tensor, centers: torch.Tensor,
+           train: bool = False,
+           stats: Optional[dict] = None) -> EncoderOutput:
+    """Encoder + heatmap gating + quantization; `train` and `stats` as for
+    `batch_norm`."""
+    bottleneck = encoder(x, train, stats)
     if encoder.config.heatmap:
         heat = heatmap3d(bottleneck)
         z = heat * bottleneck[..., 1:]

@@ -10,6 +10,8 @@ JAX trees onto these names.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 from torch import nn
 
@@ -72,13 +74,18 @@ class DSIN(nn.Module):
     # -- forward pieces ------------------------------------------------------
 
     # encode and decode take their NHWC input contiguous: the convolutions
-    # round differently for another memory layout of equal values
+    # round differently for another memory layout of equal values. `train`
+    # normalizes by batch statistics, which `stats` (a dict) records for
+    # `autoencoder.apply_batch_stats` (see `autoencoder.batch_norm`).
 
-    def encode(self, x: torch.Tensor) -> ae_lib.EncoderOutput:
-        return ae_lib.encode(self.encoder, x.contiguous(), self.centers)
+    def encode(self, x: torch.Tensor, train: bool = False,
+               stats: Optional[dict] = None) -> ae_lib.EncoderOutput:
+        return ae_lib.encode(self.encoder, x.contiguous(), self.centers,
+                             train, stats)
 
-    def decode(self, q: torch.Tensor) -> torch.Tensor:
-        return self.decoder(q.contiguous())
+    def decode(self, q: torch.Tensor, train: bool = False,
+               stats: Optional[dict] = None) -> torch.Tensor:
+        return self.decoder(q.contiguous(), train, stats)
 
     def bitcost(self, q: torch.Tensor, symbols: torch.Tensor) -> torch.Tensor:
         pad = pc_lib.auto_pad_value(self.pc_config, self.centers)

@@ -4,13 +4,14 @@ checkpoint written by either package restores in the other.
 
 A checkpoint directory holds one flax-msgpack file per parameter partition
 (`params_{encoder,decoder,centers,probclass,sinet}.msgpack`, `centers` a
-bare array), `batch_stats.msgpack`, `manifest.json` and `meta.json`, written
-through `utils/flax_msgpack.py`. The trees are the JAX package's layout
-(HWIO kernels, flax module names) as numpy arrays: a `ModelState`, which
-`state_from_model` builds from the port's DSIN through `bridge.py` and
-`load_state` loads back. The port has no optimizer yet, so it writes no
-`opt_state.msgpack` (the manifest lists only the files written) and
-`restore_for_mode` refuses `load_train_step`.
+bare array), `batch_stats.msgpack`, with a training state `opt_state.msgpack` (the
+optimizer state in flax's layout of optax's `multi_transform` state,
+`train/optim.py`), `manifest.json` and `meta.json`, written through
+`utils/flax_msgpack.py`. The trees are the JAX package's layout (HWIO
+kernels, flax module names) as numpy arrays: a `ModelState`, which
+`state_from_model` builds from the port's DSIN (and optimizer) through
+`bridge.py` and `load_state` loads back. A state without an optimizer
+writes no `opt_state.msgpack` (the manifest lists only the files written).
 
 Durability as in the JAX package: `save_checkpoint` stages everything into
 a fsynced `<dir>.tmp-<pid>` sibling, rotates the live dir aside to
@@ -40,7 +41,6 @@ MANIFEST_NAME = "manifest.json"
 #: loaders refuse a manifest from a future version
 MANIFEST_VERSION = 1
 WRITE_ATTEMPTS = 3          # bounded retry on transient OSError
-TRAINING_ITEM = "ROADMAP Queue 1, training"
 
 
 class ManifestMismatch(ValueError):
@@ -52,23 +52,35 @@ class ManifestMismatch(ValueError):
 class ModelState(NamedTuple):
     """The JAX package's trees of one model: `params` {partition: tree},
     `batch_stats` {"encoder": ..., "decoder": ...}, numpy leaves in the
-    JAX layout; `step` the optimizer step (0 without training)."""
+    JAX layout; `step` the optimizer step (0 without training);
+    `opt_state` the optimizer's `state_tree()`, or None without one."""
     params: Dict[str, Any]
     batch_stats: Dict[str, Any]
     step: int = 0
+    opt_state: Any = None
 
 
-def state_from_model(model, step: int = 0) -> ModelState:
-    """The port's DSIN -> its JAX-layout trees (`bridge.jax_from_state_dict`)."""
+def state_from_model(model, step: int = 0, optimizer=None) -> ModelState:
+    """The port's DSIN -> its JAX-layout trees (`bridge.jax_from_state_dict`);
+    with an optimizer (`train/optim.Optimizer`), its state and step."""
     params, batch_stats = bridge.jax_from_state_dict(model.state_dict())
-    return ModelState(params, batch_stats, step)
+    if optimizer is None:
+        return ModelState(params, batch_stats, step)
+    return ModelState(params, batch_stats, optimizer.step,
+                      optimizer.state_tree())
 
 
-def load_state(model, state: ModelState) -> None:
-    """Load JAX-layout trees into the port's DSIN (strict)."""
+def load_state(model, state: ModelState, optimizer=None) -> None:
+    """Load JAX-layout trees into the port's DSIN (strict); with an
+    optimizer, also the state's step and, where the state holds one, its
+    optimizer state."""
     model.load_state_dict(bridge.state_dict_from_jax(state.params,
                                                      state.batch_stats),
                           strict=True)
+    if optimizer is not None:
+        if state.opt_state is not None:
+            optimizer.load_state_tree(state.opt_state)
+        optimizer.step = int(state.step)
 
 
 def _fsync_dir(path: str) -> None:
@@ -208,7 +220,8 @@ def save_checkpoint(ckpt_dir: str, state: ModelState, *,
                     extra_meta: Optional[Dict[str, Any]] = None,
                     manifest_extra: Optional[Dict[str, Any]] = None,
                     keep_last: int = 1) -> None:
-    """Save the partitions and batch statistics of `state`, durably: the
+    """Save the partitions, batch statistics and (where `state` holds one)
+    the optimizer state of `state`, durably: the
     live dir is replaced only by a complete, fsynced copy (a kill while
     staging leaves it untouched, a kill between the renames leaves the
     newest `.prev-*` complete). `keep_last` bounds the rotated history."""
@@ -227,6 +240,9 @@ def save_checkpoint(ckpt_dir: str, state: ModelState, *,
         files[fname] = _write_msgpack(os.path.join(tmp, fname), sub)
     files["batch_stats.msgpack"] = _write_msgpack(
         os.path.join(tmp, "batch_stats.msgpack"), state.batch_stats)
+    if state.opt_state is not None:
+        files["opt_state.msgpack"] = _write_msgpack(
+            os.path.join(tmp, "opt_state.msgpack"), state.opt_state)
     # manifest before meta: meta.json marks a complete checkpoint
     manifest = build_manifest(state, files=files, extra=manifest_extra)
     _write_bytes_durable(os.path.join(tmp, MANIFEST_NAME),
@@ -399,10 +415,13 @@ def verify_files(ckpt_dir: str, manifest: Dict[str, Any]) -> Dict[str, int]:
 
 def restore_partitions(ckpt_dir: str, state: ModelState,
                        partitions: Iterable[str], *,
+                       load_opt_state: bool = False,
                        load_batch_stats: bool = True) -> ModelState:
     """Restore the named partitions into `state`, leaving the rest at their
     current values. A missing partition file raises FileNotFoundError
-    (restoring 'sinet' from an AE-only checkpoint is a real error)."""
+    (restoring 'sinet' from an AE-only checkpoint is a real error).
+    `load_opt_state` also restores the optimizer state, checked against
+    `state.opt_state`'s structure, and the step from `meta.json`."""
     params = dict(state.params)
     for part in partitions:
         path = os.path.join(ckpt_dir, f"params_{part}.msgpack")
@@ -417,23 +436,34 @@ def restore_partitions(ckpt_dir: str, state: ModelState,
         if os.path.exists(bs_path):
             batch_stats = _restore_like(state.batch_stats,
                                         _read_msgpack(bs_path), "batch_stats")
-    return state._replace(params=params, batch_stats=batch_stats)
+    opt_state, step = state.opt_state, state.step
+    if load_opt_state:
+        if state.opt_state is None:
+            raise ValueError("load_opt_state needs a state that holds an "
+                             "optimizer state to restore into")
+        opt_state = _restore_like(state.opt_state, _read_msgpack(
+            os.path.join(ckpt_dir, "opt_state.msgpack")), "opt_state")
+        step = int(load_meta(ckpt_dir)["step"])
+    return state._replace(params=params, batch_stats=batch_stats,
+                          opt_state=opt_state, step=step)
 
 
 def restore_for_mode(ckpt_dir: str, state: ModelState,
                      ae_config) -> ModelState:
-    """The JAX package's mode logic for a test run: the AE partitions
-    (encoder/decoder/centers/probclass), plus siNet for a test-only SI run.
-    `load_train_step` (optimizer state and step) waits for training."""
-    if bool(ae_config.load_train_step):
-        raise NotImplementedError(
-            "load_train_step restores optimizer state, which waits for "
-            f"training in the port ({TRAINING_ITEM})")
+    """The JAX package's mode logic: always the AE partitions
+    (encoder/decoder/centers/probclass); with `load_train_step`, also the
+    optimizer state and step, and siNet unless AE_only (resuming SI
+    training); siNet too for a test-only SI run."""
     parts = list(AE_PARTITIONS)
-    if (ae_config.test_model and not ae_config.train_model
-            and not bool(ae_config.AE_only)):
+    load_opt = bool(ae_config.load_train_step)
+    ae_only = bool(ae_config.AE_only)
+    if load_opt and not ae_only:
         parts.append("sinet")
-    return restore_partitions(ckpt_dir, state, parts)
+    elif (ae_config.test_model and not ae_config.train_model
+          and not ae_only):
+        parts.append("sinet")
+    return restore_partitions(ckpt_dir, state, parts,
+                              load_opt_state=load_opt)
 
 
 def write_sidecars(root: str, model_name: str, ae_config, pc_config,

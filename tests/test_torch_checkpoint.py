@@ -41,6 +41,7 @@ from dsin_tpu_torch.models.dsin import build_model
 from dsin_tpu_torch.ops import sifinder as sf
 from dsin_tpu_torch.train import checkpoint as port_ckpt
 from dsin_tpu_torch.train import step as port_step
+from dsin_tpu_torch.train.optim import Optimizer
 from dsin_tpu_torch.utils import flax_msgpack
 
 H, W, PH, PW = 40, 48, 20, 24
@@ -404,8 +405,16 @@ def test_what_waits_for_other_slices_raises(world, tmp_path):
         port_ckpt.save_checkpoint(str(tmp_path / "c"),
                                   port_ckpt.state_from_model(model),
                                   manifest_extra={"canary": {}})
-    with pytest.raises(NotImplementedError, match="training"):
+    # load_train_step restores an optimizer state, so it needs one to
+    # restore into; given one, the JAX checkpoint's opt_state restores
+    resume = world["ae"].replace(load_train_step=True, train_model=False,
+                                 test_model=True)
+    with pytest.raises(ValueError, match="optimizer state"):
         port_ckpt.restore_for_mode(
-            world["ckpt"], port_ckpt.state_from_model(model),
-            world["ae"].replace(load_train_step=True, train_model=False,
-                                test_model=True))
+            world["ckpt"], port_ckpt.state_from_model(model), resume)
+    optimizer = Optimizer(model, world["ae"], world["pc"], 10)
+    state = port_ckpt.restore_for_mode(
+        world["ckpt"], port_ckpt.state_from_model(model, 0, optimizer),
+        resume)
+    port_ckpt.load_state(model, state, optimizer)
+    assert optimizer.step == port_ckpt.load_meta(world["ckpt"])["step"]

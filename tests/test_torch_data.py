@@ -315,11 +315,18 @@ def test_the_cli_runs_a_test_only_config(split, tmp_path, capsys):
 
 
 def test_what_waits_for_training_raises(split, tmp_path):
+    """Training is ported (tests/test_torch_train_loop.py); what waits for
+    later slices raises, naming its ROADMAP item."""
     root, ae, pc = split
-    with pytest.raises(NotImplementedError, match="training"):
-        port_main.run(ae.replace(train_model=True), pc, device="cpu")
-    for flag in (["--distributed"], ["--profile_dir", str(tmp_path)]):
-        with pytest.raises(NotImplementedError, match="training"):
+    with pytest.raises(NotImplementedError, match="multi-device training"):
+        port_main.run(ae.replace(train_model=True, spatial_shards=2), pc,
+                      device="cpu")
+    for flag, item in ((["--distributed"], "multi-device training"),
+                       (["--profile_dir", str(tmp_path)], "--profile_dir"),
+                       (["--replicate_to", str(tmp_path)],
+                        "checkpoint replication")):
+        with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1, "
+                                                      f"{item}"):
             port_main.main(flag + ["--device", "cpu"])
     exp = port_main.Experiment(ae, pc, out_root=str(tmp_path), device="cpu")
     with pytest.raises(NotImplementedError, match="matplotlib"):

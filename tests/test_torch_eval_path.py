@@ -279,6 +279,14 @@ def test_a_custom_mask_checks_to_no_factors_and_the_wrong_size_raises(pair):
 
 
 def test_the_train_branch_raises(pair):
-    with pytest.raises(NotImplementedError, match="training"):
-        port_step.forward_losses(pair["model"], torch.zeros((1, H, W, 3)),
-                                 torch.zeros((1, H, W, 3)), None, train=True)
+    """The train branch runs (its parity with the JAX package is
+    tests/test_torch_train_step.py); batch statistics asked of the eval
+    branch, which computes none, raise."""
+    x, y = torch.from_numpy(pair["x"]), torch.from_numpy(pair["y"])
+    stats = {}
+    loss, _ = port_step.forward_losses(pair["model"], x, y, None, train=True,
+                                       bn_stats=stats)
+    assert loss.requires_grad and len(stats) == sum(
+        isinstance(m, torch.nn.BatchNorm2d) for m in pair["model"].modules())
+    with pytest.raises(ValueError, match="only the train branch"):
+        port_step.forward_losses(pair["model"], x, y, None, bn_stats={})

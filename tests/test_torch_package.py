@@ -25,7 +25,7 @@ from dsin_tpu_torch.serve.device import DeviceServer
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PACKAGE = os.path.join(REPO, "dsin_tpu_torch")
 JAX_CONFIGS = os.path.join(REPO, "dsin_tpu", "configs")
-FORBIDDEN = ("jax", "jaxlib", "flax", "dsin_tpu", "msgpack", "PIL")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "dsin_tpu", "msgpack", "PIL")
 
 
 def _port_sources():
@@ -38,7 +38,8 @@ def _port_sources():
 
 def test_importing_the_port_loads_no_jax():
     """Every module of the package, and chip_smoke, in a fresh interpreter:
-    jax, flax, msgpack, PIL and the JAX package stay out of sys.modules."""
+    jax, flax, optax, msgpack, PIL and the JAX package stay out of
+    sys.modules."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import dsin_tpu_torch\n"
@@ -60,7 +61,8 @@ def test_importing_the_port_loads_no_jax():
         "rans", "incremental", "probclass_kernel", "codec", "loader",
         "cli")} | {f"dsin_tpu_torch.{m}" for m in (
             "utils.integrity", "utils.flax_msgpack", "native_build", "main",
-            "train.checkpoint", "train.losses", "train.step", "ops.metrics",
+            "train.checkpoint", "train.losses", "train.step", "train.optim",
+            "utils.signals", "utils.logging", "ops.metrics",
             "ops.msssim", "data.png", "data.manifest", "data.loader",
             "data.synthetic", "eval.msssim_np", "eval.reporting")} <= loaded, \
         proc.stdout
@@ -70,8 +72,8 @@ def test_importing_the_port_loads_no_jax():
                          ids=lambda p: os.path.relpath(p, REPO))
 def test_port_source_names_no_jax_module(path):
     """Static: no import of, and no module-name string for, jax / flax /
-    msgpack / PIL / the JAX package (file paths inside it may be cited in
-    comments)."""
+    optax / msgpack / PIL / the JAX package (file paths inside it may be
+    cited in comments)."""
     tree = ast.parse(open(path).read(), path)
     for node in ast.walk(tree):
         names = []
