@@ -63,8 +63,8 @@ Phases; any failure raises, prints no result and exits non-zero:
      (load_model, real_bpp, mode 3) at the 320x1224 eval crop, with K1 and K3
      launch counts read around it. Each image's x_with_si and bpp must equal
      `entry.make_forward` on the same crop and weights bit for bit (the same
-     modules and the same K1 factors; the run checks the prior once, the
-     forward per call), its real bpp must be its mode-3 stream's, which
+     modules and the same K1 factors; both hold the prior as its factors),
+     its real bpp must be its mode-3 stream's, which
      decodes exactly, with a coding gap >= -32 bits - 0.02% of the ideal
      bits (GAP_FLOOR_SHARE), and every score list and PNG must be written,
      the PNGs reading back bit-equal; prints the per-image stage times, the
@@ -86,7 +86,29 @@ Phases; any failure raises, prints no result and exits non-zero:
      2 more: K1 once per step, validation batch and test image, K3 once per
      front; last the ms per train step (median of 5 warm steps, host clock)
      split by CUDA events into forward, backward and optimizer, the peak
-     memory, and the same at compute_dtype = 'bfloat16'.
+     memory, and the same at compute_dtype = 'bfloat16';
+  9. the rest of the patch search and the Cityscapes geometry: (a) the
+     tiled search at 320x1224, batch 2, standard prior as factors, row chunk
+     32, held against K1 (winning scores within 1e-5, indices equal beyond
+     the 1e-4 margin) and against the materialized torch route (indices
+     equal; where the winning scores are not bit-equal, beyond the margin),
+     timed with its peak memory beside that route's; (b) a custom prior
+     (the Gaussian x 0.5 + 0.25) under 'auto' must take the tiled route
+     (route counts read, no kernel launch) and match the materialized
+     route; (c) DeviceServer.decode_si with_scores, 4 requests on one
+     session, on 'auto' (the torch route), 'torch' and 'tiled': images
+     bit-equal with the flag on and off on one route, scores within 1e-5 of
+     K2's best values; (d) use_L2andLAB at the full width of
+     ae_kitti_stereo, 320x1224: one entry.make_forward at batch 2 and a
+     session of 4 requests, finite, in range, no K1/K2 launch, timed with
+     their peak memory, and 40 planted patches found exactly; (e)
+     tools/cityscapes_chip.run: ae_cityscapes_stereo at 1024x2048, batch 1,
+     bf16, remat, the tiled search, one warm-up and 3 timed train steps
+     (finite loss, every trained parameter moved; ms per step, the search's
+     ms inside each step, the row chunk that fitted, the peak memory), then
+     K1 on one decoded pair of that geometry (P = 4096, 16x32 patches)
+     against the tiled search beyond the 1e-4 margin, timed beside its
+     bound and its plain version.
 Each phase's wall time is printed after the last phase.
 Kernel times are CUDA events around back-to-back runs that the host
 enqueued while the device slept, so they are device time.
@@ -133,6 +155,7 @@ from dsin_tpu_torch.ops import sifinder_kernel as sk
 from dsin_tpu_torch.ops.patches import assemble_patches
 from dsin_tpu_torch.runtime import config_path, resolve_device
 from dsin_tpu_torch.serve.device import DeviceServer
+from dsin_tpu_torch.tools import cityscapes_chip
 from dsin_tpu_torch.tools import k4_bench
 from dsin_tpu_torch.tools.k4_bench import warm_ms as cuda_ms
 from dsin_tpu_torch.tools import serve_bench as leg_lib
@@ -459,8 +482,7 @@ def slice_phase(seed: int, dev):
         f"{float(bpp_e):.4f}, peak "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches "
         f"{entry_launches}")
-    mask = torch.as_tensor(sifinder_lib.gaussian_position_mask(H, W, PH, PW),
-                           device=dev)     # the same weights: same seed
+    mask = sifinder_lib.standard_prior(H, W, PH, PW)   # as make_forward's
     log("  entry stages, batch 2, device ms: " + stage_ms([
         ("encode x+y", lambda: st.update(ex=model.encode(xe),
                                          ey=model.encode(ye))),
@@ -1020,11 +1042,11 @@ def test_run_phase(seed: int, dev):
                 raise AssertionError(f"score list {metric} incomplete")
         log(f"  test run {run_s:.1f} s, launches {launches} ({fronts} fronts "
             f"a volume); means {json.dumps(results)}")
-        mask = exp.eval_mask.mask
-        log(f"  eval prior ({mask.numel() * mask.element_size() / 1e9:.2f} GB"
-            f" at {h}x{w}, {ph}x{pw} patches) checked once: "
-            f"{exp.mask_check_ms:.1f} ms; restore in the run "
-            f"{exp.restore_ms:.1f} ms")
+        gh, gw = exp.eval_mask.factors
+        log(f"  eval prior at {h}x{w}, {ph}x{pw} patches, held as its "
+            f"factors ({(gh.nbytes + gw.nbytes) / 1e6:.2f} MB, not the "
+            f"{4 * gh.shape[0] * gw.shape[0] * gh.shape[1] / 1e9:.2f} GB "
+            f"product); restore in the run {exp.restore_ms:.1f} ms")
         log("  per-image ms (host clock; forward includes the pull of its "
             "outputs): " + ", ".join(
                 f"{k} " + "/".join(f"{v:.1f}" for v in vals)
@@ -1410,8 +1432,9 @@ def train_phase(seed: int, dev):
     ae, pc = train_configs()
     crop = tuple(ae.crop_size)
     k1_at_training_shape(seed, dev, crop)
-    mask = sifinder_lib.check_mask(main_lib.gaussian_prior(
-        crop[0], crop[1], PH, PW, dev), PH, PW)
+    mask = sifinder_lib.check_mask(torch.as_tensor(
+        sifinder_lib.gaussian_position_mask(crop[0], crop[1], PH, PW),
+        device=dev), PH, PW)
     if mask.factors is None:
         raise AssertionError("the training prior did not check as the "
                              "standard Gaussian")
@@ -1424,6 +1447,320 @@ def train_phase(seed: int, dev):
     time_train_step(dev, ae, pc, mask, batches, "float32 train step")
     time_train_step(dev, ae.replace(compute_dtype="bfloat16"), pc, mask,
                     batches, "bfloat16 train step (compute_dtype)")
+
+
+# -- phase 9: the rest of the patch search, the Cityscapes geometry ---------
+
+SCORE_ATOL = 1e-5          # winning scores of two search routes
+CS_STEPS = 3               # timed Cityscapes train steps after one warm-up
+
+
+def peak_above(fn):
+    """(fn(), peak device bytes above what was allocated before it)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() - base
+
+
+def map_disagreements(score_map, idx, best_val, best_idx, margin):
+    """(P,) bool: where `idx` differs from `best_idx` AND the materialized
+    map's score at `idx` falls short of `best_val` by more than `margin`."""
+    flat = score_map.reshape(-1, score_map.shape[-1])
+    at = flat[idx.long(), torch.arange(flat.shape[1], device=flat.device)]
+    return (idx != best_idx) & (at < best_val - margin)
+
+
+def hold_against_k1(name, ops, ph, pw, k1, val, idx):
+    """K1's (values, indices) against another route's on the same operands:
+    values within SCORE_ATOL, indices equal wherever the top-two margin
+    exceeds MARGIN_ATOL. Returns (equal indices, max |difference|)."""
+    err = float((k1[0] - val).abs().max())
+    if err > SCORE_ATOL:
+        raise AssertionError(f"{name}: K1's winning scores {err:.3g} from "
+                             f"the other route's")
+    bad = int(sk.index_disagreements(ops, ph, pw, k1[1], val, idx,
+                                      MARGIN_ATOL).sum())
+    if bad:
+        raise AssertionError(f"{name}: {bad} index disagreements beyond the "
+                             f"{MARGIN_ATOL} margin")
+    return int((k1[1] == idx).sum()), err
+
+
+def routes_agree(name, tiled, mat):
+    """The tiled search's results against the materialized route's on the
+    same inputs: bit-equal winning scores mean equal indices; otherwise the
+    indices must be equal wherever the map's top-two margin exceeds
+    MARGIN_ATOL. Returns a sentence for the log."""
+    bit_equal = all(torch.equal(t.best_score, m.best_score)
+                    for t, m in zip(tiled, mat))
+    equal = sum(int((t.best_flat == m.best_flat).sum())
+                for t, m in zip(tiled, mat))
+    total = sum(m.best_flat.numel() for m in mat)
+    bad = sum(int(map_disagreements(m.score_map, t.best_flat, m.best_score,
+                                    m.best_flat, MARGIN_ATOL).sum())
+              for t, m in zip(tiled, mat))
+    if bad or (bit_equal and equal != total):
+        raise AssertionError(f"{name}: {total - equal} indices differ from "
+                             f"the materialized route's ({bad} beyond the "
+                             f"margin; scores bit-equal: {bit_equal})")
+    return (f"indices equal {equal}/{total}, winning scores "
+            + ("bit-equal" if bit_equal else
+               f"within {max(float((t.best_score - m.best_score).abs().max()) for t, m in zip(tiled, mat)):.3g}")
+            + " on the card")
+
+
+def tiled_search_checks(seed: int, dev):
+    """(a) the tiled search at 320x1224, batch 2, with the standard prior,
+    against K1 and the materialized route, timed with its peak memory; (b)
+    a custom prior under 'auto' takes the tiled route."""
+    rng = np.random.default_rng(seed + 9)
+    x = rng.uniform(0, 255, (2, H, W, 3)).astype(np.float32)
+    y = rng.uniform(0, 255, (2, H, W, 3)).astype(np.float32)
+    xt, yt = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+    factors = sifinder_lib.gaussian_position_mask_factors(H, W, PH, PW)
+
+    def tiled(mask=None, row_chunk=32):
+        return [sifinder_lib.search_single_tiled(
+            xt[i], yt[i], yt[i], PH, PW,
+            mask_factors=None if mask is not None else factors, mask=mask,
+            row_chunk=row_chunk) for i in range(2)]
+
+    def materialized(mask=None):
+        if mask is not None:
+            return [sifinder_lib.search_single(xt[i], yt[i], yt[i], mask, PH,
+                                               PW) for i in range(2)]
+        return [sifinder_lib.search_single(
+            xt[i], None, None, None, PH, PW, prep=sifinder_lib.build_side_prep(
+                yt[i], yt[i], PH, PW, mask_factors=factors))
+            for i in range(2)]
+
+    got = tiled()
+    ops = operands(x, y, True, dev)
+    k1 = sk.pearson_argmax(*ops, PH, PW)
+    equal, err = hold_against_k1(
+        "tiled vs K1", ops, PH, PW, k1,
+        torch.stack([r.best_score for r in got]),
+        torch.stack([r.best_flat for r in got]))
+    log(f"  (a) tiled search, batch 2, standard prior as factors, row chunk "
+        f"32, vs K1: indices equal {equal}/{2 * ops[1].shape[1]} (the rest "
+        f"within the {MARGIN_ATOL} margin), winning scores within {err:.3g}")
+    mat = materialized()
+    log("  (a) tiled vs the materialized torch route: "
+        + routes_agree("tiled vs materialized", got, mat))
+    del mat
+    tiled_ms = cuda_ms(lambda: tiled(), 3)
+    mat_ms = cuda_ms(lambda: materialized(), 2)
+    _, tiled_peak = peak_above(lambda: [r.best_flat for r in tiled()])
+    _, mat_peak = peak_above(lambda: [r.best_flat for r in materialized()])
+    log(f"  (a) batch 2 at {H}x{W}: tiled {tiled_ms:.2f} ms, peak "
+        f"{tiled_peak / 2**30:.3f} GiB above its inputs; materialized "
+        f"{mat_ms:.2f} ms, peak {mat_peak / 2**30:.3f} GiB (CUDA events, "
+        f"mean of 3 and 2 after a warm-up)")
+
+    # (b) a custom prior: 'auto' on the card takes the tiled route
+    ae, _ = full_configs()
+    custom = torch.as_tensor(sifinder_lib.gaussian_position_mask(
+        H, W, PH, PW) * 0.5 + 0.25, device=dev)
+    sifinder_lib.reset_route_counts()
+    sk.reset_launch_counts()
+    y_syn = sifinder_lib.synthesize_side_image(xt, yt, yt, custom, PH, PW, ae)
+    routes, launches = dict(sifinder_lib.route_counts), dict(sk.launch_counts)
+    if routes != {"torch": 0, "tiled": 1, "kernel": 0} or any(
+            launches.values()):
+        raise AssertionError(f"a custom prior under 'auto': routes {routes}, "
+                             f"launches {launches}")
+    got = tiled(mask=custom, row_chunk=sifinder_lib.sifinder_row_chunk(ae))
+    if not torch.equal(y_syn, torch.stack([r.y_syn for r in got])):
+        raise AssertionError("'auto' with a custom prior differs from the "
+                             "tiled search on it")
+    log(f"  (b) custom prior (Gaussian x 0.5 + 0.25) under 'auto': routes "
+        f"{routes}, no kernel launch; vs the materialized route: "
+        + routes_agree("custom prior", got, materialized(custom)))
+
+
+def scores_checks(seed: int, dev):
+    """(c) `DeviceServer.decode_si(with_scores=True)`, 4 requests on one
+    session: images bit-equal with the flag on and off on one route, the
+    scores within SCORE_ATOL of K2's best values on the same requests."""
+    rng = np.random.default_rng(seed + 10)
+    ae, pc = full_configs()
+    imgs = smooth_images(rng, 4, extra_w=64)
+    x = np.clip(imgs[:, :, :W] + rng.normal(0, 4, (4, H, W, 3)),
+                0, 255).astype(np.float32)
+    y = imgs[0, :, 16:16 + W].copy()
+    parts = []
+    k2 = None
+    for impl in ("auto", "torch", "tiled"):
+        server = DeviceServer(ae.replace(sifinder_impl=impl), pc, device=dev,
+                              seed=seed)
+        prep = server.open_session(y)
+        symbols, _ = server.encode(x)
+        sifinder_lib.reset_route_counts()
+        sk.reset_launch_counts()
+        off = server.decode_si(symbols, prep)
+        on, scores = server.decode_si(symbols, prep, with_scores=True)
+        routes = dict(sifinder_lib.route_counts)
+        if impl == "auto":
+            if routes != {"torch": 1, "tiled": 0, "kernel": 1} or \
+                    sk.launch_counts["pearson_argmax_shared"] != 1:
+                raise AssertionError(f"'auto' with and without scores: "
+                                     f"routes {routes}, {sk.launch_counts}")
+            with torch.inference_mode():
+                x_dec = server.model.decode(centers_lookup(
+                    server.model.centers, symbols))
+                k2 = sk.pearson_argmax_shared(
+                    prep.y_t, sk.prepare_query(x_dec, PH, PW),
+                    prep.inv_denom, prep.gh_k, prep.gw_t, PH, PW)
+        elif not torch.equal(off, on):
+            raise AssertionError(f"{impl}: decode_si differs with the scores "
+                                 f"flag on")
+        err = float((scores - k2[0]).abs().max())
+        if tuple(scores.shape) != tuple(k2[0].shape) or err > SCORE_ATOL:
+            raise AssertionError(f"{impl}: scores {tuple(scores.shape)} "
+                                 f"{err:.3g} from K2's best values")
+        parts.append(f"{impl} (route {'torch' if impl == 'auto' else impl}) "
+                     f"within {err:.3g} of K2's")
+    log("  (c) decode_si(with_scores=True), 4 requests on one session: "
+        "images bit-equal with the flag off on the torch and tiled routes; "
+        "scores " + "; ".join(parts))
+
+
+def l2_checks(seed: int, dev):
+    """(d) use_L2andLAB at the full width of ae_kitti_stereo, 320x1224: one
+    forward at batch 2 and a session of 4 requests with no K1/K2 launch,
+    then planted patches found exactly."""
+    rng = np.random.default_rng(seed + 11)
+    ae, pc = full_configs()
+    ae = ae.replace(use_L2andLAB=True)
+    model = build_model(ae, pc, device=dev, seed=seed)
+    forward = make_forward(model, H, W)
+    x = torch.from_numpy(rng.uniform(0, 255, (2, H, W, 3)).astype(
+        np.float32)).to(dev)
+    y = torch.from_numpy(rng.uniform(0, 255, (2, H, W, 3)).astype(
+        np.float32)).to(dev)
+    forward(x, y)                                # warm-up
+    sk.reset_launch_counts()
+    sifinder_lib.reset_route_counts()
+    (x_si, bpp), peak = peak_above(lambda: forward(x, y))
+    fwd_ms = cuda_ms(lambda: forward(x, y), 2)
+    check_image("L2 forward x_with_si", x_si, (2, H, W, 3), clipped=False)
+    if not np.isfinite(float(bpp)):
+        raise AssertionError("L2 forward bpp not finite")
+    server = DeviceServer(ae, pc, device=dev, seed=seed)
+    imgs = smooth_images(rng, 4, extra_w=64)
+    xs = np.clip(imgs[:, :, :W] + rng.normal(0, 4, (4, H, W, 3)),
+                 0, 255).astype(np.float32)
+    prep = server.open_session(imgs[0, :, 16:16 + W].copy())
+    symbols, _ = server.encode(xs)
+    out = server.decode_si(symbols, prep)
+    check_image("L2 decode_si", out, (4, H, W, 3), clipped=True)
+    _, serve_peak = peak_above(lambda: server.decode_si(symbols, prep))
+    serve_ms = cuda_ms(lambda: server.decode_si(symbols, prep), 2)
+    launches, routes = dict(sk.launch_counts), dict(sifinder_lib.route_counts)
+    if any(launches.values()) or routes["kernel"] or routes["tiled"]:
+        raise AssertionError(f"L2 launched {launches}, routes {routes}")
+    if prep.sum_y2 is None or prep.y_t is not None:
+        raise AssertionError("the L2 session's prep is not an L2 prep")
+
+    xp = rng.uniform(0, 255, (H, W, 3)).astype(np.float32)
+    yp = rng.uniform(0, 255, (H, W, 3)).astype(np.float32)
+    wc, gw_n = W - PW + 1, W // PW
+    planted = {}
+    for j, p in enumerate(rng.choice((H // PH) * gw_n, 40, replace=False)):
+        r0, c0 = (j // 8) * (PH + 8) + 3, (j % 8) * (PW + 120) + 5
+        pr, pc_ = (p // gw_n) * PH, (p % gw_n) * PW
+        yp[r0:r0 + PH, c0:c0 + PW] = xp[pr:pr + PH, pc_:pc_ + PW]
+        planted[int(p)] = r0 * wc + c0
+    res = sifinder_lib.search_single(
+        *(torch.from_numpy(a).to(dev) for a in (xp, yp, yp)), None, PH, PW,
+        use_l2=True)
+    missed = {p: int(res.best_flat[p]) for p, flat in planted.items()
+              if int(res.best_flat[p]) != flat}
+    if missed:
+        raise AssertionError(f"L2: planted patches not found: {missed}")
+    log(f"  (d) L2/LAB, ae_kitti_stereo at {H}x{W}: forward batch 2 "
+        f"{fwd_ms:.2f} ms (CUDA events), peak {peak / 2**30:.2f} GiB, bpp "
+        f"{float(bpp):.4f}; decode_si of 4 requests {serve_ms:.2f} ms, peak "
+        f"{serve_peak / 2**30:.2f} GiB; outputs finite, decode_si in [0, "
+        f"255]; routes {routes}, no K1/K2 launch; {len(planted)} planted "
+        f"patches found exactly")
+
+
+def cityscapes_checks(seed: int, dev):
+    """(e) the Cityscapes geometry through `tools/cityscapes_chip.run`: one
+    warm-up and CS_STEPS timed train steps at 1024x2048, then K1 on one
+    decoded pair against the tiled search, timed beside its bound."""
+    t0 = time.perf_counter()
+    report, trained = cityscapes_chip.run(steps=CS_STEPS, device=dev,
+                                          seed=seed)
+    secs = time.perf_counter() - t0
+    attempt = report["attempts"][-1]
+    if not report["ok"] or attempt["unmoved_params"]:
+        raise AssertionError(f"Cityscapes run: {json.dumps(report)[:2000]}")
+    log(f"  (e) {report['config']} at {report['crop']}, batch 1, "
+        f"{attempt['compute_dtype']}, remat: {len(report['attempts'])} "
+        f"attempt(s), row chunk {attempt['sifinder_row_chunk']} fitted; "
+        f"ms per step " + "/".join(f"{v:.1f}" for v in attempt["step_ms"])
+        + ", the search inside each step " + "/".join(
+            f"{v:.1f}" for v in attempt["search_ms"])
+        + f" (CUDA events); first step {attempt['first_step_ms']:.0f} ms; "
+        f"loss {attempt['first_loss']:.4f} -> {attempt['last_loss']:.4f}, "
+        f"bpp {attempt['bpp']:.4f}; all {attempt['trained_params']} trained "
+        f"parameters moved; peak {attempt['peak_bytes'] / 2**30:.2f} GiB; "
+        f"{secs:.1f} s in all")
+    for failed in report["attempts"][:-1]:
+        log(f"    row chunk {failed['sifinder_row_chunk']}: "
+            f"{failed['error'][:200]}")
+
+    model, cfg = trained.model, trained.config
+    ph, pw = (int(v) for v in cfg.y_patch_size)
+    h, w = trained.x.shape[1:3]
+    x_dec, y_dec = search_operands(model, trained.x, trained.y)
+    del trained, model
+    gh, gw = sifinder_lib.gaussian_position_mask_factors(h, w, ph, pw)
+    y_t, inv = sk.side_from_transformed(color_lib.search_transform(y_dec[0]),
+                                        ph, pw)
+    ops = (y_t[None].contiguous(), sk.prepare_query(x_dec, ph, pw),
+           inv[None].contiguous(), torch.from_numpy(gh).to(dev),
+           torch.from_numpy(np.ascontiguousarray(gw.T)).to(dev))
+    row_chunk = sifinder_lib.sifinder_row_chunk(cfg)
+
+    def tiled():
+        return sifinder_lib.search_single_tiled(
+            x_dec[0], y_dec[0], y_dec[0], ph, pw, mask_factors=(gh, gw),
+            row_chunk=row_chunk)
+
+    ref = tiled()
+    k1 = sk.pearson_argmax(*ops, ph, pw)
+    p = ops[1].shape[1]
+    equal, err = hold_against_k1("Cityscapes K1 vs tiled", ops, ph, pw, k1,
+                                 ref.best_score[None], ref.best_flat[None])
+    k1_ms = cuda_ms(lambda: sk.pearson_argmax(*ops, ph, pw), 2)
+    plain_ms = cuda_ms(lambda: sk.pearson_argmax_reference(*ops, ph, pw), 1)
+    tiled_ms = cuda_ms(tiled, 1)
+    b_ms, b_by = bound(ops, False)
+    hc, wc = inv.shape
+    tiles = -(-(hc * wc) // sk.load_library().position_tile)
+    log(f"  (e) K1 at {h}x{w}, {ph}x{pw} patches (P = {p}, K = "
+        f"{ops[1].shape[2]}, a {hc}x{wc} map, "
+        f"{-(-tiles // sk.TILES_PER_GROUP)} position groups) on one decoded "
+        f"pair vs the tiled search (row chunk "
+        f"{row_chunk}): indices equal {equal}/{p} (the rest within the "
+        f"{MARGIN_ATOL} margin), winning scores within {err:.3g}; K1 "
+        f"{k1_ms:.2f} ms, bound {b_ms:.2f} ms ({b_by}), "
+        f"{100 * b_ms / k1_ms:.1f}% of bound; its plain version "
+        f"{plain_ms:.2f} ms; the tiled search {tiled_ms:.2f} ms (CUDA "
+        f"events)")
+
+
+def search_phase(seed: int, dev):
+    tiled_search_checks(seed, dev)
+    scores_checks(seed, dev)
+    l2_checks(seed, dev)
+    cityscapes_checks(seed, dev)
 
 
 def main() -> int:
@@ -1443,13 +1780,13 @@ def main() -> int:
     rows, launches, walls = {}, {}, []
 
     def phase(title, fn):
-        log(f"[{len(walls) + 2}/8] {title}")
+        log(f"[{len(walls) + 2}/9] {title}")
         t0 = time.perf_counter()
         out = fn()
         walls.append((len(walls) + 2, time.perf_counter() - t0))
         return out
 
-    log(f"[1/8] card: {card}; torch {torch.__version__}, CUDA "
+    log(f"[1/9] card: {card}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}")
     phase("build", build_phase)
     rows.update(phase(f"kernel vs plain at {H}x{W}, patches {PH}x{PW}, seed "
@@ -1470,6 +1807,9 @@ def main() -> int:
           "checkpoint the port wrote", lambda: test_run_phase(args.seed, dev))
     phase("training at full width (ae_kitti_stereo + pc_default, 320x960, "
           "batch 1)", lambda: train_phase(args.seed, dev))
+    phase("the rest of the patch search (tiled, scores, L2/LAB) and the "
+          "Cityscapes geometry (1024x2048, 16x32 patches)",
+          lambda: search_phase(args.seed, dev))
     log("phase wall s: " + ", ".join(f"[{i}] {t:.1f}" for i, t in walls))
     kernels = [dict(name=name, route="cuda", source=SOURCES[name],
                     replaces=REPLACES[name], launches=launches[name], **r)

@@ -78,11 +78,11 @@ def full_configs():
 
 def make_forward(model: DSIN, h: int, w: int):
     """forward(x, y) for (N, h, w, 3) images in [0, 255] -> (x_with_si
-    (N, h, w, 3), bpp scalar), with the Gaussian position prior."""
+    (N, h, w, 3), bpp scalar), with the Gaussian position prior as its
+    factors (`sifinder.standard_prior`)."""
     ph, pw = (int(v) for v in model.ae_config.y_patch_size)
     dev = model.centers.device
-    mask = torch.as_tensor(sifinder_lib.gaussian_position_mask(h, w, ph, pw),
-                           device=dev)
+    mask = sifinder_lib.standard_prior(h, w, ph, pw)
 
     @torch.inference_mode()
     def forward(x, y):

@@ -19,16 +19,18 @@ the best validation loss from `meta.json`), then:
 * `test_model`: after training, the best-val checkpoint is restored
   (`restore_best_for_test`); then the test split through the eval forward
   (`train/step.py make_inference_step`): center crops at `eval_crop_size`,
-  one image at a time under the concrete Gaussian prior (checked once per
-  `Experiment`), reconstruction PNGs and per-image score lists
+  one image at a time under the Gaussian prior (as its factors, built once
+  per `Experiment`), reconstruction PNGs and per-image score lists
   (`eval/reporting.py`). With `--real_bpp` each bottleneck is also coded by
   the rANS codec (`coding/codec.py`: on the card in mode 3, through the
   probclass front kernel; on the CPU in mode 2, the JAX package's bytes)
   and the stream's bits per pixel are scored beside the estimate.
 
-Multi-device training (`--distributed`, `spatial_shards`), `--profile_dir`,
-`--replicate_to` and `save_plots` are not ported yet and raise
-NotImplementedError naming their ROADMAP item.
+`spatial_shards = 1` trains any bundled config on one card, the Cityscapes
+geometry (`configs/ae_cityscapes_stereo`, 1024x2048) included; its tool is
+`tools/cityscapes_chip.py`. Multi-device training (`--distributed`,
+`spatial_shards > 1`), `--profile_dir`, `--replicate_to` and `save_plots`
+are not ported yet and raise NotImplementedError naming their ROADMAP item.
 
 CLI:
     python -m dsin_tpu_torch.main -ae_config <path> -pc_config <path> \
@@ -87,14 +89,6 @@ def get_validate_every(iteration: int, total_iterations: int,
     return validate_every
 
 
-def gaussian_prior(h: int, w: int, ph: int, pw: int,
-                   device) -> torch.Tensor:
-    """The (Hc, Wc, P) Gaussian position prior of h x w images on
-    `device`."""
-    return torch.as_tensor(sifinder_lib.gaussian_position_mask(h, w, ph, pw),
-                           device=device)
-
-
 class Experiment:
     """Owns the model, its optimizer, the steps and the datasets of one
     run. The train step, the validation step and the training prior exist
@@ -106,9 +100,12 @@ class Experiment:
         self.pc_config = pc_config
         self.out_root = out_root
         self.seed = seed
-        if int(ae_config.get("spatial_shards", 1) or 1) > 1:
-            raise _not_ported("spatial_shards > 1 (width-sharded training)",
-                              "multi-device training")
+        shards = int(ae_config.get("spatial_shards", 1) or 1)
+        if shards > 1:
+            raise _not_ported(
+                f"spatial_shards = {shards} (width-sharded training, item 6; "
+                f"spatial_shards = 1 trains on one card)",
+                "multi-device training")
         self.model = build_model(ae_config, pc_config, device=device,
                                  seed=seed)
         self.device = self.model.centers.device
@@ -125,21 +122,16 @@ class Experiment:
 
         ph, pw = (int(v) for v in ae_config.y_patch_size)
         eh, ew = ae_config.get("eval_crop_size", ae_config.crop_size)
-        self.eval_mask = None
-        self.mask_check_ms = 0.0
-        if ae_config.use_gauss_mask:
-            mask = gaussian_prior(eh, ew, ph, pw, self.device)
-            t0 = time.perf_counter()
-            self.eval_mask = sifinder_lib.check_mask(mask, ph, pw)
-            self.mask_check_ms = 1e3 * (time.perf_counter() - t0)
-            del mask
+        # the priors travel as their factors (`sifinder.standard_prior`):
+        # no (Hc, Wc, P) tensor, 33.3 GB at 1024x2048 with 16x32 patches
+        self.eval_mask = (sifinder_lib.standard_prior(eh, ew, ph, pw)
+                          if ae_config.use_gauss_mask else None)
         self.infer_step = step_lib.make_inference_step(
             self.model, si_mask=self.eval_mask)
         if ae_config.train_model:
             ch, cw = ae_config.crop_size
-            self.train_mask = (sifinder_lib.check_mask(
-                gaussian_prior(ch, cw, ph, pw, self.device), ph, pw)
-                if ae_config.use_gauss_mask else None)
+            self.train_mask = (sifinder_lib.standard_prior(ch, cw, ph, pw)
+                               if ae_config.use_gauss_mask else None)
             grad_accum = int(ae_config.get("grad_accum_steps", 1) or 1)
             if grad_accum > 1:
                 color_print(

@@ -8,10 +8,13 @@ functions of SI serving:
     quantizer -> int32 symbols, plus the probclass bitcost of those symbols
     as a bits-per-pixel estimate (the rANS streams come with the codec);
   * `open_session(y) -> SidePrep`: once per side image, AE(y) -> y-hat, then
-    `build_side_prep` (with the kernel's operands when the search runs
-    through the kernel);
+    `build_side_prep` (an L2 prep under `use_L2andLAB`; with the kernel's
+    operands when a Pearson search runs through the kernel);
   * `decode_si(symbols, prep) -> image`: centers lookup -> decoder ->
-    prepped patch search -> siNet -> clip.
+    prepped patch search -> siNet -> clip; `with_scores=True` also returns
+    the winning Pearson score per patch (the JAX package's
+    `_make_si_fns(with_scores)`, the SI-match quality signal) on the routes
+    that have them.
 The batcher, the sessions store and the control plane are not ported here.
 """
 
@@ -42,6 +45,7 @@ class DeviceServer:
         self.device = self.model.centers.device
         self.config = self.model.ae_config
         self.patch = tuple(int(v) for v in ae_config.y_patch_size)
+        self.use_l2 = sifinder_lib.use_l2(ae_config)
         self.for_kernel = sifinder_lib.prep_for_kernel(ae_config, self.device)
         self._factors: Dict[Tuple[int, int], Optional[tuple]] = {}
 
@@ -73,16 +77,23 @@ class DeviceServer:
         y = self._tensor(y)
         y_dec = self.model.decode(self.model.encode(y[None]).qbar)[0]
         return sifinder_lib.build_side_prep(
-            y, y_dec, *self.patch,
+            y, y_dec, *self.patch, use_l2=self.use_l2,
             mask_factors=self._mask_factors(y.shape[0], y.shape[1]),
             for_kernel=self.for_kernel,
             conv_dtype=sifinder_lib.sifinder_conv_dtype(self.config))
 
     @torch.inference_mode()
-    def decode_si(self, symbols, prep: sifinder_lib.SidePrep) -> torch.Tensor:
-        """symbols (N, H/8, W/8, C) -> x_with_si (N, H, W, 3) in [0, 255]."""
+    def decode_si(self, symbols, prep: sifinder_lib.SidePrep,
+                  with_scores: bool = False):
+        """symbols (N, H/8, W/8, C) -> x_with_si (N, H, W, 3) in [0, 255];
+        with `with_scores`, (x_with_si, best_scores (N, P)): the search's
+        winning scores, on the 'torch' and 'tiled' routes ('auto' takes
+        'torch'); x_with_si is bit-identical with the flag on or off on one
+        route."""
         symbols = torch.as_tensor(symbols, device=self.device)
         x_dec = self.model.decode(centers_lookup(self.model.centers, symbols))
-        y_syn = sifinder_lib.synthesize_side_image_prepped(
-            x_dec, prep, *self.patch, self.config)
-        return torch.clamp(self.model.apply_sinet(x_dec, y_syn), 0.0, 255.0)
+        out = sifinder_lib.synthesize_side_image_prepped(
+            x_dec, prep, *self.patch, self.config, with_scores=with_scores)
+        y_syn, scores = out if with_scores else (out, None)
+        image = torch.clamp(self.model.apply_sinet(x_dec, y_syn), 0.0, 255.0)
+        return (image, scores) if with_scores else image

@@ -20,7 +20,11 @@ optimizer step over the batch, or over `grad_accum` strided micro-batches
 whose gradients and metrics it averages, their batch statistics chained.
 
 The prior is checked once per step built (`ops/sifinder.check_mask`), not
-per image: the check of a 320x1224 Gaussian prior reads its 1.18 GB.
+per image: the check of a 320x1224 Gaussian prior reads its 1.18 GB. A mask
+that checks as the standard Gaussian prior is kept as its factors only, and
+the prior of `ops/sifinder.standard_prior` is never built at all, so at
+1024x2048 (33.3 GB with 16x32 patches) no (Hc, Wc, P) prior reaches the
+card.
 """
 
 from __future__ import annotations
@@ -40,12 +44,15 @@ SCALAR_METRICS = ("bpp", "H_real", "H_soft", "pc_loss", "d_loss", "mae",
 
 
 def forward_losses(model, x: torch.Tensor, y: torch.Tensor, si_mask,
-                   train: bool = False, bn_stats: Optional[dict] = None):
+                   train: bool = False, bn_stats: Optional[dict] = None,
+                   on_search: Optional[Callable[[str], None]] = None):
     """The shared forward: (loss, aux dict), for NHWC float32 batches in
     [0, 255] on the model's device. `si_mask` is None, an (Hc, Wc, P) prior
     or a `CheckedMask`. `bn_stats`, in training only, receives the batch
     statistics of the encoder's and decoder's batch norms
-    (`autoencoder.batch_norm`)."""
+    (`autoencoder.batch_norm`). `on_search(name)`, when given, is called
+    with 'search_start' and 'search' just before and after the patch search
+    (a measurement hook)."""
     if bn_stats is not None and not train:
         raise ValueError("bn_stats records batch statistics, which only "
                          "the train branch computes")
@@ -61,8 +68,12 @@ def forward_losses(model, x: torch.Tensor, y: torch.Tensor, si_mask,
         ph, pw = (int(v) for v in cfg.y_patch_size)
         with torch.no_grad():
             y_dec = model.decode(model.encode(y).qbar)
+            if on_search is not None:
+                on_search("search_start")
             y_syn = sifinder_lib.synthesize_side_image(
                 x_dec.detach(), y, y_dec, si_mask, ph, pw, cfg)
+            if on_search is not None:
+                on_search("search")
         x_with_si = model.apply_sinet(x_dec, y_syn)
         si_l1 = loss_lib.si_l1_loss(x, x_with_si)
         si_weight = cfg.si_weight
@@ -93,12 +104,16 @@ def _scalar_metrics(loss, aux) -> Dict[str, torch.Tensor]:
 
 
 def _checked(model, si_mask):
-    """The prior checked once, on the model's device."""
+    """The prior checked once, where it lies: the standard Gaussian prior
+    is kept as its factors only, any other mask goes to the model's
+    device."""
     if si_mask is None or isinstance(si_mask, sifinder_lib.CheckedMask):
         return si_mask
     ph, pw = (int(v) for v in model.ae_config.y_patch_size)
-    return sifinder_lib.check_mask(
-        torch.as_tensor(si_mask, device=model.centers.device), ph, pw)
+    checked = sifinder_lib.check_mask(si_mask, ph, pw)
+    if checked.factors is not None:
+        return checked._replace(mask=None)
+    return checked._replace(mask=checked.mask.to(model.centers.device))
 
 
 def _as_batch(model, t) -> torch.Tensor:
@@ -119,7 +134,8 @@ class TrainState(NamedTuple):
 
 
 def make_train_step(model, optimizer, si_mask=None, grad_accum: int = 1,
-                    on_phase: Optional[Callable[[str], None]] = None):
+                    on_phase: Optional[Callable[[str], None]] = None,
+                    on_search: Optional[Callable[[str], None]] = None):
     """(x, y) -> (TrainState, metrics): one optimizer step on the batch,
     the model and optimizer updated in place, the scalar metrics
     (`SCALAR_METRICS` and 'loss') as detached tensors on the device, read
@@ -129,7 +145,8 @@ def make_train_step(model, optimizer, si_mask=None, grad_accum: int = 1,
     their gradients and metrics before the one update. With
     `bn_stats = 'frozen'` the running statistics are not updated.
     `on_phase(name)`, when given, is called after 'forward', 'backward' and
-    'optimizer' (a measurement hook)."""
+    'optimizer', and `on_search` around the search (`forward_losses`):
+    measurement hooks."""
     mask = _checked(model, si_mask)
     update_bn = model.ae_config.get("bn_stats", "update") == "update"
     params = optimizer.params
@@ -139,7 +156,7 @@ def make_train_step(model, optimizer, si_mask=None, grad_accum: int = 1,
     def micro_step(x, y) -> Dict[str, torch.Tensor]:
         stats = {} if update_bn else None
         loss, aux = forward_losses(model, x, y, mask, train=True,
-                                   bn_stats=stats)
+                                   bn_stats=stats, on_search=on_search)
         mark("forward")
         loss.backward()
         if stats:

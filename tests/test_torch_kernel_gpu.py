@@ -81,6 +81,29 @@ def test_kernel_matches_plain(cuda, h, w, ph, pw, prior):
 
 
 @pytest.mark.gpu
+def test_cityscapes_patches_match_plain(cuda):
+    """The Cityscapes geometry's queries (1024x2048, 16x32 patches: P =
+    4096, K = 1536) against a side image cut to 64 rows (a 49x2017 map), so
+    the plain version stays quick."""
+    rng = np.random.default_rng(9)
+    ph, pw, side_h = 16, 32, 64
+    x = rng.uniform(0, 255, (1, 1024, 2048, 3)).astype(np.float32)
+    y = rng.uniform(0, 255, (1, side_h, 2048, 3)).astype(np.float32)
+    pk = sk.prepare_query(torch.from_numpy(x).to(cuda), ph, pw)
+    y_t, inv = sk.side_from_transformed(color_lib.search_transform(
+        torch.from_numpy(y[0]).to(cuda)), ph, pw)
+    gh, gw = sifinder_lib.gaussian_position_mask_factors(1024, 2048, ph, pw)
+    ops = (y_t[None].contiguous(), pk, inv[None].contiguous(),
+           torch.from_numpy(gh[:side_h - ph + 1]).to(cuda),
+           torch.from_numpy(np.ascontiguousarray(gw.T)).to(cuda))
+    assert pk.shape == (1, 4096, 1536)
+    got = sk.pearson_argmax(*ops, ph, pw)
+    ref = sk.pearson_argmax_reference(*ops, ph, pw)
+    torch.cuda.synchronize()
+    _assert_agree(ops, ph, pw, got, ref)
+
+
+@pytest.mark.gpu
 def test_kernel_matches_plain_full_size(cuda):
     """320x1224, 20x24 patches: P = 816 (ragged patch tile), 301x1201 map."""
     rng = np.random.default_rng(0)

@@ -64,7 +64,9 @@ def test_importing_the_port_loads_no_jax():
             "train.checkpoint", "train.losses", "train.step", "train.optim",
             "utils.signals", "utils.logging", "ops.metrics",
             "ops.msssim", "data.png", "data.manifest", "data.loader",
-            "data.synthetic", "eval.msssim_np", "eval.reporting")} <= loaded, \
+            "data.synthetic", "eval.msssim_np", "eval.reporting",
+            "ops.color", "ops.sifinder", "serve.device",
+            "tools.cityscapes_chip")} <= loaded, \
         proc.stdout
 
 
@@ -110,7 +112,8 @@ def test_every_config_file_parses_equal(name):
     assert str(got) == str(expected)
 
 
-@pytest.mark.parametrize("name", ["ae_kitti_stereo", "pc_default"])
+@pytest.mark.parametrize("name", ["ae_kitti_stereo", "pc_default",
+                                  "ae_cityscapes_stereo"])
 def test_bundled_configs_are_copies(name):
     with open(os.path.join(JAX_CONFIGS, name)) as f:
         expected = f.read()
@@ -192,7 +195,8 @@ def test_missing_nvcc_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("bad", [{"sifinder_impl": "pallas"},
-                                 {"use_L2andLAB": True}])
+                                 {"use_L2andLAB": True,
+                                  "sifinder_impl": "kernel"}])
 def test_sifinder_impl_refuses_what_is_not_ported(bad):
     cfg = torch_config.Config(dict({"use_L2andLAB": False}, **bad))
     with pytest.raises((ValueError, NotImplementedError)):
