@@ -108,7 +108,29 @@ Phases; any failure raises, prints no result and exits non-zero:
      ms inside each step, the row chunk that fitted, the peak memory), then
      K1 on one decoded pair of that geometry (P = 4096, 16x32 patches)
      against the tiled search beyond the 1e-4 margin, timed beside its
-     bound and its plain version.
+     bound and its plain version;
+ 10. the compression service at full width: `serve.CompressionService`
+     with ae_kitti_stereo + pc_default from `--seed`, buckets 160x600 and
+     320x1224, batches of 4, max_wait_ms 5, 4 entropy threads, pipeline
+     depth 2, enable_si, metrics on an ephemeral port; start + warmup, then
+     the native build count; 2 sessions on smooth stereo-like side images;
+     4 client threads encode 16 images (10 at 320x1224, 2 at 300x1200, 4
+     at 150x590), then decode_si every large-bucket stream against its
+     session and decode the others. Checks: every DSRV frame parses, every
+     payload byte-equal to BottleneckCodec.encode_batch of DeviceServer's
+     symbols for the batch the service formed (its batch hook records
+     them) and decoding to exactly those symbols; every image bit-equal to
+     DeviceServer on the recorded batch, cropped and cast the same way; K2
+     launched once per SI batch, K1 never; K2 against its plain version on
+     one recorded SI batch's operands (the 1e-4 margin rule); no native
+     build after warmup; a flipped byte refused at the door, a payload
+     corrupted in the worker failing only its own future (IntegrityError),
+     an unknown session raising SessionExpired; /healthz and /metrics
+     answering; drain() True with every future resolved. Prints whether an
+     image is bit-equal alone and inside a full batch (not a gate), the
+     open_session ms, submit -> result ms per kind (median, max), the
+     per-kind serve_device_ms / serve_entropy_ms histograms, the overlap
+     ratio, requests per second and the peak device memory.
 Each phase's wall time is printed after the last phase.
 Kernel times are CUDA events around back-to-back runs that the host
 enqueued while the device slept, so they are device time.
@@ -138,6 +160,7 @@ from dsin_tpu_torch.coding import codec as codec_lib
 from dsin_tpu_torch.coding import probclass_kernel as pk
 from dsin_tpu_torch.coding import rans
 from dsin_tpu_torch import main as main_lib
+from dsin_tpu_torch import native_build
 from dsin_tpu_torch.coding.loader import make_codec, restore_checkpoint
 from dsin_tpu_torch.data import png
 from dsin_tpu_torch.data import synthetic
@@ -1763,6 +1786,320 @@ def search_phase(seed: int, dev):
     cityscapes_checks(seed, dev)
 
 
+# -- phase 10: the compression service at full width ------------------------
+
+SERVE_BUCKETS = ((160, 600), (320, 1224))
+# 10 requests at the large bucket, 2 padded to it, 4 padded to the small one
+SERVE_SHAPES = [(H, W)] * 10 + [(300, 1200)] * 2 + [(150, 590)] * 4
+SERVE_CLIENTS = 4
+SERVE_TIMEOUT_S = 600.0
+
+
+def card_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def from_clients(submit, items):
+    """From SERVE_CLIENTS client threads, each submitting its share of the
+    items at once (`submit(item) -> Future`) and then waiting for them;
+    -> (results, ms from submit to resolution per item, wall s)."""
+    out, ms = [None] * len(items), [0.0] * len(items)
+
+    def client(k):
+        mine = range(k, len(items), SERVE_CLIENTS)
+        futs = []
+        for i in mine:
+            t0 = time.perf_counter()
+            fut = submit(items[i])
+            fut.add_done_callback(
+                lambda f, i=i, t0=t0: ms.__setitem__(
+                    i, 1e3 * (time.perf_counter() - t0)))
+            futs.append(fut)
+        for i, fut in zip(mine, futs):
+            out[i] = fut.result(SERVE_TIMEOUT_S)
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(SERVE_CLIENTS) as pool:
+        for f in [pool.submit(client, k) for k in range(SERVE_CLIENTS)]:
+            f.result()
+    return out, ms, time.perf_counter() - t0
+
+
+def hist_line(summary) -> str:
+    return (f"n {summary['count']}, mean {summary['mean']:.2f}, p50 "
+            f"{summary['p50']:.2f}, max {summary['max']:.2f}")
+
+
+def lanes(svc, record, vols):
+    """The padded symbol batch of a recorded decode batch: each lane's
+    decoded volume, zeros in the padding and in a lane that failed."""
+    _, (bh, bw), _, payloads, futs = record
+    sym = np.zeros((svc.config.max_batch, bh // 8, bw // 8,
+                    svc.server.config.num_chan_bn), np.int32)
+    for i, (payload, fut) in enumerate(zip(payloads, futs)):
+        if fut.exception(0) is None:
+            sym[i] = vols[payload[0]].transpose(1, 2, 0)
+    return sym
+
+
+def device_images(svc, record, sym):
+    """DeviceServer on one recorded batch, as the service crops and casts."""
+    kind, _, session, _, _ = record
+    server = svc.server
+    if kind == "decode_si":
+        out = server.decode_si(sym, svc._sessions.get(session).prep)
+    else:
+        out = server.decode(sym)
+    return out.cpu().numpy()
+
+
+def check_decode_records(svc, records, vols) -> int:
+    """Every served decode / decode_si image bit-equal to DeviceServer on
+    the batch the service formed, cropped and cast the same way."""
+    checked = 0
+    for record in records:
+        if record[0] == "encode":
+            continue
+        imgs = device_images(svc, record, lanes(svc, record, vols))
+        for i, (payload, fut) in enumerate(zip(record[3], record[4])):
+            if fut.exception(0) is not None:
+                continue
+            h, w = payload[1]
+            want = imgs[i][:h, :w].astype(np.uint8)
+            if not np.array_equal(fut.result(0), want):
+                raise AssertionError(f"{record[0]} lane {i} of a batch "
+                                     f"differs from DeviceServer")
+            checked += 1
+    return checked
+
+
+def check_streams(svc, records):
+    """Every DSRV frame parses and its payload is byte-equal to
+    BottleneckCodec.encode_batch of DeviceServer's symbols for the same
+    padded batch; every payload decodes to exactly those symbols.
+    Returns {payload: volume}."""
+    from dsin_tpu_torch.serve.service import parse_stream
+    vols, n = {}, 0
+    for kind, bucket, _, payloads, futs in records:
+        if kind != "encode":
+            continue
+        x = np.zeros((svc.config.max_batch, *bucket, 3), np.float32)
+        for i, payload in enumerate(payloads):
+            x[i] = payload[0]                  # the padded request
+        sym = svc.server.encode_symbols(x).cpu().numpy()
+        want = svc.codec.encode_batch(
+            [np.transpose(sym[i], (2, 0, 1)) for i in range(len(futs))])
+        for i, fut in enumerate(futs):
+            res = fut.result(0)
+            payload, shape, got_bucket = parse_stream(res.stream)
+            if payload != want[i] or shape != payloads[i][1] \
+                    or got_bucket != bucket:
+                raise AssertionError(f"encode lane {i}: the stream is not "
+                                     f"the codec's stream of DeviceServer's "
+                                     f"symbols")
+            back = svc.codec.decode(payload)
+            if not np.array_equal(back, np.transpose(sym[i], (2, 0, 1))):
+                raise AssertionError(f"encode lane {i}: the payload does "
+                                     f"not decode to its symbols")
+            vols[payload] = back
+            n += 1
+    return vols, n
+
+
+def k2_on_a_service_batch(svc, record, vols):
+    """K2 against its plain version on the operands of one SI batch the
+    service formed: the decoded batch's query patches and the session's
+    cached side operands."""
+    prep = svc._sessions.get(record[2]).prep
+    sym = torch.as_tensor(lanes(svc, record, vols), device=prep.y_t.device)
+    model = svc.server.model
+    with torch.inference_mode():
+        x_dec = model.decode(centers_lookup(model.centers, sym))
+        pk_ = sk.prepare_query(x_dec, PH, PW)
+    b = pk_.shape[0]
+    shared = (prep.y_t, pk_, prep.inv_denom, prep.gh_k, prep.gw_t)
+    batched = (prep.y_t.expand(b, *prep.y_t.shape), pk_,
+               prep.inv_denom.expand(b, *prep.inv_denom.shape), prep.gh_k,
+               prep.gw_t)
+    return check_agreement("pearson_argmax_shared on a service SI batch",
+                           batched, sk.pearson_argmax_shared(*shared, PH, PW),
+                           sk.pearson_argmax_reference(*batched, PH, PW))
+
+
+def batchmates(svc, records, vols):
+    """Is a request's image the same decoded alone (lane 0 of a padded
+    batch) and inside a full batch of 4 of the bucket's served volumes?
+    Printed, not a gate."""
+    for kind in ("decode", "decode_si"):
+        record = next(r for r in records if r[0] == kind)
+        (bh, bw), full = record[1], lanes(svc, record, vols)
+        same = [v for v in vols.values()
+                if (v.shape[1] * 8, v.shape[2] * 8) == (bh, bw)]
+        for i, v in enumerate(same[:len(full)]):
+            full[i] = v.transpose(1, 2, 0)
+        alone = np.zeros_like(full)
+        alone[0] = full[0]
+        a = device_images(svc, record, alone)[0]
+        b = device_images(svc, record, full)[0]
+        log(f"  batchmates, {kind} at {bh}x{bw}: lane 0 alone vs in a batch "
+            f"of {min(len(same), len(full))} requests: "
+            f"{'bit-equal' if np.array_equal(a, b) else 'DIFFERENT'} (max "
+            f"|diff| {float(np.abs(a - b).max()):.3g})")
+
+
+def typed_error_checks(svc, small_streams, records):
+    """A flipped byte is refused at the door; a payload corrupted past the
+    door (the serve.rans fault site) fails its own future with
+    IntegrityError while its batchmates are served; an unknown session id
+    raises SessionExpired."""
+    from dsin_tpu_torch.serve import IntegrityError, SessionExpired
+    from dsin_tpu_torch.utils import faults
+    bad = bytearray(small_streams[0])
+    bad[-1] ^= 0x01
+    try:
+        svc.submit_decode(bytes(bad))
+        raise AssertionError("a flipped byte passed the door")
+    except IntegrityError:
+        pass
+    try:
+        svc.submit_decode_si(small_streams[0], "sess-unknown")
+        raise AssertionError("an unknown session id passed the door")
+    except SessionExpired:
+        pass
+    n0 = len(records)
+    plan = faults.FaultPlan([faults.FaultSpec("serve.rans", "corrupt",
+                                              after=1, times=1)])
+    with faults.installed(plan):
+        futs = [svc.submit_decode(s) for s in small_streams]
+        errors = [f.exception(SERVE_TIMEOUT_S) for f in futs]
+    bad_lanes = [e for e in errors if e is not None]
+    if len(bad_lanes) != 1 or not isinstance(bad_lanes[0], IntegrityError):
+        raise AssertionError(f"corrupted lane: {errors}")
+    log(f"  typed errors: flipped byte refused at the door "
+        f"(IntegrityError), unknown session (SessionExpired), a payload "
+        f"corrupted in the worker failed its own future (IntegrityError) "
+        f"while {len(futs) - 1} batchmates were served in "
+        f"{len(records) - n0} batch(es)")
+    return records[n0:], futs
+
+
+def service_phase(seed: int, dev) -> int:
+    """Phase 10; returns K2's launches in the service's traffic."""
+    from urllib.request import urlopen
+    from dsin_tpu_torch.serve import CompressionService, ServiceConfig
+    rng = np.random.default_rng(seed + 10)
+    svc = CompressionService(ServiceConfig(
+        ae_config=config_path("ae_kitti_stereo"),
+        pc_config=config_path("pc_default"), seed=seed,
+        buckets=SERVE_BUCKETS, max_batch=4, max_wait_ms=5.0,
+        entropy_workers=4, pipeline_depth=2, enable_si=True,
+        metrics_port=0, device=str(dev))).start()
+    futures = []
+    try:
+        warm = svc.warmup()
+        builds = native_build.build_count()
+        log(f"  start + warmup: {warm['seconds']:.2f} s warmup, "
+            f"{warm['builds']} native builds in it")
+        base = smooth_images(rng, 2, extra_w=64)
+        sides = [np.clip(base[k, :, 16:16 + W], 0, 255).astype(np.uint8)
+                 for k in range(2)]
+        sids, open_ms = [], []
+        for side in sides:
+            t0 = time.perf_counter()
+            sids.append(svc.open_session(side))
+            open_ms.append(1e3 * (time.perf_counter() - t0))
+        imgs, owner = [], []
+        for i, (h, w) in enumerate(SERVE_SHAPES):
+            k = i % 2
+            noisy = base[k, :, :W] + rng.normal(0, 4, (H, W, 3))
+            imgs.append(np.clip(noisy[:h, :w], 0, 255).astype(np.uint8))
+            owner.append(k)
+        records = []
+        svc._batch_hook = lambda batch: records.append((
+            batch[0].key[0], batch[0].key[1], batch[0].session,
+            [r.payload for r in batch], [r.future for r in batch]))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        sk.reset_launch_counts()
+        enc, enc_ms, enc_s = from_clients(svc.submit_encode, imgs)
+        big = SERVE_BUCKETS[-1]
+        jobs = [(r.stream, sids[k] if r.bucket == big else None)
+                for r, k in zip(enc, owner)]
+        dec, dec_ms, dec_s = from_clients(
+            lambda job: (svc.submit_decode_si(*job) if job[1] is not None
+                         else svc.submit_decode(job[0])), jobs)
+        torch.cuda.synchronize()
+        launches = dict(sk.launch_counts)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if native_build.build_count() != builds:
+            raise AssertionError("serving built a native library after "
+                                 "warmup")
+        si_batches = sum(r[0] == "decode_si" for r in records)
+        if launches != {"pearson_argmax": 0,
+                        "pearson_argmax_shared": si_batches}:
+            raise AssertionError(f"launches {launches}, SI batches "
+                                 f"{si_batches}")
+        for r in records:
+            futures += r[4]
+        for img, out in zip(imgs, dec):
+            if out.shape != img.shape or out.dtype != np.uint8:
+                raise AssertionError(f"decoded {out.shape} {out.dtype} for "
+                                     f"{img.shape}")
+        vols, n_streams = check_streams(svc, records)
+        n_images = check_decode_records(svc, records, vols)
+        si_record = next(r for r in records if r[0] == "decode_si")
+        err = k2_on_a_service_batch(svc, si_record, vols)
+        log(f"  {n_streams} streams byte-equal to BottleneckCodec."
+            f"encode_batch of DeviceServer's symbols, exact round trips; "
+            f"{n_images} images bit-equal to DeviceServer on the recorded "
+            f"batches; K2 {launches['pearson_argmax_shared']} launches = "
+            f"{si_batches} SI batches, K1 0; K2 on a service batch vs plain "
+            f"max |val - plain| {err:.3g}; no native build after warmup")
+        batchmates(svc, records, vols)
+        err_records, err_futs = typed_error_checks(
+            svc, [r.stream for r in enc if r.bucket != big], records)
+        futures += err_futs
+        check_decode_records(svc, err_records, vols)
+        port = svc.metrics_port
+        for path in ("/healthz", "/metrics"):
+            with urlopen(f"http://127.0.0.1:{port}{path}", timeout=30) as r:
+                if r.status != 200 or not r.read():
+                    raise AssertionError(f"{path} answered {r.status}")
+        log(f"  /healthz and /metrics answer on port {port}")
+        snap = svc.metrics.snapshot()
+        hists = snap["histograms"]
+        log(f"  open_session ms {', '.join(f'{t:.2f}' for t in open_ms)} "
+            f"(serve_si_prep_ms {hist_line(hists['serve_si_prep_ms'])})")
+        kinds = {"encode": enc_ms,
+                 "decode": [m for m, j in zip(dec_ms, jobs) if j[1] is None],
+                 "decode_si": [m for m, j in zip(dec_ms, jobs)
+                               if j[1] is not None]}
+        for kind, ms in kinds.items():
+            log(f"  {kind}: {len(ms)} requests, submit -> result ms median "
+                f"{float(np.median(ms)):.1f}, max {max(ms):.1f}; "
+                f"serve_device_ms_{kind} "
+                f"{hist_line(hists[f'serve_device_ms_{kind}'])}; "
+                f"serve_entropy_ms_{kind} "
+                f"{hist_line(hists[f'serve_entropy_ms_{kind}'])}")
+        log(f"  serve_overlap_ratio {snap['gauges']['serve_overlap_ratio']:.3f}"
+            f", {len(imgs) + len(jobs)} requests in {enc_s + dec_s:.2f} s = "
+            f"{(len(imgs) + len(jobs)) / (enc_s + dec_s):.2f} requests/s "
+            f"(encode {len(imgs) / enc_s:.2f}/s, decode {len(jobs) / dec_s:.2f}"
+            f"/s), {len(records)} batches, peak device memory {peak:.2f} GiB, "
+            f"card {card_line()}")
+        k2_launches = launches["pearson_argmax_shared"]
+    finally:
+        drained = svc.drain(timeout=SERVE_TIMEOUT_S)
+    hung = sum(not f.done() for f in futures)
+    if not drained or hung:
+        raise AssertionError(f"drain: {drained}, {hung} unresolved futures")
+    log(f"  drain() True, {len(futures)} futures all resolved")
+    return k2_launches
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1773,20 +2110,17 @@ def main() -> int:
               "run needs an NVIDIA card", file=sys.stderr)
         return 2
     dev = resolve_device("cuda")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    card = card_line()
     rows, launches, walls = {}, {}, []
 
     def phase(title, fn):
-        log(f"[{len(walls) + 2}/9] {title}")
+        log(f"[{len(walls) + 2}/10] {title}")
         t0 = time.perf_counter()
         out = fn()
         walls.append((len(walls) + 2, time.perf_counter() - t0))
         return out
 
-    log(f"[1/9] card: {card}; torch {torch.__version__}, CUDA "
+    log(f"[1/10] card: {card}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}")
     phase("build", build_phase)
     rows.update(phase(f"kernel vs plain at {H}x{W}, patches {PH}x{PW}, seed "
@@ -1810,6 +2144,10 @@ def main() -> int:
     phase("the rest of the patch search (tiled, scores, L2/LAB) and the "
           "Cityscapes geometry (1024x2048, 16x32 patches)",
           lambda: search_phase(args.seed, dev))
+    launches["pearson_argmax_shared"] += phase(
+        "the compression service at full width (ae_kitti_stereo + "
+        "pc_default, buckets 160x600 and 320x1224, batches of 4)",
+        lambda: service_phase(args.seed, dev))
     log("phase wall s: " + ", ".join(f"[{i}] {t:.1f}" for i, t in walls))
     kernels = [dict(name=name, route="cuda", source=SOURCES[name],
                     replaces=REPLACES[name], launches=launches[name], **r)

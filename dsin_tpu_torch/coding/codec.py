@@ -123,6 +123,21 @@ class BottleneckCodec:
                                                           self.device)
             return self._front_kernel
 
+    def thread_clone(self) -> "BottleneckCodec":
+        """A per-thread twin for entropy pools (`serve/service.py`): shares
+        this codec's read-only weights, its incremental engine (whose
+        schedule cache is lock-guarded, so clones reuse the schedules the
+        parent's warmup built) and its front kernel, while every encode /
+        decode call keeps its per-pass buffers private."""
+        clone = BottleneckCodec(self.weights, self.centers, self.pc_config,
+                                scale_bits=self.scale_bits,
+                                device=self.device)
+        clone._incremental = self._incremental_engine()
+        with self._engine_lock:
+            # read-only once built; may still be None (lazy)
+            clone._front_kernel = self._front_kernel
+        return clone
+
     # -- internals ----------------------------------------------------------
 
     def _make_buffer(self, d: int, h: int, w: int) -> np.ndarray:

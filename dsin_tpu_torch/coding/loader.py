@@ -7,7 +7,9 @@ given one (`train/checkpoint.py`, the JAX package's `.msgpack` format, the
 manifest verified), and casts it to a rung of the precision ladder
 (`coding/precision.py`); `make_codec` is the one `BottleneckCodec`
 construction the call sites share; `params_digest` is the JAX package's
-parameter digest. The port's modules are fully convolutional and eager, so
+parameter digest; `encode_batch_isolated` and `decode_batch_isolated`
+(the JAX package's `coding/loader.py:318, :373`) keep one lane's coding
+error on that lane, for the service's entropy stage. The port's modules are fully convolutional and eager, so
 no image shape is needed to build them.
 """
 
@@ -153,3 +155,38 @@ def params_digest(tree, rung: str = "fp32") -> str:
             _field(text_or_bytes if isinstance(text_or_bytes, bytes)
                    else text_or_bytes.encode())
     return h.hexdigest()[:16]
+
+
+def encode_batch_isolated(codec: BottleneckCodec, volumes) -> list:
+    """Encode N (D, H, W) symbol volumes -> [(payload, None) |
+    (None, exception)] per lane, via the one-native-call batch path,
+    retrying lane by lane ONLY if the batch call refuses the set (a
+    pathological lane, a scratch allocation failure): one lane's coding
+    error must fail only ITS request, never its batchmates."""
+    try:
+        return [(p, None) for p in codec.encode_batch(list(volumes))]
+    except Exception:
+        out = []
+        for vol in volumes:
+            try:
+                out.append((codec.encode(vol), None))
+            except Exception as exc:  # noqa: BLE001 — per-lane isolation
+                out.append((None, exc))
+        return out
+
+
+def decode_batch_isolated(codec: BottleneckCodec, payloads) -> list:
+    """Decode N DTPC payloads -> [(volume, None) | (None, exception)] per
+    lane, via `decode_batch`, retrying lane by lane ONLY if the batch
+    refuses the set (header or structure errors): the decode half of the
+    per-lane isolation contract."""
+    try:
+        return [(vol, None) for vol in codec.decode_batch(list(payloads))]
+    except Exception:
+        out = []
+        for blob in payloads:
+            try:
+                out.append((codec.decode(blob), None))
+            except Exception as exc:  # noqa: BLE001 — per-lane isolation
+                out.append((None, exc))
+        return out

@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from pathlib import Path
 from typing import Callable, List, NamedTuple, Tuple
 
@@ -54,9 +55,18 @@ CHANNEL_TILE = 4                           # the kernel's float4 over channels
 launch_counts = {"probclass_front_logits": 0}
 
 
+_counts_lock = threading.Lock()   # service workers launch concurrently
+
+
 def reset_launch_counts() -> None:
-    for name in launch_counts:
-        launch_counts[name] = 0
+    with _counts_lock:
+        for name in launch_counts:
+            launch_counts[name] = 0
+
+
+def _count_launch(name: str) -> None:
+    with _counts_lock:
+        launch_counts[name] += 1
 
 
 class KernelLibrary(NamedTuple):
@@ -323,7 +333,7 @@ def probclass_front_logits(blocks: torch.Tensor, weights):
     if err != 0:
         raise RuntimeError(f"probclass_front_logits launch failed: CUDA "
                            f"error {err} ({lib.error_string(err).decode()})")
-    launch_counts["probclass_front_logits"] += 1
+    _count_launch("probclass_front_logits")
     return out
 
 

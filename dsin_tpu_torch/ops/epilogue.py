@@ -37,6 +37,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from pathlib import Path
 from typing import Callable, NamedTuple
 
@@ -66,9 +67,18 @@ H1H2H3 = np.array([[1.0, 1.0, 0.5],
 launch_counts = {"fused_decode_epilogue": 0}
 
 
+_counts_lock = threading.Lock()   # service workers launch concurrently
+
+
 def reset_launch_counts() -> None:
-    for name in launch_counts:
-        launch_counts[name] = 0
+    with _counts_lock:
+        for name in launch_counts:
+            launch_counts[name] = 0
+
+
+def _count_launch(name: str) -> None:
+    with _counts_lock:
+        launch_counts[name] += 1
 
 
 class EpilogueParams(NamedTuple):
@@ -198,7 +208,7 @@ def fused_decode_epilogue(x: torch.Tensor, wmat: torch.Tensor,
         raise ValueError(f"the epilogue kernel runs on CUDA tensors, got "
                          f"{x.device}")
     img, srch = launch(load_library(), x, *epi)
-    launch_counts["fused_decode_epilogue"] += 1
+    _count_launch("fused_decode_epilogue")
     return img, srch
 
 

@@ -43,6 +43,7 @@ float32.
 
 from __future__ import annotations
 
+import threading
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -64,9 +65,18 @@ CONV_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 route_counts = {route: 0 for route in ROUTES}
 
 
+_counts_lock = threading.Lock()   # service workers launch concurrently
+
+
 def reset_route_counts() -> None:
-    for route in route_counts:
-        route_counts[route] = 0
+    with _counts_lock:
+        for route in route_counts:
+            route_counts[route] = 0
+
+
+def _count_route(route: str) -> None:
+    with _counts_lock:
+        route_counts[route] += 1
 
 
 class PrepDtypeMismatch(ValueError):
@@ -604,7 +614,7 @@ def synthesize_side_image(x_dec: torch.Tensor, y_img: torch.Tensor,
                    standard_mask_factors(mask, h, w, patch_h, patch_w))
     route = choose_route(impl, x_dec.device.type, l2=l2,
                          prior=_prior_kind(mask, factors))
-    route_counts[route] += 1
+    _count_route(route)
     if route == "kernel":
         from dsin_tpu_torch.ops import sifinder_kernel
         if factors is None:
@@ -657,7 +667,7 @@ def synthesize_side_image_prepped(x_dec: torch.Tensor, prep: SidePrep,
                          prior="none" if prep.gh is None else "standard",
                          kernel_half=prep.y_t is not None,
                          with_scores=with_scores)
-    route_counts[route] += 1
+    _count_route(route)
     if route == "kernel":
         from dsin_tpu_torch.ops import sifinder_kernel
         _check_prep_dtype(prep, conv_dtype)

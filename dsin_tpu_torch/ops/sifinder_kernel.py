@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from pathlib import Path
 from typing import Callable, NamedTuple
 
@@ -48,9 +49,18 @@ REFERENCE_ROW_CHUNK = 16   # map rows per matmul in the plain version
 launch_counts = {"pearson_argmax": 0, "pearson_argmax_shared": 0}
 
 
+_counts_lock = threading.Lock()   # service workers launch concurrently
+
+
 def reset_launch_counts() -> None:
-    for name in launch_counts:
-        launch_counts[name] = 0
+    with _counts_lock:
+        for name in launch_counts:
+            launch_counts[name] = 0
+
+
+def _count_launch(name: str) -> None:
+    with _counts_lock:
+        launch_counts[name] += 1
 
 
 class KernelLibrary(NamedTuple):
@@ -158,7 +168,7 @@ def _launch(name: str, y_t, pk, inv_denom, gh, gw_t, ph: int, pw: int,
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err} "
                            f"({lib.error_string(err).decode()})")
-    launch_counts[name] += 1
+    _count_launch(name)
     return best_val, best_idx
 
 

@@ -1,0 +1,49 @@
+"""The port's compression service on one card (counterpart of the JAX
+package's `dsin_tpu.serve`), exported under the JAX names.
+
+`CompressionService` (`service.py`) loads the model once, micro-batches
+requests onto static buckets (`buckets.py`, `batcher.py`), writes
+CRC-framed DSRV streams, caches side-image preps per session
+(`session.py`) and overlaps device batches with rANS coding on a thread
+pool; `device.py` `DeviceServer` holds its device functions. What the JAX
+package's serve stack has beyond that (router, federation, autoscale,
+protocol, shared-memory lanes, quality, placement, the hot swap) is not
+ported: see ROADMAP Queue 1 item 11.
+"""
+
+from dsin_tpu_torch.serve.batcher import (BULK, INTERACTIVE,
+                                          DeadlineExceeded, Future,
+                                          MicroBatcher, PriorityClass,
+                                          Request, ServeError,
+                                          ServiceDraining, ServiceOverloaded,
+                                          ServiceUnavailable, SessionKey,
+                                          default_priority_classes)
+from dsin_tpu_torch.serve.buckets import (BucketPolicy, NoBucketFits,
+                                          crop_from_bucket, pad_to_bucket)
+from dsin_tpu_torch.serve.device import DeviceServer
+from dsin_tpu_torch.serve.metrics import MetricsRegistry, MetricsServer
+from dsin_tpu_torch.serve.service import (CompressionService, EncodeResult,
+                                          ServiceConfig, StreamCorrupt,
+                                          frame_stream, parse_stream)
+from dsin_tpu_torch.serve.session import (SessionEntry, SessionError,
+                                          SessionExpired, SessionOverCapacity,
+                                          SessionStore)
+from dsin_tpu_torch.serve.swap import ModelBundle, SwapCoordinator
+from dsin_tpu_torch.serve.trace import FlightRecorder, TraceContext, Tracer
+from dsin_tpu_torch.train.checkpoint import ManifestMismatch
+from dsin_tpu_torch.utils.integrity import IntegrityError
+
+__all__ = [
+    "BULK", "INTERACTIVE",
+    "BucketPolicy", "CompressionService", "DeadlineExceeded",
+    "DeviceServer", "EncodeResult", "FlightRecorder", "Future",
+    "IntegrityError", "ManifestMismatch", "MetricsRegistry",
+    "MetricsServer", "MicroBatcher", "ModelBundle", "NoBucketFits",
+    "PriorityClass", "Request", "ServeError", "ServiceConfig",
+    "ServiceDraining", "ServiceOverloaded", "ServiceUnavailable",
+    "SessionEntry", "SessionError", "SessionExpired", "SessionKey",
+    "SessionOverCapacity", "SessionStore", "StreamCorrupt",
+    "SwapCoordinator", "TraceContext", "Tracer", "crop_from_bucket",
+    "default_priority_classes", "frame_stream", "pad_to_bucket",
+    "parse_stream",
+]

@@ -2,11 +2,15 @@
 package's `serve/service.py:483-553`, `_make_batched_fns` and
 `_make_si_fns`).
 
-`DeviceServer` holds one model on one device and runs the three device
-functions of SI serving:
-  * `encode(x) -> (symbols, bpp_estimate)`: encoder -> heatmap gate ->
-    quantizer -> int32 symbols, plus the probclass bitcost of those symbols
-    as a bits-per-pixel estimate (the rANS streams come with the codec);
+`DeviceServer` holds one model on one device and runs the device functions
+of serving:
+  * `encode_symbols(x) -> symbols`: encoder -> heatmap gate -> quantizer ->
+    int32 symbols, the service's batched encode (the rANS streams come
+    from the codec);
+  * `encode(x) -> (symbols, bpp_estimate)`: the same plus the probclass
+    bitcost of those symbols as a bits-per-pixel estimate;
+  * `decode(symbols) -> image`: centers lookup -> decoder -> clip, the
+    service's AE-only batched decode;
   * `open_session(y) -> SidePrep`: once per side image, AE(y) -> y-hat, then
     `build_side_prep` (an L2 prep under `use_L2andLAB`; with the kernel's
     operands when a Pearson search runs through the kernel);
@@ -15,7 +19,8 @@ functions of SI serving:
     the winning Pearson score per patch (the JAX package's
     `_make_si_fns(with_scores)`, the SI-match quality signal) on the routes
     that have them.
-The batcher, the sessions store and the control plane are not ported here.
+`serve/service.py` (`CompressionService`) batches requests onto these
+functions.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from dsin_tpu_torch.coding.loader import build_at_rung
+from dsin_tpu_torch.models.dsin import DSIN
 from dsin_tpu_torch.models.quantizer import centers_lookup
 from dsin_tpu_torch.ops import sifinder as sifinder_lib
 
@@ -40,13 +46,25 @@ class DeviceServer:
 
     def __init__(self, ae_config, pc_config, device="cuda", seed: int = 0,
                  precision: str = "fp32"):
-        self.model = build_at_rung(ae_config, pc_config, device=device,
-                                   seed=seed, precision=precision)
-        self.device = self.model.centers.device
-        self.config = self.model.ae_config
-        self.patch = tuple(int(v) for v in ae_config.y_patch_size)
-        self.use_l2 = sifinder_lib.use_l2(ae_config)
-        self.for_kernel = sifinder_lib.prep_for_kernel(ae_config, self.device)
+        self._bind(build_at_rung(ae_config, pc_config, device=device,
+                                 seed=seed, precision=precision))
+
+    @classmethod
+    def for_model(cls, model: DSIN) -> "DeviceServer":
+        """Serve an already built model (`coding/loader.load_model_state`),
+        on the model's device."""
+        server = cls.__new__(cls)
+        server._bind(model)
+        return server
+
+    def _bind(self, model: DSIN) -> None:
+        self.model = model
+        self.device = model.centers.device
+        self.config = model.ae_config
+        self.patch = tuple(int(v) for v in self.config.y_patch_size)
+        self.use_l2 = sifinder_lib.use_l2(self.config)
+        self.for_kernel = sifinder_lib.prep_for_kernel(self.config,
+                                                       self.device)
         self._factors: Dict[Tuple[int, int], Optional[tuple]] = {}
 
     def _tensor(self, x) -> torch.Tensor:
@@ -61,15 +79,28 @@ class DeviceServer:
         return self._factors[(h, w)]
 
     @torch.inference_mode()
+    def encode_symbols(self, x) -> torch.Tensor:
+        """x (N, H, W, 3) in [0, 255] -> symbols (N, H/8, W/8, C) int32."""
+        return self.model.encode(self._tensor(x)).symbols
+
+    @torch.inference_mode()
     def encode(self, x):
         """x (N, H, W, 3) in [0, 255] -> (symbols (N, H/8, W/8, C) int32,
         bpp_estimate (N,) float32)."""
         x = self._tensor(x)
-        symbols = self.model.encode(x).symbols
+        symbols = self.encode_symbols(x)
         bits = self.model.bitcost(centers_lookup(self.model.centers, symbols),
                                   symbols)
         bpp = bits.sum(dim=(1, 2, 3)) / (x.shape[1] * x.shape[2])
         return symbols, bpp
+
+    @torch.inference_mode()
+    def decode(self, symbols) -> torch.Tensor:
+        """symbols (N, H/8, W/8, C) -> images (N, H, W, 3) in [0, 255]:
+        the autoencoder's reconstruction, no side information."""
+        symbols = torch.as_tensor(symbols, device=self.device)
+        x_dec = self.model.decode(centers_lookup(self.model.centers, symbols))
+        return torch.clamp(x_dec, 0.0, 255.0)
 
     @torch.inference_mode()
     def open_session(self, y) -> sifinder_lib.SidePrep:

@@ -1,0 +1,1390 @@
+"""Long-lived compression service on one card (counterpart of the JAX
+package's `serve/service.py` `CompressionService`).
+
+The model is loaded once (`coding/loader.load_model_state`, from a seed or
+a checkpoint of either package); requests of any (h, w) are padded onto
+the static bucket set (`serve/buckets.py`) and same-bucket requests
+coalesce into micro-batches (`serve/batcher.py`), each padded to
+`max_batch` so every batch has one of `2 * len(buckets)` (+ the SI ones)
+shapes, as in the JAX package. SIGINT/SIGTERM drain gracefully
+(`utils/signals.py`): in-flight batches complete, queued requests are
+rejected with ServiceDraining, new submits are refused.
+
+The device stage is `serve/device.py` `DeviceServer` (encoder ->
+quantizer; centers -> decoder -> clip; and with `enable_si` the decode
+through the cached session prep, the search kernel K2 and siNet). The
+entropy stage codes in mode 2, the numpy engine, as the JAX service does,
+so streams are byte-identical to the JAX service's for the same symbols.
+
+Pipelined dataplane: with `entropy_workers > 0` each worker runs a
+two-stage pipeline, one pool task per micro-batch:
+
+  encode:  [worker] assemble + launch the device batch on the worker's
+                    own CUDA stream; a non-blocking copy of the symbols
+                    into pinned host memory and an event recorded after it
+           [pool]   wait on that event (never on the whole device), one
+                    batch call of the rANS coder, frame + resolve futures
+  decode:  [pool]   per-request CRC re-verify, decode each payload
+           [worker] the batched decode (or the SI decode) over the
+                    gathered symbols, crop + resolve futures
+
+The worker launches batch N+1's device stage while batch N's entropy task
+runs on the pool (`pipeline_depth` bounds the batches in flight). Every
+pool thread owns a private codec clone (`BottleneckCodec.thread_clone`)
+sharing the warmed, lock-guarded schedule cache. Fault isolation holds
+inside the batch task: the `serve.rans` site and the payload-CRC re-verify
+run per request, and an IntegrityError lands on that request's future
+only. A worker that dies mid-pipeline flushes its in-flight records on
+the way out and the supervisor restarts it with capped exponential
+backoff (`utils/retry.py`). `/healthz` degrades honestly (`degraded`
+below the configured pool size, `unhealthy` + 503 at zero).
+
+CUDA streams across threads: each worker enters `torch.inference_mode`
+and its own `torch.cuda.Stream` on its thread (both are per-thread
+state). `open_session` builds the prep on the caller's stream and waits
+on an event recorded after it before the prep enters the session store,
+so no worker stream can read it early; a batch's `_Inflight` record keeps
+its session entry until `_finish_batch` has waited on the batch's event,
+so an evicted prep is freed only after the last batch that read it.
+
+Stream framing (little-endian, v2), around the BottleneckCodec payload:
+    b"DSRV" | u8 version | u16 h | u16 w | u16 bh | u16 bw
+            | u32 payload_len | u32 crc32 | payload
+The CRC covers every header field after the magic plus the payload
+(`utils/integrity.py`); v1 frames (no CRC) remain readable.
+
+Side-information serving (`enable_si`): `open_session(y)` runs the prep
+once (AE-reconstruct y, transform, window statistics, prior factors and
+the kernel's operands) into an immutable `ops.sifinder.SidePrep` held in
+the LRU/TTL/byte-bounded `serve/session.py` store;
+`submit_decode_si(stream, session_id)` decodes through it. Requests that
+share a session coalesce into one micro-batch (`Request.session`), one
+K2 launch each.
+
+Observability: the JAX service's metric names (`serve_device_ms`,
+`serve_entropy_ms`, `serve_overlap_ratio`, `serve_si_prep_ms`,
+`serve_si_search_ms`, `serve_sessions_*`, ...), plus per-kind
+`serve_device_ms_<kind>` / `serve_entropy_ms_<kind>` histograms; with no
+XLA, `serve_native_builds` and `serve_warmup_builds` count native builds
+(`native_build.build_count()`) where the JAX service counts compiles.
+Spans and flight events as in `serve/trace.py`.
+
+Not ported, and refused with NotImplementedError naming the ROADMAP item:
+quality telemetry and the canary, the hot swap and rollback (and its
+watchdog), more than one device and placement, priority classes, the
+process entropy backend and shared-memory lanes. `persistent_cache` (the
+XLA compile cache) has no meaning here and is not a field.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import os
+import struct
+import threading
+import time
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from dsin_tpu_torch import bridge, native_build
+from dsin_tpu_torch.coding import loader as loader_lib
+from dsin_tpu_torch.config import parse_config_file
+from dsin_tpu_torch.runtime import resolve_device
+from dsin_tpu_torch.serve import buckets as buckets_lib
+from dsin_tpu_torch.serve import metrics as metrics_lib
+from dsin_tpu_torch.serve import session as session_lib
+from dsin_tpu_torch.serve import swap as swap_lib
+from dsin_tpu_torch.serve import trace as trace_lib
+from dsin_tpu_torch.serve.batcher import (Future, MicroBatcher, Request,
+                                          ServeError, ServiceDraining,
+                                          ServiceUnavailable)
+from dsin_tpu_torch.serve.device import DeviceServer
+from dsin_tpu_torch.utils import faults
+from dsin_tpu_torch.utils.integrity import (IntegrityError, frame_crc,
+                                            verify_crc)
+from dsin_tpu_torch.utils.retry import RetryPolicy
+
+SERVE_MAGIC = b"DSRV"
+SERVE_VERSION = 2   # v2: + CRC32 over header fields + payload
+_FRAME_LEN_V1 = 17  # magic(4) + B(1) + 4*H(8) + I(4)
+_FRAME_LEN = 21     # v2: + I(4) CRC
+
+ENCODE = "encode"
+DECODE = "decode"
+DECODE_SI = "decode_si"   # session-affine SI decode
+
+#: ROADMAP Queue 1 items naming what the port's service does not have yet
+ROADMAP_QUALITY = "ROADMAP Queue 1 item 11a (quality telemetry and canary)"
+ROADMAP_SWAP = "ROADMAP Queue 1 item 11b (hot swap and rollback)"
+ROADMAP_DEVICES = "ROADMAP Queue 1 item 11c (devices > 1 and placement)"
+ROADMAP_PRIORITY = "ROADMAP Queue 1 item 11d (priority classes and admission)"
+ROADMAP_PROCESS = ("ROADMAP Queue 1 item 11e (the process entropy backend "
+                   "and shm lanes)")
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported to dsin_tpu_torch yet: "
+                               f"{item}")
+
+
+@dataclass
+class ServiceConfig:
+    """The JAX service's configuration, less what the port does not serve.
+    `quality_enabled` defaults to False here (quality telemetry is not
+    ported; True raises), and `persistent_cache` does not exist (there is
+    no XLA cache). `device` is the card by default; without one the service
+    raises unless it is "cpu"."""
+    ae_config: str
+    pc_config: str
+    ckpt: Optional[str] = None
+    seed: int = 0
+    buckets: Sequence[Tuple[int, int]] = buckets_lib.DEFAULT_BUCKETS
+    max_batch: int = 4
+    max_wait_ms: float = 5.0
+    max_queue: int = 64
+    #: executor threads, each with its own CUDA stream
+    workers: int = 1
+    #: None or 1; more raises (ROADMAP_DEVICES), as do placement knobs
+    devices: Optional[int] = None
+    placement_weights: Optional[dict] = None
+    rebalance_check_every_s: Optional[float] = None
+    #: rANS pool size; 0 = serialized path (entropy inline on the worker
+    #: thread after/before the device call); None = min(4, cores - 1),
+    #: at least 1
+    entropy_workers: Optional[int] = None
+    #: "thread" only; "process" raises (ROADMAP_PROCESS)
+    entropy_backend: str = "thread"
+    #: "pipe" only; "shm" raises (ROADMAP_PROCESS)
+    transport: str = "pipe"
+    #: max batches a worker holds in flight (device launched, entropy
+    #: pending) before finishing the oldest; >= 2 overlaps batch N's
+    #: entropy with batch N+1's device stage
+    pipeline_depth: int = 2
+    #: not None raises (ROADMAP_PRIORITY)
+    priority_classes: Optional[Sequence] = None
+    #: load the full DSIN (siNet included) and open the session API
+    #: (open_session/submit_decode_si); every bucket edge must divide by
+    #: the config's y_patch_size
+    enable_si: bool = False
+    session_max: int = 8
+    session_max_bytes: int = 64 * 1024 * 1024
+    session_ttl_s: Optional[float] = None
+    #: request tracing + flight recorder (serve/trace.py)
+    trace_enabled: bool = True
+    trace_sample_rate: float = 0.0
+    trace_capacity: int = 4096
+    flight_capacity: int = 2048
+    flight_dir: Optional[str] = None
+    flight_dump_min_interval_s: float = 1.0
+    #: not None raises (ROADMAP_SWAP: the watchdog judges hot swaps)
+    rollback_watchdog_window_s: Optional[float] = None
+    #: True raises (ROADMAP_QUALITY), as does canary_every_s
+    quality_enabled: bool = False
+    canary_every_s: Optional[float] = None
+    #: precision-ladder rung (coding/precision.py)
+    precision: str = "fp32"
+    #: None = no HTTP endpoint; 0 = ephemeral port (tests)
+    metrics_port: Optional[int] = None
+    #: supervisor restart backoff: base and cap of the exponential curve
+    restart_backoff_s: float = 0.05
+    restart_backoff_max_s: float = 2.0
+    #: how often the supervisor checks the pool for dead workers
+    supervise_every_s: float = 0.05
+    device: str = "cuda"
+
+
+def _refused(config: ServiceConfig) -> Optional[NotImplementedError]:
+    """The NotImplementedError a configuration asks for, or None."""
+    if config.quality_enabled:
+        return _not_ported("quality_enabled=True", ROADMAP_QUALITY)
+    if config.canary_every_s is not None:
+        return _not_ported("canary_every_s", ROADMAP_QUALITY)
+    if config.rollback_watchdog_window_s is not None:
+        return _not_ported("the rollback watchdog", ROADMAP_SWAP)
+    if config.devices not in (None, 1):
+        return _not_ported(f"devices={config.devices}", ROADMAP_DEVICES)
+    if (config.placement_weights is not None
+            or config.rebalance_check_every_s is not None):
+        return _not_ported("placement and rebalance", ROADMAP_DEVICES)
+    if config.priority_classes is not None:
+        return _not_ported("priority_classes", ROADMAP_PRIORITY)
+    if config.entropy_backend != "thread":
+        return _not_ported(f"entropy_backend={config.entropy_backend!r}",
+                           ROADMAP_PROCESS)
+    if config.transport != "pipe":
+        return _not_ported(f"transport={config.transport!r}",
+                           ROADMAP_PROCESS)
+    return None
+
+
+@dataclass
+class EncodeResult:
+    stream: bytes          # framed: ready for decode() / a wire
+    payload_bytes: int     # entropy-coded payload only
+    bpp: float             # payload bits over ORIGINAL h*w pixels
+    shape: Tuple[int, int]
+    bucket: Tuple[int, int]
+    #: digest of the model bundle that produced this stream
+    model_digest: Optional[str] = None
+
+
+def frame_stream(payload: bytes, shape: Tuple[int, int],
+                 bucket: Tuple[int, int]) -> bytes:
+    h, w = shape
+    bh, bw = bucket
+    head = struct.pack("<BHHHHI", SERVE_VERSION, h, w, bh, bw, len(payload))
+    crc = frame_crc(head, payload)
+    return SERVE_MAGIC + head + struct.pack("<I", crc) + payload
+
+
+class StreamCorrupt(ValueError):
+    """Structurally damaged DSRV frame (bad magic, truncation, version
+    or geometry skew); a ValueError for every caller that catches the
+    documented base."""
+
+
+def parse_stream(blob: bytes):
+    """-> (payload, (h, w), (bh, bw)); every corruption mode is a typed
+    error — StreamCorrupt (a ValueError subclass) for structural
+    damage, IntegrityError (also under ValueError) for a v2 CRC
+    mismatch. v1 frames predate the CRC and parse without one."""
+    if len(blob) < _FRAME_LEN_V1 or blob[:4] != SERVE_MAGIC:
+        raise StreamCorrupt("not a DSRV stream")
+    version = blob[4]
+    if version == 1:
+        version, h, w, bh, bw, n = struct.unpack(
+            "<BHHHHI", blob[4:_FRAME_LEN_V1])
+        payload = blob[_FRAME_LEN_V1:_FRAME_LEN_V1 + n]
+        crc = None
+    elif version == SERVE_VERSION:
+        if len(blob) < _FRAME_LEN:
+            raise StreamCorrupt(f"truncated DSRV v2 header: {len(blob)} "
+                                f"of {_FRAME_LEN} bytes")
+        version, h, w, bh, bw, n, crc = struct.unpack(
+            "<BHHHHII", blob[4:_FRAME_LEN])
+        payload = blob[_FRAME_LEN:_FRAME_LEN + n]
+    else:
+        raise StreamCorrupt(f"unsupported DSRV version {version}")
+    if len(payload) != n:
+        raise StreamCorrupt(f"truncated stream: payload {len(payload)} "
+                            f"of {n} bytes")
+    if crc is not None:
+        verify_crc(crc, "DSRV stream",
+                   struct.pack("<BHHHHI", version, h, w, bh, bw, n),
+                   payload)
+    if h > bh or w > bw:
+        raise StreamCorrupt(f"corrupt frame: image ({h}, {w}) exceeds "
+                            f"its own bucket ({bh}, {bw})")
+    return payload, (h, w), (bh, bw)
+
+
+def _to_device(arr: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """A host batch onto the device: on the card through pinned memory, a
+    copy ordered on the current stream that does not block the host."""
+    t = torch.from_numpy(arr)
+    if dev.type != "cuda":
+        return t
+    return t.pin_memory().to(dev, non_blocking=True)
+
+
+def _to_host(t: torch.Tensor):
+    """-> (host tensor, event or None). On the card: a non-blocking copy
+    into pinned memory on the current stream, then an event recorded after
+    it; the host values are valid once the event completes."""
+    if t.device.type != "cuda":
+        return t, None
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    event = torch.cuda.Event()
+    event.record()
+    return host, event
+
+
+def _host_array(host: torch.Tensor, event) -> np.ndarray:
+    if event is not None:
+        event.synchronize()     # this batch's copy only, not the device
+    return host.numpy()
+
+
+def _prep_nbytes(prep) -> int:
+    """Device bytes of a SidePrep: the sum of its tensors' bytes."""
+    return sum(t.numel() * t.element_size() for t in prep
+               if isinstance(t, torch.Tensor))
+
+
+class _DeviceBatch:
+    """One launched encode batch. The worker moves on to the next batch
+    while the device computes; the FIRST entropy task to need the symbols
+    waits on the batch's event (its copy to pinned memory) and converts,
+    siblings block briefly on the lock and share it. `device_ms` therefore
+    measures the start of the launch (`dispatched`) -> results on the
+    host: launch + queueing + compute + copy."""
+
+    __slots__ = ("_lock", "_pinned", "_event", "_host", "dispatched",
+                 "transfer_done")
+
+    def __init__(self, pinned: torch.Tensor, event, dispatched: float):
+        self._lock = threading.Lock()
+        self._pinned = pinned                # guarded-by: self._lock
+        self._event = event                  # guarded-by: self._lock
+        self._host = None                    # guarded-by: self._lock
+        self.dispatched = dispatched
+        self.transfer_done: Optional[float] = None  # guarded-by: self._lock
+
+    def host(self) -> np.ndarray:
+        with self._lock:
+            if self._host is None:
+                self._host = _host_array(self._pinned, self._event)
+                self._pinned = self._event = None
+                self.transfer_done = time.monotonic()
+            return self._host
+
+    @property
+    def device_ms(self) -> float:
+        with self._lock:
+            done = self.transfer_done
+        if done is None:
+            done = time.monotonic()
+        return (done - self.dispatched) * 1e3
+
+
+class _Inflight:
+    """One batch moving through the pipeline: the worker's handle for
+    finishing it (wait for entropy tasks; decode's device stage) and the
+    per-batch ledger the stage metrics come from."""
+
+    __slots__ = ("kind", "batch", "bucket", "t0", "bundle", "tasks",
+                 "handle", "sym", "per_item_exc", "crash", "si_entry")
+
+    def __init__(self, kind, batch, bucket, t0, bundle):
+        self.kind = kind
+        self.batch = batch
+        self.bucket = bucket
+        self.t0 = t0
+        #: the ONE ModelBundle every stage of this batch reads
+        self.bundle = bundle
+        self.tasks = []
+        self.handle: Optional[_DeviceBatch] = None   # encode
+        self.sym: Optional[np.ndarray] = None        # decode gather
+        self.per_item_exc = {}
+        self.crash: Optional[BaseException] = None
+        #: DECODE_SI: the SessionEntry captured at batch start — the
+        #: device stage reads ITS prep, and holding it here keeps the prep
+        #: alive until the batch's device work has finished
+        self.si_entry = None
+
+
+class CompressionService:
+    """Thread-per-worker micro-batching codec service on one device.
+
+    Lifecycle:  start() -> [warmup()] -> submit_*/encode/decode ...
+                -> drain()   (or initiate_drain() from a signal handler)
+    """
+
+    def __init__(self, config: ServiceConfig):
+        err = _refused(config)
+        if err is not None:
+            raise err
+        self.config = config
+        self.policy = buckets_lib.BucketPolicy(config.buckets)
+        self.metrics = metrics_lib.MetricsRegistry()
+        self.tracer = trace_lib.Tracer(
+            sample_rate=config.trace_sample_rate,
+            capacity=config.trace_capacity,
+            enabled=config.trace_enabled, metrics=self.metrics)
+        self.flight = trace_lib.FlightRecorder(
+            capacity=config.flight_capacity, dump_dir=config.flight_dir,
+            min_dump_interval_s=config.flight_dump_min_interval_s,
+            metrics=self.metrics, enabled=config.trace_enabled)
+        self._batcher = MicroBatcher(
+            config.max_batch, config.max_wait_ms, config.max_queue,
+            on_expired=self._note_expired)
+        self._workers = []                 # guarded-by: self._workers_lock
+        self._workers_lock = threading.Lock()
+        # slot -> last fatal exit / consecutive restarts / restart time
+        self._worker_exits = {}            # guarded-by: self._workers_lock
+        self._restarts = []                # guarded-by: self._workers_lock
+        self._restart_at = []              # guarded-by: self._workers_lock
+        self._restart_policy = RetryPolicy(
+            max_attempts=1 << 30,          # supervise forever; the cap is
+            base_delay_s=config.restart_backoff_s,      # on the DELAY
+            max_delay_s=config.restart_backoff_max_s,
+            backoff=2.0)
+        self._supervisor: Optional[threading.Thread] = None
+        self._closer: Optional[threading.Thread] = None
+        self._started = False
+        self._draining = threading.Event()
+        self._metrics_server: Optional[metrics_lib.MetricsServer] = None
+        self._batch_hook = None   # test/diagnostic: called with each batch
+        self._entropy_pool: Optional[ThreadPoolExecutor] = None
+        self._entropy_workers = 0
+        self._codec_local = threading.local()
+        self._si_enabled = False
+        self._sessions: Optional[session_lib.SessionStore] = None
+        self._bn_channels = 0
+        self.device: Optional[torch.device] = None
+        self._swap: Optional[swap_lib.SwapCoordinator] = None
+
+    # -- model state (always the CURRENT bundle's view) ----------------------
+
+    @property
+    def server(self) -> Optional[DeviceServer]:
+        """The DeviceServer of the model currently serving."""
+        return self._swap.current.server if self._swap is not None else None
+
+    @property
+    def codec(self):
+        return self._swap.current.codec if self._swap is not None else None
+
+    @property
+    def model_digest(self) -> Optional[str]:
+        """`coding/loader.params_digest` of the serving model (at fp32 the
+        JAX service's digest of the same weights)."""
+        return self._swap.current.digest if self._swap is not None else None
+
+    @property
+    def metrics_port(self) -> Optional[int]:
+        """The port /healthz, /metrics and /trace answer on (None without
+        an endpoint)."""
+        srv = self._metrics_server
+        return srv.port if srv is not None else None
+
+    # -- lifecycle ----------------------------------------------------------
+
+    def start(self) -> "CompressionService":
+        if self._started:
+            return self
+        # the device first: without a card this raises in milliseconds
+        self.device = resolve_device(self.config.device)
+        self._si_enabled = bool(self.config.enable_si)
+        if self._si_enabled:
+            ph, pw = (int(v) for v in parse_config_file(
+                self.config.ae_config).y_patch_size)
+            bad = [b for b in self.policy.buckets
+                   if b[0] % ph or b[1] % pw]
+            if bad:
+                raise ValueError(
+                    f"enable_si needs every bucket edge divisible by "
+                    f"y_patch_size ({ph}, {pw}) — the siFinder patch "
+                    f"grid must tile the bucket exactly; offending "
+                    f"buckets: {bad}")
+            self._sessions = session_lib.SessionStore(
+                self.config.session_max, self.config.session_max_bytes,
+                self.config.session_ttl_s, metrics=self.metrics,
+                flight=self.flight)
+        model = loader_lib.load_model_state(
+            self.config.ae_config, self.config.pc_config, self.config.ckpt,
+            need_sinet=self._si_enabled, seed=self.config.seed,
+            device=self.device, precision=self.config.precision)
+        if self.device.type == "cuda":
+            # the weights reach the device on this thread's stream; every
+            # worker stream reads them
+            torch.cuda.synchronize(self.device)
+        digest = loader_lib.params_digest(
+            bridge.jax_from_state_dict(model.state_dict()),
+            rung=self.config.precision)
+        self._bn_channels = int(model.ae_config.num_chan_bn)
+        self._swap = swap_lib.SwapCoordinator(
+            swap_lib.ModelBundle(0, digest, DeviceServer.for_model(model),
+                                 loader_lib.make_codec(model),
+                                 ckpt=self.config.ckpt),
+            self.metrics)
+        ew = self.config.entropy_workers
+        if ew is None:
+            ew = max(1, min(4, (os.cpu_count() or 2) - 1))
+        self._entropy_workers = ew
+        if ew > 0:
+            self._entropy_pool = ThreadPoolExecutor(
+                max_workers=ew, thread_name_prefix="serve-entropy")
+        self.metrics.set_info("serve_entropy_backend", {
+            "backend": "thread", "entropy_workers": ew,
+            "pipeline_depth": self.config.pipeline_depth})
+        with self._workers_lock:
+            for i in range(self.config.workers):
+                self._workers.append(self._spawn_worker(i))
+                self._restarts.append(0)
+                self._restart_at.append(None)
+        self.metrics.gauge("serve_workers_live").set(self.config.workers)
+        self.metrics.gauge("serve_devices").set(1)
+        self._supervisor = threading.Thread(target=self._supervise_loop,
+                                            name="serve-supervisor",
+                                            daemon=True)
+        self._supervisor.start()
+        if self.config.metrics_port is not None:
+            self._metrics_server = metrics_lib.MetricsServer(
+                self.metrics, self.health,
+                port=self.config.metrics_port,
+                trace=self._trace_http).start()
+        self._started = True
+        return self
+
+    def _trace_http(self, params) -> object:
+        """The /trace endpoint body: the span ring (`?id=` filters one
+        trace, `?format=chrome` exports the Chrome/Perfetto event dict)
+        plus the flight recorder's ring and dump bookkeeping."""
+        if params.get("format") == "chrome":
+            return self.tracer.http_snapshot(params)
+        snap = self.tracer.http_snapshot(params)
+        snap["flight"] = self.flight.meta()
+        return snap
+
+    def warmup(self) -> dict:
+        """Run every (bucket, direction) once, and with SI a session prep
+        and an SI decode per bucket; prime the codec's schedules with one
+        entropy round trip per bucket; start the entropy pool threads (each
+        builds its codec clone), so the first request pays nothing. Returns
+        {"builds": native builds during warmup, "seconds": s}. After it,
+        serving builds nothing (`native_build.build_count()` holds), the
+        port's counterpart of the JAX service's zero-compile census."""
+        if not self._started:
+            raise RuntimeError("start() before warmup()")
+        t0 = time.monotonic()
+        before = native_build.build_count()
+        bundle = self._swap.current
+        server = bundle.server
+        sub = buckets_lib.SUBSAMPLING
+        n = self.config.max_batch
+        for bh, bw in self.policy.buckets:
+            symbols = server.encode_symbols(
+                np.zeros((n, bh, bw, 3), np.float32)).cpu().numpy()
+            sym = np.zeros((n, bh // sub, bw // sub, self._bn_channels),
+                           np.int32)
+            server.decode(sym)
+            if self._si_enabled:
+                prep = server.open_session(np.zeros((bh, bw, 3), np.float32))
+                server.decode_si(sym, prep)
+            # one per-image entropy round trip primes the incremental
+            # engine's schedule for this bucket's volume geometry
+            stream = bundle.codec.encode(np.transpose(symbols[0], (2, 0, 1)))
+            bundle.codec.decode(stream)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        if self._entropy_pool is not None:
+            # force every pool thread into existence and build its codec
+            # clone now (the barrier keeps the tasks on distinct threads)
+            barrier = threading.Barrier(self._entropy_workers)
+
+            def _prime():
+                barrier.wait(timeout=60)
+                self._thread_codec(bundle)
+
+            for f in [self._entropy_pool.submit(_prime)
+                      for _ in range(self._entropy_workers)]:
+                f.result(timeout=120)
+        builds = native_build.build_count() - before
+        self.metrics.gauge("serve_warmup_builds").set(builds)
+        self.metrics.gauge("serve_buckets").set(len(self.policy.buckets))
+        return {"builds": builds, "seconds": time.monotonic() - t0}
+
+    # -- what the port refuses ------------------------------------------------
+
+    def swap_model(self, ckpt_dir: str, canary: bool = True) -> dict:
+        raise _not_ported("swap_model", ROADMAP_SWAP)
+
+    def prepare_swap(self, ckpt_dir: str, canary: bool = True) -> dict:
+        raise _not_ported("prepare_swap", ROADMAP_SWAP)
+
+    def commit_swap(self, expect_digest: Optional[str] = None) -> dict:
+        raise _not_ported("commit_swap", ROADMAP_SWAP)
+
+    def abort_swap(self) -> dict:
+        raise _not_ported("abort_swap", ROADMAP_SWAP)
+
+    def rollback(self, expect_current: Optional[str] = None) -> dict:
+        raise _not_ported("rollback", ROADMAP_SWAP)
+
+    def rebalance_placement(self, weights=None) -> dict:
+        raise _not_ported("rebalance_placement", ROADMAP_DEVICES)
+
+    def run_canary(self) -> dict:
+        raise _not_ported("run_canary", ROADMAP_QUALITY)
+
+    def canary_goldens(self, staged: bool = False) -> dict:
+        raise _not_ported("canary_goldens", ROADMAP_QUALITY)
+
+    # -- drain ----------------------------------------------------------------
+
+    @property
+    def draining(self) -> bool:
+        return self._draining.is_set()
+
+    def initiate_drain(self) -> None:
+        """Non-blocking drain trigger — safe from a signal handler: flip
+        the flag, then close the queue from a FRESH thread (the handler may
+        interrupt the main thread while it holds the batcher's lock inside
+        submit(); closing inline there would self-deadlock).
+        `drain()`/`wait_drained()` does the blocking part."""
+        if self._draining.is_set():
+            return
+        self._draining.set()
+
+        def _close():
+            rejected = self._batcher.close()
+            self.metrics.counter("serve_rejected_drain").inc(rejected)
+
+        self._closer = threading.Thread(target=_close, name="serve-drain",
+                                        daemon=True)
+        self._closer.start()
+
+    def wait_drained(self, timeout: Optional[float] = 30.0) -> bool:
+        if self._closer is not None:
+            self._closer.join(timeout)
+        if self._supervisor is not None:
+            # the supervisor exits once draining is set; join it first so
+            # no restart races the worker joins below
+            self._supervisor.join(timeout)
+        with self._workers_lock:
+            workers = list(self._workers)
+        for t in workers:
+            t.join(timeout)
+        alive = any(t.is_alive() for t in workers)
+        if not alive:
+            if self._entropy_pool is not None:
+                # workers flushed their pipelines before exiting, so the
+                # pool is idle; shutdown is immediate (and idempotent)
+                self._entropy_pool.shutdown(wait=True)
+            if self._sessions is not None:
+                # drained services hold no device-resident preps
+                self._sessions.clear("drain")
+            if self._metrics_server is not None:
+                self._metrics_server.stop()
+                self._metrics_server = None
+            # stop the flight-dump thread AFTER the pipeline flushed:
+            # typed errors raised by the drain itself still dump
+            self.flight.flush(timeout=5.0)
+            self.flight.close()
+        return not alive
+
+    def drain(self, timeout: Optional[float] = 30.0) -> bool:
+        """Graceful shutdown: returns True when every worker exited."""
+        self.initiate_drain()
+        return self.wait_drained(timeout)
+
+    def install_signal_handlers(self) -> bool:
+        """SIGINT/SIGTERM -> initiate_drain (main thread only)."""
+        from dsin_tpu_torch.utils.signals import install_drain_handlers
+        return install_drain_handlers(self.initiate_drain)
+
+    def __enter__(self) -> "CompressionService":
+        return self.start()
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        self.drain()
+
+    # -- request intake -----------------------------------------------------
+
+    @property
+    def live_workers(self) -> int:
+        with self._workers_lock:
+            return sum(t.is_alive() for t in self._workers)
+
+    def health(self) -> dict:
+        live = self.live_workers
+        configured = self.config.workers if self._started else 0
+        if self.draining:
+            status = "draining"
+        elif live == 0:
+            status = "unhealthy"       # /healthz answers 503
+        elif live < configured:
+            status = "degraded"        # still serving; pool being healed
+        else:
+            status = "ok"
+        return {"status": status,
+                "queue_depth": self._batcher.depth,
+                "buckets": [list(b) for b in self.policy.buckets],
+                "devices": 1,
+                "device": str(self.device),
+                "workers_live": live,
+                "workers_configured": configured,
+                "worker_restarts":
+                    self.metrics.counter("serve_worker_restarts").value,
+                "model": (self._swap.snapshot()
+                          if self._swap is not None else {}),
+                **({"sessions": {"live": self._sessions.live,
+                                 "bytes": self._sessions.bytes_used}}
+                   if self._sessions is not None else {})}
+
+    def _deadline(self, deadline_ms: Optional[float]) -> Optional[float]:
+        return (None if deadline_ms is None
+                else time.monotonic() + deadline_ms / 1000.0)
+
+    def _note_expired(self, n: int, by_class) -> None:
+        """Batcher on_expired hook (runs under the batcher lock —
+        metrics only): total + per-class deadline counters."""
+        self.metrics.counter("serve_rejected_deadline").inc(n)
+        for cls, k in by_class.items():
+            self.metrics.counter(f"serve_expired_{cls}").inc(k)
+
+    def _submit(self, request: Request) -> Future:
+        # admission is where a request's TraceContext is minted
+        request.trace = request.future.trace = self.tracer.mint()
+        # the drain flag flips before the queue actually closes (the
+        # close runs on the serve-drain thread) — refuse here too so no
+        # request slips into that window
+        if self._draining.is_set():
+            self.metrics.counter("serve_rejected_drain").inc()
+            self.flight.record("shed", reason="draining")
+            raise ServiceDraining("service is draining; not accepting "
+                                  "new requests")
+        if self._started and self.live_workers == 0:
+            # nothing would drain the queue: fail fast and let the client
+            # retry elsewhere while the supervisor heals the pool
+            self.metrics.counter("serve_rejected_unavailable").inc()
+            self.flight.record("shed", reason="no_workers")
+            raise ServiceUnavailable(
+                "no live workers (pool is restarting); retry shortly")
+        try:
+            self._batcher.submit(request)
+        except ServiceDraining:
+            self.metrics.counter("serve_rejected_drain").inc()
+            self.flight.record("shed", reason="draining")
+            raise
+        except Exception:
+            self.metrics.counter("serve_rejected_overload").inc()
+            self.flight.record("shed", reason="queue_full")
+            raise
+        # typed-error visibility: ANY typed resolution counts, tags the
+        # trace and triggers a flight dump (an already-resolved future
+        # fires the callback immediately)
+        request.future.add_done_callback(self._note_resolution)
+        self.flight.record("admit", key=str(request.key))
+        # counted only once ACCEPTED: submitted - completed bounds the
+        # queued+in-flight backlog
+        self.metrics.counter("serve_submitted").inc()
+        self.metrics.gauge("serve_queue_depth").set(self._batcher.depth)
+        return request.future
+
+    def _note_resolution(self, fut: Future) -> None:
+        """Done-callback on every accepted request: a TYPED error (the
+        ServeError/ValueError/InjectedFault families — IntegrityError and
+        SessionExpired are subclasses) counts into `serve_typed_errors`,
+        records the always-on error span and triggers a flight dump. May
+        run under the batcher condition, so nothing here blocks."""
+        exc = fut.exception(timeout=0)
+        self.metrics.counter("serve_resolved").inc()
+        if exc is None or not isinstance(
+                exc, (ServeError, ValueError, faults.InjectedFault)):
+            return
+        self.metrics.counter("serve_typed_errors").inc()
+        ctx = getattr(fut, "trace", None)
+        self.tracer.error(ctx, exc)
+        self.flight.note_error(
+            exc, trace_id=ctx.trace_id if ctx is not None else None)
+
+    def submit_encode(self, img: np.ndarray,
+                      deadline_ms: Optional[float] = None) -> Future:
+        """(h, w, 3) uint8/float image -> Future[EncodeResult]. Raises
+        ServiceOverloaded/ServiceDraining/NoBucketFits at the door."""
+        img = np.asarray(img)
+        if img.ndim != 3 or img.shape[-1] != 3:
+            raise ValueError(f"expected (h, w, 3) image, got {img.shape}")
+        h, w = img.shape[:2]
+        bucket = self.policy.bucket_for(h, w)
+        padded = buckets_lib.pad_to_bucket(
+            img.astype(np.float32, copy=False), bucket)
+        return self._submit(Request(
+            key=(ENCODE, bucket), payload=(padded, (h, w)),
+            deadline=self._deadline(deadline_ms)))
+
+    def _stream_bucket(self, blob: bytes):
+        payload, shape, bucket = parse_stream(blob)
+        if bucket not in self.policy.buckets:
+            raise buckets_lib.NoBucketFits(
+                f"stream was encoded for bucket {bucket}, which this "
+                f"service does not serve (buckets: "
+                f"{list(self.policy.buckets)})")
+        return payload, shape, bucket
+
+    def submit_decode(self, blob: bytes,
+                      deadline_ms: Optional[float] = None) -> Future:
+        """Framed DSRV stream -> Future[(h, w, 3) uint8 image]. A v2
+        frame failing its CRC raises IntegrityError here, at the door."""
+        payload, shape, bucket = self._stream_bucket(blob)
+        # the payload's own CRC rides along so the worker re-verifies
+        # right before the entropy decode — catches corruption that
+        # happens AFTER admission (the serve.rans fault site's scenario)
+        return self._submit(Request(
+            key=(DECODE, bucket), payload=(payload, shape,
+                                           frame_crc(payload)),
+            deadline=self._deadline(deadline_ms)))
+
+    # -- side-information sessions --------------------------------------------
+
+    def _require_si(self) -> session_lib.SessionStore:
+        if not self._si_enabled:
+            raise session_lib.SessionError(
+                "this service was started without enable_si — it has no "
+                "session dataplane (set ServiceConfig.enable_si=True)")
+        return self._sessions
+
+    def open_session(self, side_img: np.ndarray,
+                     session_id: Optional[str] = None) -> str:
+        """Register a side image y; returns the session id. The whole
+        request-invariant half of the search, paid once: pad y onto its
+        bucket, build the SidePrep on this thread's stream, wait for it,
+        and park it in the LRU/TTL store."""
+        sessions = self._require_si()
+        if not self._started:
+            raise RuntimeError("start() before open_session()")
+        if self._draining.is_set():
+            self.metrics.counter("serve_rejected_drain").inc()
+            raise ServiceDraining("service is draining; not accepting "
+                                  "new sessions")
+        img = np.asarray(side_img)
+        if img.ndim != 3 or img.shape[-1] != 3:
+            raise ValueError(f"expected (h, w, 3) side image, "
+                             f"got {img.shape}")
+        h, w = img.shape[:2]
+        bucket = self.policy.bucket_for(h, w)
+        padded = buckets_lib.pad_to_bucket(
+            img.astype(np.float32, copy=False), bucket)
+        bundle = self._swap.current
+        t0 = time.monotonic()
+        prep = bundle.server.open_session(padded)
+        if self.device.type == "cuda":
+            # the prep is complete before any worker stream may read it
+            done = torch.cuda.Event()
+            done.record()
+            done.synchronize()
+        self.metrics.histogram("serve_si_prep_ms").observe(
+            (time.monotonic() - t0) * 1e3)
+        sid = session_id if session_id is not None \
+            else sessions.next_sid()
+        sessions.put(session_lib.SessionEntry(
+            sid=sid, prep=prep, bucket=bucket, nbytes=_prep_nbytes(prep),
+            digest=bundle.digest))
+        self.metrics.counter("serve_sessions_opened").inc()
+        return sid
+
+    def close_session(self, session_id: str) -> bool:
+        """Free a session's prep; False if it was already gone."""
+        return self._require_si().evict(session_id, "closed")
+
+    def submit_decode_si(self, blob: bytes, session_id: str,
+                         deadline_ms: Optional[float] = None) -> Future:
+        """Framed DSRV stream + open session -> Future[(h, w, 3) uint8
+        SI-fused reconstruction]. A gone session raises typed
+        `SessionExpired` here; one that expires between admission and
+        batch start fails the batch's futures with the same type. The
+        stream must route to the session's bucket."""
+        sessions = self._require_si()
+        payload, shape, bucket = self._stream_bucket(blob)
+        entry = sessions.get(session_id)
+        if entry.bucket != bucket:
+            raise session_lib.SessionError(
+                f"stream bucket {bucket} does not match session "
+                f"{session_id!r} (opened at {entry.bucket}) — the SI "
+                f"search needs x and y at one geometry; open a session "
+                f"with a side image of the request's bucket")
+        return self._submit(Request(
+            key=(DECODE_SI, bucket), payload=(payload, shape,
+                                              frame_crc(payload)),
+            deadline=self._deadline(deadline_ms), session=session_id))
+
+    def decode_si(self, blob: bytes, session_id: str,
+                  deadline_ms: Optional[float] = None,
+                  timeout: Optional[float] = 60.0) -> np.ndarray:
+        return self.submit_decode_si(blob, session_id,
+                                     deadline_ms).result(timeout)
+
+    def _resolve_session(self, batch) -> session_lib.SessionEntry:
+        """Batch-start session lookup (worker side): the entry captured
+        HERE is what the device stage reads — immutable, so a concurrent
+        eviction cannot tear the search. A session that outlived its slot
+        (LRU/TTL) fails the whole batch typed. (Without a hot swap every
+        entry was built against the one bundle; the JAX service also
+        checks the entry's digest against the batch's bundle here.)"""
+        t0 = time.monotonic()
+        entry = self._sessions.get(batch[0].session)
+        self.tracer.span_batch(batch, trace_lib.SPAN_SESSION, t0,
+                               time.monotonic(),
+                               session=batch[0].session)
+        return entry
+
+    def encode(self, img: np.ndarray, deadline_ms: Optional[float] = None,
+               timeout: Optional[float] = 60.0) -> EncodeResult:
+        return self.submit_encode(img, deadline_ms).result(timeout)
+
+    def decode(self, blob: bytes, deadline_ms: Optional[float] = None,
+               timeout: Optional[float] = 60.0) -> np.ndarray:
+        return self.submit_decode(blob, deadline_ms).result(timeout)
+
+    # -- worker side --------------------------------------------------------
+
+    def _spawn_worker(self, slot: int) -> threading.Thread:
+        t = threading.Thread(target=self._worker_main, args=(slot,),
+                             name=f"serve-worker-{slot}", daemon=True)
+        t.start()
+        return t
+
+    def _worker_main(self, slot: int) -> None:
+        """Thread target: enter this thread's inference mode and CUDA
+        stream (both are per-thread state), run the loop, and record a
+        fatal exit for the supervisor."""
+        try:
+            with contextlib.ExitStack() as stack:
+                stack.enter_context(torch.inference_mode())
+                if self.device.type == "cuda":
+                    stack.enter_context(torch.cuda.device(self.device))
+                    stack.enter_context(torch.cuda.stream(
+                        torch.cuda.Stream(self.device)))
+                self._worker_loop()
+        except BaseException as e:  # noqa: BLE001 — supervisor's evidence
+            with self._workers_lock:
+                self._worker_exits[slot] = e
+            self.metrics.counter("serve_worker_crashes").inc()
+
+    def _worker_loop(self) -> None:
+        inflight: deque = deque()
+        depth = max(1, int(self.config.pipeline_depth)) \
+            if self._entropy_pool is not None else 1
+        gauge = self.metrics.gauge("serve_pipeline_inflight")
+        try:
+            while True:
+                # with work in flight, poll instead of blocking: an empty
+                # queue means it is time to finish the oldest batch
+                batch = self._batcher.next_batch(
+                    timeout=0.0 if inflight else 0.25)
+                if batch is None:
+                    return        # closed and empty: finally flushes
+                if not batch:
+                    if inflight:
+                        self._finish_oldest(inflight, gauge)
+                    continue
+                t_start = time.monotonic()
+                try:
+                    rec = self._start_batch(batch)
+                except BaseException as e:  # noqa: BLE001 — answer callers
+                    for r in batch:
+                        if not r.future.done():
+                            r.future.set_exception(e)
+                    if not isinstance(e, Exception):
+                        # InjectedCrash-class conditions kill this thread
+                        # so the supervisor sees the death
+                        raise
+                    continue
+                if rec is not None:
+                    self._busy_ms.add((time.monotonic() - t_start) * 1e3)
+                    inflight.append(rec)
+                    gauge.set(len(inflight))
+                while len(inflight) >= depth:
+                    self._finish_oldest(inflight, gauge)
+        finally:
+            # no hung futures: whether this thread exits a drain or dies
+            # between a batch's device launch and its entropy completion,
+            # every in-flight record is completed or failed first
+            while inflight:
+                self._finish_oldest(inflight, gauge, swallow=True)
+            gauge.set(0)
+
+    def _finish_oldest(self, inflight: deque, gauge,
+                       swallow: bool = False) -> None:
+        rec = inflight.popleft()
+        gauge.set(len(inflight))
+        try:
+            self._finish_batch(rec)
+        except BaseException as e:  # noqa: BLE001 — must answer callers
+            for r in rec.batch:
+                if not r.future.done():
+                    r.future.set_exception(e)
+            if not isinstance(e, Exception) and not swallow:
+                raise
+
+    # -- supervision --------------------------------------------------------
+
+    def _supervise_loop(self) -> None:
+        """Restart dead workers with capped exponential backoff. Exits
+        when the drain flag flips (dead workers stay dead during drain)."""
+        while not self._draining.is_set():
+            now = time.monotonic()
+            live = 0
+            with self._workers_lock:
+                for i, t in enumerate(self._workers):
+                    if t.is_alive():
+                        live += 1
+                        continue
+                    if self._restart_at[i] is None:
+                        # first observation of this death: schedule the
+                        # restart after the slot's backoff, dump the ring
+                        self._restart_at[i] = now + self._restart_policy \
+                            .delay(self._restarts[i])
+                        self.flight.note_death(
+                            "worker_death", slot=i,
+                            error=type(self._worker_exits.get(i)).__name__
+                            if self._worker_exits.get(i) else None)
+                    elif now >= self._restart_at[i]:
+                        self._restarts[i] += 1
+                        self._restart_at[i] = None
+                        self._workers[i] = self._spawn_worker(i)
+                        self.metrics.counter("serve_worker_restarts").inc()
+                        self.flight.record("worker_restart", slot=i,
+                                           restarts=self._restarts[i])
+                        live += 1
+            self.metrics.gauge("serve_workers_live").set(live)
+            self._draining.wait(self.config.supervise_every_s)
+        self.metrics.gauge("serve_workers_live").set(self.live_workers)
+
+    @property
+    def _busy_ms(self) -> metrics_lib.Accumulator:
+        """Wall time workers actually spent on batches (assemble +
+        launch + finish); the busy input of serve_overlap_ratio."""
+        return self.metrics.accumulator("serve_busy_ms_total")
+
+    def _thread_codec(self, bundle: swap_lib.ModelBundle):
+        """Entropy-stage codec for the CURRENT pool thread: its own clone
+        of the bundle's codec (per-pass buffers stay thread-private; the
+        clone shares the bundle codec's lock-guarded schedule cache). One
+        bundle serves for the service's life, so one clone per thread."""
+        codec = getattr(self._codec_local, "codec", None)
+        if codec is None:
+            codec = self._codec_local.codec = bundle.codec.thread_clone()
+        return codec
+
+    def _device_encode(self, bundle, x: np.ndarray):
+        """Launch the batched encode on this thread's stream -> (pinned
+        host symbols, event or None)."""
+        symbols = bundle.server.encode_symbols(_to_device(x, self.device))
+        return _to_host(symbols)
+
+    def _device_decode(self, bundle, sym: np.ndarray, si_entry):
+        """The batched decode (the SI decode against `si_entry`'s prep) on
+        this thread's stream -> host images (N, H, W, 3) float32, waited
+        for."""
+        sym_dev = _to_device(sym, self.device)
+        if si_entry is not None:
+            imgs = bundle.server.decode_si(sym_dev, si_entry.prep)
+        else:
+            imgs = bundle.server.decode(sym_dev)
+        return _host_array(*_to_host(imgs))
+
+    def _start_batch(self, batch) -> Optional[_Inflight]:
+        """Stage 1, on the worker thread. Serialized mode
+        (entropy_workers=0) runs the whole batch here and returns None;
+        pipelined mode launches the device stage / hands the entropy work
+        to the pool and returns the in-flight record for _finish_batch."""
+        faults.inject("serve.worker.batch")
+        if self._batch_hook is not None:
+            self._batch_hook(batch)
+        kind, bucket = batch[0].key
+        # ONE bundle read per batch: every stage below reads this capture
+        bundle = self._swap.current
+        t0 = time.monotonic()
+        # batch formation is where queue wait ENDS
+        if self.tracer.enabled:
+            for r in batch:
+                ctx = r.trace
+                if ctx is not None and ctx.sampled:
+                    self.tracer.record(trace_lib.SPAN_QUEUE, r.arrival,
+                                       t0, [ctx.trace_id])
+        self.flight.record("batch_seal", op=kind, bucket=list(bucket),
+                           size=len(batch))
+        self.metrics.gauge("serve_queue_depth").set(self._batcher.depth)
+        self.metrics.histogram("serve_batch_occupancy").observe(
+            len(batch) / self.config.max_batch)
+        if self._entropy_pool is None:
+            if kind == ENCODE:
+                device_ms, entropy_ms = self._run_encode(batch, bucket,
+                                                         bundle)
+            else:
+                device_ms, entropy_ms = self._run_decode(
+                    batch, bucket, bundle, si=(kind == DECODE_SI))
+            self._busy_ms.add((time.monotonic() - t0) * 1e3)
+            self._note_batch_done(batch, t0, device_ms, entropy_ms,
+                                  observe_latency=True)
+            return None
+        rec = _Inflight(kind, batch, bucket, t0, bundle)
+        if kind == ENCODE:
+            x = self._gather_images(batch, bucket)
+            t_launch = time.monotonic()
+            rec.handle = _DeviceBatch(*self._device_encode(bundle, x),
+                                      t_launch)
+        else:
+            if kind == DECODE_SI:
+                # resolve the session BEFORE any entropy work is queued:
+                # a gone session fails the batch typed here
+                rec.si_entry = self._resolve_session(batch)
+            rec.sym = self._empty_symbols(bucket)
+        # ONE pool task per micro-batch: per-request isolation lives
+        # INSIDE the task
+        rec.tasks = [self._entropy_pool.submit(self._entropy_batch_task,
+                                               rec)]
+        return rec
+
+    def _gather_images(self, batch, bucket) -> np.ndarray:
+        """The padded (max_batch, bh, bw, 3) encode batch: requests in
+        order, zero lanes after them."""
+        bh, bw = bucket
+        x = np.zeros((self.config.max_batch, bh, bw, 3), np.float32)
+        for i, r in enumerate(batch):
+            x[i] = r.payload[0]
+        return x
+
+    def _empty_symbols(self, bucket) -> np.ndarray:
+        bh, bw = bucket
+        sub = buckets_lib.SUBSAMPLING
+        return np.zeros((self.config.max_batch, bh // sub, bw // sub,
+                         self._bn_channels), np.int32)
+
+    def _item_failed(self, rec: _Inflight, i: int, req,
+                     e: BaseException) -> None:
+        """Record + answer one request's entropy-stage failure (an
+        IntegrityError lands on that request's future only; a
+        non-`Exception` crash is recorded for _finish_batch to re-raise on
+        the worker thread)."""
+        rec.per_item_exc[i] = e
+        if not req.future.done():
+            req.future.set_exception(e)
+            self._observe_latency(req)
+        if isinstance(e, IntegrityError):
+            self.metrics.counter("serve_integrity_errors").inc()
+        if not isinstance(e, Exception):
+            rec.crash = e
+
+    def _encode_results(self, batch, bucket, bundle, payloads, fail) -> None:
+        """Frame each lane's payload and resolve its future; a lane's
+        coding error goes to `fail(i, req, exc)` only."""
+        for i, req in enumerate(batch):
+            payload, exc = payloads[i]
+            if exc is not None:
+                fail(i, req, exc)
+                continue
+            h, w = req.payload[1]
+            req.future.set_result(EncodeResult(
+                stream=frame_stream(payload, (h, w), bucket),
+                payload_bytes=len(payload),
+                bpp=len(payload) * 8.0 / (h * w),
+                shape=(h, w), bucket=bucket,
+                model_digest=bundle.digest))
+
+    def _decode_batch_lanes(self, batch, sym, codec, fail) -> None:
+        """One micro-batch's decode-side entropy work under the
+        per-request fault contract, shared by the pipelined task and the
+        serialized path: the `serve.rans` fault site + payload-CRC
+        re-verify run per lane, the decode isolates structural errors per
+        lane, and the sym write itself is guarded per lane — a CRC-valid
+        stream whose DTPC header lies about the bucket geometry fails only
+        ITS request. `fail(i, req, exc)` records one lane's failure."""
+        good, payloads = [], []
+        for i, req in enumerate(batch):
+            try:
+                data = faults.corrupt("serve.rans", req.payload[0])
+                verify_crc(req.payload[2], "DSRV payload (worker)", data)
+            except BaseException as e:  # noqa: BLE001 — isolate lanes
+                fail(i, req, e)
+            else:
+                good.append(i)
+                payloads.append(data)
+        if not good:
+            return
+        for i, (vol, exc) in zip(
+                good, loader_lib.decode_batch_isolated(codec, payloads)):
+            if exc is None:
+                # EXPLICIT shape check: numpy would BROADCAST a compatible
+                # wrong geometry into the slot
+                h, w, c = sym[i].shape          # want vol = (C, h, w)
+                if tuple(vol.shape) == (c, h, w):
+                    sym[i] = np.transpose(vol, (1, 2, 0))
+                    continue
+                exc = ValueError(
+                    f"decoded volume {tuple(vol.shape)} does not fit "
+                    f"the bucket slot {sym[i].shape}")
+            fail(i, batch[i], exc)
+
+    def _entropy_batch_task(self, rec: _Inflight) -> tuple:
+        """Stage 2, ONE entropy-pool task per micro-batch. Encode futures
+        resolve here the moment their frame is built. Never raises: a
+        non-`Exception` (InjectedCrash class) is recorded on the record and
+        re-raised by _finish_batch on the worker thread. Returns the
+        (start, end) entropy span."""
+        te0 = te1 = None
+        fail = lambda i, req, e: self._item_failed(rec, i, req, e)  # noqa: E731
+        try:
+            codec = self._thread_codec(rec.bundle)
+            if rec.kind == ENCODE:
+                symbols = rec.handle.host()   # waits on this batch's copy
+                self.tracer.span_batch(
+                    rec.batch, trace_lib.SPAN_DEVICE,
+                    rec.handle.dispatched, rec.handle.transfer_done,
+                    kind=rec.kind, bucket=list(rec.bucket))
+                te0 = time.monotonic()
+                vols = [np.transpose(symbols[i], (2, 0, 1))
+                        for i in range(len(rec.batch))]
+                payloads = loader_lib.encode_batch_isolated(codec, vols)
+                te1 = time.monotonic()
+                self._encode_results(rec.batch, rec.bucket, rec.bundle,
+                                     payloads, fail)
+                for i, req in enumerate(rec.batch):
+                    if i not in rec.per_item_exc:
+                        self._observe_latency(req)
+            else:
+                te0 = time.monotonic()
+                self._decode_batch_lanes(rec.batch, rec.sym, codec, fail)
+                te1 = time.monotonic()
+        except BaseException as e:  # noqa: BLE001 — answer every caller
+            for i, req in enumerate(rec.batch):
+                if i not in rec.per_item_exc and not req.future.done():
+                    self._item_failed(rec, i, req, e)
+            if not isinstance(e, Exception):
+                rec.crash = e
+        if te0 is not None and te1 is not None:
+            self.metrics.histogram("serve_entropy_batch_ms").observe(
+                (te1 - te0) * 1e3)
+            self.tracer.span_batch(rec.batch, trace_lib.SPAN_ENTROPY,
+                                   te0, te1, kind=rec.kind,
+                                   backend="thread")
+        return (te0, te1)
+
+    def _finish_batch(self, rec: _Inflight) -> None:
+        """Stage 3, back on the worker thread: wait for the record's
+        entropy tasks, run the decode device stage, publish the batch
+        metrics, then surface a recorded crash."""
+        tf0 = time.monotonic()
+        spans = [t.result() for t in rec.tasks]   # tasks never raise
+        device_ms = 0.0
+        if rec.kind == ENCODE:
+            device_ms = rec.handle.device_ms
+        elif len(rec.per_item_exc) == len(rec.batch):
+            # every item already failed (CRC/decode): skip the device call
+            self.metrics.counter("serve_device_skipped_batches").inc()
+        else:
+            t_dev = time.monotonic()
+            imgs = self._device_decode(rec.bundle, rec.sym, rec.si_entry)
+            t_dev_end = time.monotonic()
+            device_ms = (t_dev_end - t_dev) * 1e3
+            self._note_device_span(rec.batch, rec.kind, rec.bucket, t_dev,
+                                   t_dev_end)
+            for i, r in enumerate(rec.batch):
+                if i in rec.per_item_exc:
+                    continue       # its future already holds the error
+                h, w = r.payload[1]
+                r.future.set_result(
+                    buckets_lib.crop_from_bucket(imgs[i], (h, w))
+                    .astype(np.uint8))
+                self._observe_latency(r)
+        starts = [s[0] for s in spans if s[0] is not None]
+        ends = [s[1] for s in spans if s[1] is not None]
+        entropy_ms = (max(ends) - min(starts)) * 1e3 \
+            if starts and ends else 0.0
+        self._busy_ms.add((time.monotonic() - tf0) * 1e3)
+        self._note_batch_done(rec.batch, rec.t0, device_ms, entropy_ms)
+        if rec.crash is not None:
+            raise rec.crash
+
+    def _note_device_span(self, batch, kind, bucket, t0, t1) -> None:
+        self.tracer.span_batch(batch, trace_lib.SPAN_DEVICE, t0, t1,
+                               kind=kind, bucket=list(bucket))
+        if kind == DECODE_SI:
+            # the SI device stage IS the decode -> search -> siNet path
+            self.metrics.histogram("serve_si_search_ms").observe(
+                (t1 - t0) * 1e3)
+            self.tracer.span_batch(batch, trace_lib.SPAN_SI_SEARCH, t0, t1,
+                                   session=batch[0].session)
+
+    def _observe_latency(self, req) -> None:
+        """Arrival -> future-RESOLUTION latency, recorded the moment the
+        request's future is set."""
+        self.metrics.histogram("serve_latency_ms").observe(
+            (time.monotonic() - req.arrival) * 1e3)
+
+    def _note_batch_done(self, batch, t0, device_ms, entropy_ms,
+                         observe_latency: bool = False) -> None:
+        now = time.monotonic()
+        if observe_latency:
+            # serialized path: futures resolved moments ago in _run_*
+            for r in batch:
+                self._observe_latency(r)
+        kind, bucket = batch[0].key
+        self.metrics.counter(
+            f"serve_bucket_requests_{bucket[0]}x{bucket[1]}").inc(len(batch))
+        self.metrics.counter("serve_device_batches_d0").inc()
+        self.metrics.counter("serve_batches").inc()
+        self.metrics.counter("serve_completed").inc(len(batch))
+        self.metrics.histogram("serve_batch_ms").observe((now - t0) * 1e3)
+        for name, ms in (("serve_device_ms", device_ms),
+                         ("serve_entropy_ms", entropy_ms)):
+            self.metrics.histogram(name).observe(ms)
+            self.metrics.histogram(f"{name}_{kind}").observe(ms)
+            self.metrics.accumulator(f"{name}_total").add(ms)
+        self.metrics.gauge("serve_native_builds").set(
+            native_build.build_count())
+        self._update_overlap_gauge()
+
+    def _update_overlap_gauge(self) -> None:
+        """serve_overlap_ratio = 1 - busy/(device+entropy): 0 when the
+        stages run strictly serialized on the worker, approaching
+        1 - max/sum as the pipeline hides one stage behind the other.
+        Clamped at 0."""
+        dev = self.metrics.accumulator("serve_device_ms_total").value
+        ent = self.metrics.accumulator("serve_entropy_ms_total").value
+        busy = self._busy_ms.value
+        if dev + ent > 0:
+            self.metrics.gauge("serve_overlap_ratio").set(
+                max(0.0, 1.0 - busy / (dev + ent)))
+
+    def _run_encode(self, batch, bucket, bundle) -> Tuple[float, float]:
+        """Serialized encode (entropy_workers=0): device then entropy,
+        inline on the worker thread. Returns (device_ms, entropy_ms)."""
+        x = self._gather_images(batch, bucket)
+        t_dev = time.monotonic()
+        symbols = _host_array(*self._device_encode(bundle, x))
+        t_ent = time.monotonic()
+        vols = [np.transpose(symbols[i], (2, 0, 1))
+                for i in range(len(batch))]
+        payloads = loader_lib.encode_batch_isolated(bundle.codec, vols)
+        self._encode_results(batch, bucket, bundle, payloads,
+                             lambda i, r, e: r.future.set_exception(e))
+        t_done = time.monotonic()
+        self.tracer.span_batch(batch, trace_lib.SPAN_DEVICE, t_dev,
+                               t_ent, kind=ENCODE, bucket=list(bucket))
+        self.tracer.span_batch(batch, trace_lib.SPAN_ENTROPY, t_ent,
+                               t_done, kind=ENCODE, backend="inline")
+        return ((t_ent - t_dev) * 1e3, (t_done - t_ent) * 1e3)
+
+    def _run_decode(self, batch, bucket, bundle,
+                    si: bool = False) -> Tuple[float, float]:
+        """Serialized decode (entropy_workers=0): entropy then device,
+        inline on the worker thread. Returns (device_ms, entropy_ms).
+        With `si` the session is resolved FIRST — a gone session fails the
+        batch typed before any entropy work."""
+        si_entry = self._resolve_session(batch) if si else None
+        sym = self._empty_symbols(bucket)
+        per_item_exc = {}
+        t_ent = time.monotonic()
+
+        def _fail(i, r, e):
+            if not isinstance(e, Exception):
+                raise e   # worker-killing injected crash
+            per_item_exc[i] = e
+            if isinstance(e, IntegrityError):
+                self.metrics.counter("serve_integrity_errors").inc()
+
+        self._decode_batch_lanes(batch, sym, bundle.codec, _fail)
+        t_ent_end = time.monotonic()
+        entropy_ms = (t_ent_end - t_ent) * 1e3
+        self.tracer.span_batch(batch, trace_lib.SPAN_ENTROPY, t_ent,
+                               t_ent_end, kind=batch[0].key[0],
+                               backend="inline")
+        if len(per_item_exc) == len(batch):
+            for i, r in enumerate(batch):
+                r.future.set_exception(per_item_exc[i])
+            self.metrics.counter("serve_device_skipped_batches").inc()
+            return (0.0, entropy_ms)
+        t_dev = time.monotonic()
+        imgs = self._device_decode(bundle, sym, si_entry)
+        t_dev_end = time.monotonic()
+        self._note_device_span(batch, batch[0].key[0], bucket, t_dev,
+                               t_dev_end)
+        for i, r in enumerate(batch):
+            if i in per_item_exc:
+                r.future.set_exception(per_item_exc[i])
+                continue
+            h, w = r.payload[1]
+            r.future.set_result(
+                buckets_lib.crop_from_bucket(imgs[i], (h, w))
+                .astype(np.uint8))
+        return ((t_dev_end - t_dev) * 1e3, entropy_ms)

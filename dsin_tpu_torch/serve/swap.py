@@ -1,0 +1,68 @@
+"""The model a batch reads, as one value (the part of the JAX package's
+`serve/swap.py` that the dataplane reads: `ModelBundle` and the `current`
+slot of `SwapCoordinator`).
+
+"The model" is several coupled things the dataplane reads at different
+moments: the device weights of the batched device functions, the codec's
+context-model weights on the host, and the per-thread codec clones of the
+entropy pool. A `ModelBundle` holds them all; a worker captures ONE bundle
+at batch start and threads it through every stage of that batch, so the
+device stage and the entropy stage always read the same model.
+
+The hot swap itself (staging, commit, rollback, the previous bundle kept
+warm) is not ported: `SwapCoordinator` holds `current` only. It still
+publishes the `serve_swap_state` gauge (0, idle) and the
+`serve_model_digest` info entry every scrape carries.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Any, Dict, Optional
+
+#: serve_swap_state gauge value (the only state without the hot swap)
+SWAP_IDLE = 0
+
+
+class ModelBundle:
+    """One model version, whole: the `DeviceServer` (weights on the
+    device), the host codec, the digest that names them (the JAX package's
+    `params_digest`) and the checkpoint they came from. Immutable."""
+
+    __slots__ = ("epoch", "digest", "ckpt", "server", "codec")
+
+    def __init__(self, epoch: int, digest: str, server, codec, *,
+                 ckpt: Optional[str] = None):
+        self.epoch = int(epoch)
+        self.digest = digest
+        self.ckpt = ckpt
+        self.server = server
+        self.codec = codec
+
+    def __repr__(self) -> str:
+        return (f"ModelBundle(epoch={self.epoch}, digest={self.digest!r}, "
+                f"ckpt={self.ckpt!r})")
+
+
+class SwapCoordinator:
+    """The `current` bundle slot under a lock, read once per batch."""
+
+    def __init__(self, current: ModelBundle, metrics):
+        self._lock = threading.Lock()
+        self._current = current            # guarded-by: self._lock
+        self.metrics = metrics
+        snap = self.snapshot()
+        self.metrics.gauge("serve_swap_state").set(snap["swap_state"])
+        self.metrics.set_info("serve_model_digest", snap)
+
+    @property
+    def current(self) -> ModelBundle:
+        with self._lock:
+            return self._current
+
+    def snapshot(self) -> Dict[str, Any]:
+        with self._lock:
+            cur = self._current
+        return {"digest": cur.digest, "epoch": cur.epoch, "ckpt": cur.ckpt,
+                "prev_digest": None, "staged_digest": None,
+                "swap_state": SWAP_IDLE}

@@ -21,6 +21,7 @@ from dsin_tpu_torch.models.dsin import build_model
 from dsin_tpu_torch.ops import sifinder as sifinder_lib
 from dsin_tpu_torch.ops import sifinder_kernel as sk
 from dsin_tpu_torch.serve.device import DeviceServer
+from dsin_tpu_torch.serve.service import CompressionService, ServiceConfig
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PACKAGE = os.path.join(REPO, "dsin_tpu_torch")
@@ -66,7 +67,10 @@ def test_importing_the_port_loads_no_jax():
             "ops.msssim", "data.png", "data.manifest", "data.loader",
             "data.synthetic", "eval.msssim_np", "eval.reporting",
             "ops.color", "ops.sifinder", "serve.device",
-            "tools.cityscapes_chip")} <= loaded, \
+            "tools.cityscapes_chip", "serve.service", "serve.batcher",
+            "serve.buckets", "serve.metrics", "serve.trace",
+            "serve.session", "serve.swap", "utils.retry",
+            "utils.faults")} <= loaded, \
         proc.stdout
 
 
@@ -121,7 +125,8 @@ def test_bundled_configs_are_copies(name):
         assert f.read() == expected
 
 
-@pytest.mark.parametrize("make", ["build_model", "server", "entry"])
+@pytest.mark.parametrize("make", ["build_model", "server", "entry",
+                                  "service"])
 def test_entry_points_raise_without_a_card(make, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     ae, pc = entry_lib.tiny_configs()
@@ -130,6 +135,10 @@ def test_entry_points_raise_without_a_card(make, monkeypatch):
             build_model(ae, pc)
         elif make == "server":
             DeviceServer(ae, pc)
+        elif make == "service":
+            CompressionService(ServiceConfig(
+                runtime.config_path("ae_kitti_stereo"),
+                runtime.config_path("pc_default"))).start()
         else:
             entry_lib.entry()
 

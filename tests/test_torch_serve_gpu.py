@@ -1,0 +1,117 @@
+"""The port's CompressionService on the card: stream and event ordering
+across worker streams and the entropy pool, and K2 once per SI batch.
+
+Every test here needs an NVIDIA card; on a machine without one they skip
+(decided inside the `cuda` fixture, so every pytest-xdist worker collects
+the same tests). This file imports no jax:
+
+    python -m pytest --noconftest -q tests/test_torch_serve_gpu.py
+
+The tiny configuration (20x24 patches) at one 80x96 bucket, 2 workers
+(each on its own CUDA stream), 2 entropy threads, batches of 4. Requests
+served concurrently must give streams and images bit-equal to the same
+requests served one at a time: every batch is padded to 4 lanes, so only
+the other lanes differ, and a copy read before its event, or a prep read
+before it was complete, would show as a difference.
+"""
+
+import threading
+
+import numpy as np
+import pytest
+import torch
+
+from dsin_tpu_torch.entry import tiny_configs
+from dsin_tpu_torch.ops import sifinder_kernel as sk
+from dsin_tpu_torch.serve import CompressionService, ServiceConfig
+from dsin_tpu_torch.serve.service import DECODE_SI
+
+BUCKET = (80, 96)
+N = 8
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (torch.cuda.is_available() is "
+                    "False)")
+    return torch.device("cuda")
+
+
+@pytest.fixture
+def service(cuda, tmp_path):
+    ae, pc = tiny_configs()
+    paths = []
+    for name, cfg in (("ae", ae), ("pc", pc)):
+        paths.append(str(tmp_path / name))
+        with open(paths[-1], "w") as f:
+            f.write(str(cfg))
+    svc = CompressionService(ServiceConfig(
+        ae_config=paths[0], pc_config=paths[1], buckets=(BUCKET,),
+        max_batch=4, max_wait_ms=20.0, workers=2, entropy_workers=2,
+        enable_si=True, seed=2)).start()
+    svc.warmup()
+    yield svc
+    assert svc.drain()
+
+
+def _images(seed):
+    rng = np.random.default_rng(seed)
+    base = rng.uniform(0, 255, (BUCKET[0] // 8, (BUCKET[1] + 16) // 8, 3))
+    smooth = np.kron(base, np.ones((8, 8, 1)))
+    side = smooth[:, 16:].astype(np.uint8)
+    imgs = [np.clip(smooth[:, :BUCKET[1]] + rng.normal(0, 6, smooth[
+        :, :BUCKET[1]].shape), 0, 255).astype(np.uint8) for _ in range(N)]
+    imgs[1] = imgs[1][:70, :90]               # padded to the bucket
+    return side, imgs
+
+
+def _concurrently(fn, items):
+    out = [None] * len(items)
+
+    def run(i):
+        out[i] = fn(items[i])
+
+    threads = [threading.Thread(target=run, args=(i,))
+               for i in range(len(items))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    assert not any(t.is_alive() for t in threads)
+    return out
+
+
+@pytest.mark.gpu
+def test_concurrent_requests_equal_one_at_a_time(service):
+    side, imgs = _images(0)
+    sid = service.open_session(side)
+    alone = [service.encode(img) for img in imgs]
+    together = _concurrently(service.encode, imgs)
+    assert [r.stream for r in together] == [r.stream for r in alone]
+    streams = [r.stream for r in alone]
+    for op in (service.decode, lambda s: service.decode_si(s, sid)):
+        one = [op(s) for s in streams]
+        many = _concurrently(op, streams)
+        for a, b, img in zip(one, many, imgs):
+            assert a.shape == img.shape and a.dtype == np.uint8
+            np.testing.assert_array_equal(a, b)
+    occupancy = service.metrics.histogram("serve_batch_occupancy").summary()
+    assert occupancy["max"] > 0.25, "nothing was served in a shared batch"
+
+
+@pytest.mark.gpu
+def test_k2_once_per_si_batch(service):
+    side, imgs = _images(1)
+    sid = service.open_session(side)
+    streams = [r.stream for r in _concurrently(service.encode, imgs)]
+    si_batches = []
+    service._batch_hook = lambda batch: si_batches.append(len(batch)) \
+        if batch[0].key[0] == DECODE_SI else None
+    sk.reset_launch_counts()
+    _concurrently(lambda s: service.decode_si(s, sid), streams)
+    launches = dict(sk.launch_counts)
+    service._batch_hook = None
+    assert sum(si_batches) == N
+    assert launches == {"pearson_argmax": 0,
+                        "pearson_argmax_shared": len(si_batches)}
