@@ -6,16 +6,20 @@ Phases; any failure raises, prints no result and exits non-zero:
   1. card check: needs torch.cuda; prints the card's name and power limit;
   2. build: builds csrc/sifinder_argmax.cu, csrc/probclass_front.cu and
      csrc/decode_epilogue.cu with nvcc and csrc/range_coder.cpp with g++,
-     all four at once, and prints the build times and ptxas's register /
-     spill lines;
+     all four at once, and prints the build times, ptxas's register /
+     spill lines and the tensor-core instructions in the search kernel's
+     SASS (`cuobjdump -sass`: HMMA.1688.F32.TF32, none is a failure);
   3. kernel vs plain at 320x1224 with 20x24 patches: pearson_argmax at batch 2
      (random inputs with the Gaussian prior, and planted patches without it)
      and pearson_argmax_shared at batch 4, each against its plain torch
-     version; prints times (CUDA events), the bound and a yardstick library
-     call (materialized F.conv2d score map + argmax, never called by the
-     port); then sifinder_dtype='bfloat16' once through the kernel route:
-     K1 on the bfloat16-rounded operands against its plain version, and the
-     route's y_syn equal to what K1 gives there;
+     version; prints times (CUDA events), two bounds (the fp32 products on
+     the CUDA cores and, the least time, the same products as 3xTF32 on the
+     tensor cores, which the kernel runs) with the kernel's share of each,
+     and a yardstick library call (materialized F.conv2d score map +
+     argmax, never called by the port); then sifinder_dtype='bfloat16'
+     once through the kernel route: K1 on the bfloat16-rounded operands
+     against its plain version, and the route's y_syn equal to what K1
+     gives there;
   4. the slice at the full width of ae_kitti_stereo + pc_default with seeded
      weights: one session, 4 requests (encode -> decode_si) and one
      from-scratch forward at batch 2, each checked for shape, finite values
@@ -179,6 +183,7 @@ from dsin_tpu_torch.ops.patches import assemble_patches
 from dsin_tpu_torch.runtime import config_path, resolve_device
 from dsin_tpu_torch.serve.device import DeviceServer
 from dsin_tpu_torch.tools import cityscapes_chip
+from dsin_tpu_torch.tools import k1_bench
 from dsin_tpu_torch.tools import k4_bench
 from dsin_tpu_torch.tools.k4_bench import warm_ms as cuda_ms
 from dsin_tpu_torch.tools import serve_bench as leg_lib
@@ -187,9 +192,9 @@ from dsin_tpu_torch.train import optim as optim_lib
 from dsin_tpu_torch.train import step as step_lib
 
 H, W, PH, PW = 320, 1224, 20, 24
-FP32_PEAK = 67e12          # H100 SXM fp32 outside the tensor cores, 700 W
+FP32_PEAK = k1_bench.FP32_PEAK   # H100 SXM fp32 outside the tensor cores
 BF16_PEAK = 989e12         # H100 SXM bf16 dense (tensor cores), 700 W
-HBM_RATE = 3.35e12         # H100 SXM device memory, bytes/s
+HBM_RATE = k1_bench.HBM_RATE     # H100 SXM device memory, bytes/s
 VAL_RTOL, VAL_ATOL = 1e-4, 1e-5   # fp32 sums in another order
 MARGIN_ATOL = 1e-4         # indices equal where the top-two margin exceeds it
 K3_RTOL, K3_ATOL = 1e-5, 1e-5     # as tests/test_probclass_pallas.py:49
@@ -288,35 +293,19 @@ def check_agreement(name, ops, got, ref, planted=None):
 
 
 def bound(ops, shared: bool):
-    """(bound_ms, bound_by) for one call: operations over the fp32 rate vs
-    bytes (inputs read once, outputs written once) over the memory rate."""
-    y_t, pk, inv, gh, gw_t = ops
-    b, p, k = pk.shape
-    hc, wc = inv.shape[-2:]
-    flops = 2.0 * b * p * k * hc * wc
-    side = 1 if shared else b
-    nbytes = 4 * (side * y_t[0].numel() + pk.numel() + side * hc * wc
-                  + gh.numel() + gw_t.numel() + 2 * b * p)
-    t_ops, t_bytes = flops / FP32_PEAK * 1e3, nbytes / HBM_RATE * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    """(bound_ms, bound_by, text) of one K1/K2 call: the least time is the
+    3xTF32 one (three TF32 tensor-core products per fp32 product, at 495
+    TFLOP/s) or the bytes (inputs read once, outputs written once); `text`
+    also names the fp32 CUDA-core bound (67 TFLOP/s)."""
+    b = k1_bench.bounds(ops, shared)
+    by = "operations" if b["tf32x3_ms"] >= b["bytes_ms"] else "bytes"
+    return max(b["tf32x3_ms"], b["bytes_ms"]), by, b
 
 
-def library_argmax(ops, shared: bool):
-    """Yardstick: the whole score map through one F.conv2d call, then the
-    epilogue and torch.argmax. Not used by the port."""
-    y_t, pk, inv, gh, gw_t = ops
-    b, p, _ = pk.shape
-    c = y_t.shape[-3]
-    filters = pk.reshape(b * p, PW, c, PH).permute(0, 2, 3, 1)
-    if shared:
-        num = F.conv2d(y_t[None], filters)[0].reshape(b, p, *inv.shape)
-        inv = inv[None]
-    else:
-        num = F.conv2d(y_t.reshape(1, b * c, *y_t.shape[-2:]), filters,
-                       groups=b)[0].reshape(b, p, *inv.shape[-2:])
-        inv = inv[:, None]
-    score = num * inv * gh.t()[None, :, :, None] * gw_t[None, :, None, :]
-    return torch.argmax(score.reshape(b, p, -1), dim=2)
+def bound_text(b: dict, ms: float) -> str:
+    tf32, fp32 = b["tf32x3_ms"], b["fp32_ms"]
+    return (f"bounds 3xTF32 {tf32:.3f} ms ({100 * tf32 / ms:.1f}% of it), "
+            f"fp32 {fp32:.3f} ms ({100 * fp32 / ms:.1f}% of it)")
 
 
 def knob_phase(x: np.ndarray, y: np.ndarray, dev):
@@ -381,11 +370,12 @@ def kernel_phase(seed: int, dev):
     reps = 5
     ms = cuda_ms(lambda: sk.pearson_argmax(*ops, PH, PW), reps)
     plain_ms = cuda_ms(lambda: sk.pearson_argmax_reference(*ops, PH, PW), 2)
-    lib_ms = cuda_ms(lambda: library_argmax(ops, False), 2)
-    b_ms, b_by = bound(ops, False)
+    lib_ms = cuda_ms(lambda: k1_bench.library_argmax(ops, PH, PW, False), 2)
+    b_ms, b_by, bnds = bound(ops, False)
     rows["pearson_argmax"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                   bound_ms=b_ms, bound_by=b_by,
                                   library_ms=lib_ms)
+    texts = {"pearson_argmax": bound_text(bnds, ms)}
 
     # K2 at batch 4: one shared side image, smooth stereo-like pair
     imgs = smooth_images(rng, 1, extra_w=64)
@@ -400,16 +390,16 @@ def kernel_phase(seed: int, dev):
     err4 = check_agreement("pearson_argmax_shared stereo b=4", ops4, got, ref)
     ms4 = cuda_ms(lambda: sk.pearson_argmax_shared(*shared, PH, PW), reps)
     plain4 = cuda_ms(lambda: sk.pearson_argmax_reference(*ops4, PH, PW), 2)
-    lib4 = cuda_ms(lambda: library_argmax(shared, True), 2)
-    b4, b4_by = bound(shared, True)
+    lib4 = cuda_ms(lambda: k1_bench.library_argmax(shared, PH, PW, True), 2)
+    b4, b4_by, bnds4 = bound(shared, True)
     rows["pearson_argmax_shared"] = dict(max_abs_err=err4, ms=ms4,
                                          plain_ms=plain4, bound_ms=b4,
                                          bound_by=b4_by, library_ms=lib4)
+    texts["pearson_argmax_shared"] = bound_text(bnds4, ms4)
     for name, r in rows.items():
         log(f"  {name}: kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} "
-            f"ms, library {r['library_ms']:.3f} ms, bound {r['bound_ms']:.3f}"
-            f" ms ({r['bound_by']}), {100 * r['bound_ms'] / r['ms']:.1f}% of "
-            f"bound")
+            f"ms, library {r['library_ms']:.3f} ms, {texts[name]}; bound "
+            f"{r['bound_ms']:.3f} ms ({r['bound_by']})")
     return rows
 
 
@@ -550,6 +540,11 @@ def build_phase():
         for ln in getattr(lib, "ptxas_log", "").splitlines():
             if "registers" in ln or "spill" in ln:
                 log(f"    ptxas: {ln.strip()}")
+    mma = k1_bench.sass_mma(libs["sifinder_argmax.cu"].path)
+    if not mma.get("HMMA.1688.F32.TF32"):
+        raise AssertionError(f"the search kernel's SASS has no TF32 tensor-"
+                             f"core instruction: {mma}")
+    log(f"  sifinder_argmax.cu SASS: {mma}")
 
 
 def k3_bound(batch: int, params):
@@ -1156,14 +1151,14 @@ def k1_at_training_shape(seed: int, dev, crop):
                           sk.pearson_argmax_reference(*ops, PH, PW))
     ms = cuda_ms(lambda: sk.pearson_argmax(*ops, PH, PW), 5)
     plain_ms = cuda_ms(lambda: sk.pearson_argmax_reference(*ops, PH, PW), 2)
-    lib_ms = cuda_ms(lambda: library_argmax(ops, False), 2)
-    b_ms, b_by = bound(ops, False)
+    lib_ms = cuda_ms(lambda: k1_bench.library_argmax(ops, PH, PW, False), 2)
+    _, _, bnds = bound(ops, False)
     p = ops[1].shape[1]
     hc, wc = ops[2].shape[-2:]
     log(f"  K1 at the training shape (batch 1, {h}x{w}, P = {p}, a {hc}x{wc}"
         f" map): kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, library "
-        f"{lib_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}), "
-        f"{100 * b_ms / ms:.1f}% of bound, max |val - plain| {err:.3g}")
+        f"{lib_ms:.3f} ms, {bound_text(bnds, ms)}, max |val - plain| "
+        f"{err:.3g}")
 
 
 def search_operands(model, x, y):
@@ -1764,7 +1759,7 @@ def cityscapes_checks(seed: int, dev):
     k1_ms = cuda_ms(lambda: sk.pearson_argmax(*ops, ph, pw), 2)
     plain_ms = cuda_ms(lambda: sk.pearson_argmax_reference(*ops, ph, pw), 1)
     tiled_ms = cuda_ms(tiled, 1)
-    b_ms, b_by = bound(ops, False)
+    _, _, bnds = bound(ops, False)
     hc, wc = inv.shape
     tiles = -(-(hc * wc) // sk.load_library().position_tile)
     log(f"  (e) K1 at {h}x{w}, {ph}x{pw} patches (P = {p}, K = "
@@ -1773,8 +1768,7 @@ def cityscapes_checks(seed: int, dev):
         f"pair vs the tiled search (row chunk "
         f"{row_chunk}): indices equal {equal}/{p} (the rest within the "
         f"{MARGIN_ATOL} margin), winning scores within {err:.3g}; K1 "
-        f"{k1_ms:.2f} ms, bound {b_ms:.2f} ms ({b_by}), "
-        f"{100 * b_ms / k1_ms:.1f}% of bound; its plain version "
+        f"{k1_ms:.2f} ms, {bound_text(bnds, k1_ms)}; its plain version "
         f"{plain_ms:.2f} ms; the tiled search {tiled_ms:.2f} ms (CUDA "
         f"events)")
 

@@ -124,20 +124,30 @@ def _jax_leaf(key: str):
     raise KeyError(f"unmapped state_dict entry {key}")
 
 
-def _jax_value(key: str, tensor: torch.Tensor) -> np.ndarray:
+def _jax_value(key: str, tensor: torch.Tensor, keep_bfloat16: bool = False):
     """A state_dict value -> a C-contiguous float32 array in the JAX
-    layout, a copy (never a view of a CPU tensor that later changes)."""
-    value = tensor.detach().float().cpu().numpy()
+    layout, a copy (never a view of a CPU tensor that later changes). With
+    `keep_bfloat16`, a bfloat16 tensor stays bfloat16: its bits take the
+    same layout transform and come back as a CPU bfloat16 tensor (numpy has
+    no bfloat16)."""
+    tensor = tensor.detach().cpu()
+    bits = keep_bfloat16 and tensor.dtype == torch.bfloat16
+    value = (tensor.view(torch.int16) if bits else tensor.float()).numpy()
     if key != "centers" and key.endswith(".weight") \
             and ".bn." not in key:
         value = _jax_kernel(key, value)
-    return np.array(value, order="C", copy=True)
+    value = np.array(value, order="C", copy=True)
+    return torch.from_numpy(value).view(torch.bfloat16) if bits else value
 
 
-def jax_from_state_dict(state_dict: Dict[str, torch.Tensor]):
+def jax_from_state_dict(state_dict: Dict[str, torch.Tensor],
+                        keep_bfloat16: bool = False):
     """The port's state_dict -> (params, batch_stats): the JAX package's
     trees as C-contiguous float32 numpy arrays, what its checkpoints hold.
-    `num_batches_tracked` has no JAX counterpart and is dropped."""
+    `num_batches_tracked` has no JAX counterpart and is dropped. With
+    `keep_bfloat16`, the leaves a precision rung cast to bfloat16 stay
+    bfloat16 (tensors), as the JAX package serves them: the tree that
+    `coding/loader.params_digest` hashes for a served model."""
     params: Dict[str, Any] = {}
     batch_stats: Dict[str, Any] = {}
     for key, tensor in state_dict.items():
@@ -145,7 +155,7 @@ def jax_from_state_dict(state_dict: Dict[str, torch.Tensor]):
             continue
         path, is_stat = _jax_leaf(key)
         _put(batch_stats if is_stat else params, path,
-             _jax_value(key, tensor))
+             _jax_value(key, tensor, keep_bfloat16))
     return params, batch_stats
 
 

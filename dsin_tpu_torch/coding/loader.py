@@ -22,6 +22,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from dsin_tpu_torch import bridge
 from dsin_tpu_torch.coding import precision as precision_lib
 from dsin_tpu_torch.coding.codec import BottleneckCodec
 from dsin_tpu_torch.config import parse_config_file
@@ -155,6 +156,15 @@ def params_digest(tree, rung: str = "fp32") -> str:
             _field(text_or_bytes if isinstance(text_or_bytes, bytes)
                    else text_or_bytes.encode())
     return h.hexdigest()[:16]
+
+
+def served_digest(model: DSIN, rung: str = "fp32") -> str:
+    """`params_digest` of a served model: its weights in the JAX layout and
+    in the dtypes they serve in, so a bf16 or int8 rung hashes its bfloat16
+    leaves as bfloat16, as the JAX service hashes them."""
+    return params_digest(bridge.jax_from_state_dict(model.state_dict(),
+                                                    keep_bfloat16=True),
+                         rung=rung)
 
 
 def encode_batch_isolated(codec: BottleneckCodec, volumes) -> list:

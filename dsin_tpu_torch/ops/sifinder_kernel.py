@@ -2,8 +2,10 @@
 JAX package's `ops/sifinder_pallas.py`).
 
 The CUDA kernel is `csrc/sifinder_argmax.cu` (its header gives the design and
-its bound); this module builds it with `nvcc` at first use (`native_build`),
-binds it with `ctypes`, and holds everything around it:
+its bounds): the search on the tensor cores in 3xTF32 (each fp32 operand
+split into two TF32 parts, three TF32 products per fp32 product). This module
+builds it with `nvcc` at first use (`native_build`), binds it with `ctypes`,
+and holds everything around it:
 
 * the query prep: search transform + mean-centered, L2-normalized patches
   laid out in the kernel's (dc, ch, dr) k-order (`prepare_query`);
@@ -17,7 +19,9 @@ binds it with `ctypes`, and holds everything around it:
   stride 0 on the side operands for the shared form;
 * `pearson_argmax_reference`, the same function in plain torch, in the same
   multiply order. The wrappers use it for tensors on the CPU, and only
-  there: a CUDA tensor launches the kernel or raises.
+  there: a CUDA tensor launches the kernel or raises;
+* `round_tf32` and `split_tf32`, the kernel's operand split in plain torch
+  (`cvt.rna.tf32.f32`: round to nearest, ties away from zero).
 
 Each wrapper counts its launches in `launch_counts`.
 """
@@ -73,10 +77,12 @@ class KernelLibrary(NamedTuple):
 
 
 @functools.lru_cache(maxsize=None)
-def load_library() -> KernelLibrary:
-    """Build `csrc/sifinder_argmax.cu` into `build/` (keyed by a hash of the
-    source and flags) unless already built, and bind it. Raises on failure."""
-    so, seconds, log = native_build.build(SOURCE, native_build.nvcc(),
+def load_library(source: Path = SOURCE) -> KernelLibrary:
+    """Build `source` (by default `csrc/sifinder_argmax.cu`; another version
+    of it with the same entry for a comparison) into `build/` (keyed by a
+    hash of the source and flags) unless already built, and bind it. Raises
+    on failure."""
+    so, seconds, log = native_build.build(Path(source), native_build.nvcc(),
                                           NVCC_FLAGS, "sifinder_argmax")
     lib = ctypes.CDLL(str(so))
     search = lib.sifinder_pearson_argmax
@@ -141,12 +147,16 @@ def _check(y_t, pk, inv_denom, gh, gw_t, ph: int, pw: int, batched: bool):
                              f"expected {shape}")
 
 
-def _launch(name: str, y_t, pk, inv_denom, gh, gw_t, ph: int, pw: int,
-            batched: bool):
+def launch(y_t, pk, inv_denom, gh, gw_t, ph: int, pw: int, batched: bool,
+           name: str = "pearson_argmax", lib: KernelLibrary = None):
+    """Launch the kernel of `lib` (by default the package's) on checked
+    operands; raises on a tensor off the card and on a refused launch. The
+    wrappers' launch, without their count (a comparison of two builds times
+    them through this)."""
     if y_t.device.type != "cuda":
         raise ValueError(f"the patch-search kernel runs on CUDA tensors, got "
                          f"{y_t.device}")
-    lib = load_library()
+    lib = lib or load_library()
     c, h, w = y_t.shape[-3:]
     b, p, _ = pk.shape
     hc, wc = h - ph + 1, w - pw + 1
@@ -168,8 +178,14 @@ def _launch(name: str, y_t, pk, inv_denom, gh, gw_t, ph: int, pw: int,
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err} "
                            f"({lib.error_string(err).decode()})")
-    _count_launch(name)
     return best_val, best_idx
+
+
+def _launch(name: str, y_t, pk, inv_denom, gh, gw_t, ph: int, pw: int,
+            batched: bool):
+    out = launch(y_t, pk, inv_denom, gh, gw_t, ph, pw, batched, name)
+    _count_launch(name)
+    return out
 
 
 def pearson_argmax(y_t: torch.Tensor, pk: torch.Tensor,
@@ -237,6 +253,23 @@ def pearson_argmax_reference(y_t: torch.Tensor, pk: torch.Tensor,
             best_idx[i] = torch.where(take, (r0 * wc + loc).to(torch.int32),
                                       best_idx[i])
     return best_val, best_idx
+
+
+def round_tf32(x: torch.Tensor) -> torch.Tensor:
+    """float32 -> the nearest TF32 value (10 fraction bits), ties away from
+    zero, as `cvt.rna.tf32.f32`: the low 13 bits of the result are 0."""
+    bits = x.contiguous().view(torch.int32).to(torch.int64)
+    rounded = ((bits & 0xFFFFFFFF) + 0x1000) & 0xFFFFE000
+    return (rounded - ((rounded & 0x80000000) << 1)).to(torch.int32).view(
+        torch.float32)
+
+
+def split_tf32(x: torch.Tensor):
+    """float32 -> (hi, lo): hi = `round_tf32(x)` and lo = x - hi, exact in
+    float32, so hi + lo == x. The kernel multiplies hi and
+    `round_tf32(lo)`."""
+    hi = round_tf32(x)
+    return hi, x - hi
 
 
 def scores_at(y_t: torch.Tensor, pk: torch.Tensor, inv_denom: torch.Tensor,

@@ -91,7 +91,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from dsin_tpu_torch import bridge, native_build
+from dsin_tpu_torch import native_build
 from dsin_tpu_torch.coding import loader as loader_lib
 from dsin_tpu_torch.config import parse_config_file
 from dsin_tpu_torch.runtime import resolve_device
@@ -485,9 +485,7 @@ class CompressionService:
             # the weights reach the device on this thread's stream; every
             # worker stream reads them
             torch.cuda.synchronize(self.device)
-        digest = loader_lib.params_digest(
-            bridge.jax_from_state_dict(model.state_dict()),
-            rung=self.config.precision)
+        digest = loader_lib.served_digest(model, self.config.precision)
         self._bn_channels = int(model.ae_config.num_chan_bn)
         self._swap = swap_lib.SwapCoordinator(
             swap_lib.ModelBundle(0, digest, DeviceServer.for_model(model),

@@ -43,6 +43,7 @@ from dsin_tpu_torch.train import checkpoint as port_ckpt
 from dsin_tpu_torch.train import step as port_step
 from dsin_tpu_torch.train.optim import Optimizer
 from dsin_tpu_torch.utils import flax_msgpack
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 H, W, PH, PW = 40, 48, 20, 24
 PARTS = ("encoder", "decoder", "centers", "probclass", "sinet")

@@ -33,20 +33,10 @@ from dsin_tpu_torch.models.dsin import build_model
 from dsin_tpu_torch.ops import sifinder as sf
 from dsin_tpu_torch.tools import cityscapes_chip
 from dsin_tpu_torch.train import step as port_step
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 PH, PW = 16, 32
 CROP = (32, 64)          # the tool's and the run's CPU crop: 2 x 2 patches
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """One intra-op thread for this module's torch work: the suite runs
-    several pytest workers on the same cores, and torch's default of one
-    thread a core per worker oversubscribes them many times over."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture

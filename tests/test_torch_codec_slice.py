@@ -38,6 +38,7 @@ from dsin_tpu_torch.models.dsin import build_model
 from dsin_tpu_torch.models.quantizer import centers_lookup
 from dsin_tpu_torch.serve.device import DeviceServer
 from dsin_tpu_torch.utils.integrity import IntegrityError
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 L = 6
 SHAPE = (8, 5, 6)          # the tiny configuration's 40x48 bottleneck

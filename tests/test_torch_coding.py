@@ -30,6 +30,7 @@ from dsin_tpu_torch.coding import rans
 from dsin_tpu_torch.entry import tiny_configs
 from dsin_tpu_torch.models import probclass as pc_lib
 from dsin_tpu_torch.utils import integrity
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 L = 6

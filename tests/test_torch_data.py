@@ -42,6 +42,7 @@ from dsin_tpu_torch.entry import tiny_configs
 from dsin_tpu_torch.eval import reporting as port_reporting
 from dsin_tpu_torch.models.dsin import build_model
 from dsin_tpu_torch.train import checkpoint as port_ckpt
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -31,6 +31,7 @@ from dsin_tpu_torch.models import autoencoder as ae_lib
 from dsin_tpu_torch.models.dsin import build_model
 from dsin_tpu_torch.ops import color as color_lib
 from dsin_tpu_torch.ops import epilogue as epi_lib
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 RTOL, ATOL = 1e-5, 1e-3
 FUZZ_SHAPES = [(1, 6, 12), (2, 5, 9), (1, 7, 16)]

@@ -43,6 +43,7 @@ from dsin_tpu_torch.ops import sifinder as sf
 from dsin_tpu_torch.ops.msssim import multiscale_ssim
 from dsin_tpu_torch.train import losses as port_losses
 from dsin_tpu_torch.train import step as port_step
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 H, W, PH, PW = 40, 48, 20, 24
 RTOL = 1e-5

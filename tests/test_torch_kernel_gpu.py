@@ -81,6 +81,29 @@ def test_kernel_matches_plain(cuda, h, w, ph, pw, prior):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("h,w,ph,pw,prior", [
+    (30, 56, 5, 7, False),        # K = 105: K % 8 != 0, 4-byte pk copies;
+    #                               Wc = 50 < one 64-column tile; P = 48
+    (40, 192, 20, 24, True),      # Hc = 21: the last 2-row tile half empty;
+    #                               P = 16 < one 64-patch tile
+    (64, 160, 4, 5, False),       # K = 60: a k tail of 28 in the last slice
+    (300, 48, 150, 1, False),     # 150-row patches: no slab fits, B read
+    #                               from global memory
+], ids=["5x7", "odd-rows", "k-tail", "tall-patch"])
+def test_awkward_tiling_matches_plain(cuda, h, w, ph, pw, prior):
+    """Shapes that the row-aligned tiles and the k slices meet only at
+    their edges."""
+    rng = np.random.default_rng(h * w + ph)
+    x = rng.uniform(0, 255, (2, h, w, 3)).astype(np.float32)
+    y = rng.uniform(0, 255, (2, h, w, 3)).astype(np.float32)
+    ops = _operands(x, y, ph, pw, prior, cuda)
+    got = sk.pearson_argmax(*ops, ph, pw)
+    ref = sk.pearson_argmax_reference(*ops, ph, pw)
+    torch.cuda.synchronize()
+    _assert_agree(ops, ph, pw, got, ref)
+
+
+@pytest.mark.gpu
 def test_cityscapes_patches_match_plain(cuda):
     """The Cityscapes geometry's queries (1024x2048, 16x32 patches: P =
     4096, K = 1536) against a side image cut to 64 rows (a 49x2017 map), so

@@ -28,6 +28,7 @@ from dsin_tpu_torch.models import autoencoder as ae_lib
 from dsin_tpu_torch.models import probclass as pc_lib
 from dsin_tpu_torch.models import quantizer as quant_lib
 from dsin_tpu_torch.models.dsin import build_model
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 N, H, W = 2, 40, 48
 

@@ -29,6 +29,7 @@ from dsin_tpu_torch.entry import tiny_configs
 from dsin_tpu_torch.models.dsin import build_model
 from dsin_tpu_torch.train import optim as port_optim
 from torch_train_parity import leaves
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ULPS = 2 * np.finfo(np.float32).eps
 

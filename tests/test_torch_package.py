@@ -22,6 +22,7 @@ from dsin_tpu_torch.ops import sifinder as sifinder_lib
 from dsin_tpu_torch.ops import sifinder_kernel as sk
 from dsin_tpu_torch.serve.device import DeviceServer
 from dsin_tpu_torch.serve.service import CompressionService, ServiceConfig
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PACKAGE = os.path.join(REPO, "dsin_tpu_torch")

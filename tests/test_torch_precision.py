@@ -49,6 +49,7 @@ from dsin_tpu_torch.models import autoencoder as ae_lib
 from dsin_tpu_torch.models.dsin import build_model
 from dsin_tpu_torch.runtime import config_path
 from dsin_tpu_torch.serve.device import DeviceServer
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N, H, W = 2, 40, 48

@@ -15,6 +15,7 @@ import pytest
 from dsin_tpu_torch.coding import precision as precision_lib
 from dsin_tpu_torch.entry import tiny_configs
 from dsin_tpu_torch.tools import serve_bench
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope="module")

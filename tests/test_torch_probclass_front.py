@@ -20,6 +20,7 @@ import torch
 from dsin_tpu.coding import probclass_pallas as jax_pallas
 from dsin_tpu_torch.coding import probclass_kernel as pk
 from dsin_tpu_torch.models import probclass as pc_lib
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 L = 6
 WIDTHS = {"tiny": 12, "pc_default": 24}

@@ -39,21 +39,11 @@ from dsin_tpu_torch.ops import color
 from dsin_tpu_torch.ops import sifinder as sf
 from dsin_tpu_torch.serve.device import DeviceServer
 from dsin_tpu_torch.train import step as port_step
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 H, W, PH, PW = 40, 48, 8, 12
 LAB_ATOL = 3e-2
 L2_RTOL = 1e-5          # of the map's largest term
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """One intra-op thread for this module's torch work: the suite runs
-    several pytest workers on the same cores, and torch's default of one
-    thread a core per worker oversubscribes them many times over."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _t(a):

@@ -25,21 +25,11 @@ import torch
 from dsin_tpu.ops import sifinder as jsf
 from dsin_tpu_torch.config import Config
 from dsin_tpu_torch.ops import sifinder as sf
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 H, W, PH, PW = 40, 48, 8, 12
 P = (H // PH) * (W // PW)
 MARGIN, SCORE_ATOL = 1e-4, 1e-5
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """One intra-op thread for this module's torch work: the suite runs
-    several pytest workers on the same cores, and torch's default of one
-    thread a core per worker oversubscribes them many times over."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 class _JaxCfg:

@@ -38,6 +38,7 @@ from dsin_tpu_torch.serve import service as tservice
 from dsin_tpu_torch.serve import trace as ttrace
 from dsin_tpu_torch.utils import faults as tfaults
 from dsin_tpu_torch.utils import retry as tretry
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 PKGS = {"jax": (jbuckets, jbatch, jsession, jmetrics, jtrace, jfaults,
                 jretry, jservice),

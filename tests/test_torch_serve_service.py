@@ -23,12 +23,14 @@ import numpy as np
 import pytest
 import torch
 
+from dsin_tpu.coding import loader as jax_loader
 from dsin_tpu.serve import CompressionService as JaxService
 from dsin_tpu.serve import ServiceConfig as JaxConfig
 from dsin_tpu.train import checkpoint as jax_ckpt
 from dsin_tpu.train import optim as jax_optim
 from dsin_tpu.train.step import TrainState
 from dsin_tpu_torch import bridge
+from dsin_tpu_torch.coding import loader as port_loader
 from dsin_tpu_torch.config import parse_config
 from dsin_tpu_torch.data.synthetic import make_stereo_pair
 from dsin_tpu_torch.models.dsin import build_model
@@ -40,19 +42,10 @@ from dsin_tpu_torch.serve import (CompressionService, IntegrityError,
 from dsin_tpu_torch.serve.service import frame_stream, parse_stream
 from dsin_tpu_torch.utils import faults
 from test_train_step import tiny_ae_cfg, tiny_pc_cfg
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 BUCKET = (16, 24)
 SHAPES = [(16, 24), (14, 20), (9, 13)]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """One intra-op thread: the tier-1 run puts several pytest workers on
-    the same cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")
@@ -141,6 +134,40 @@ def test_encode_streams_byte_equal_to_jax(streams):
 def test_model_digest_equals_jax(world, port):
     assert port.model_digest == world["jsvc"].model_digest
     assert port.health()["model"]["digest"] == port.model_digest
+
+
+@pytest.mark.parametrize("rung", ["fp32", "bf16", "int8"])
+def test_served_digest_equals_jax_at_every_rung(world, rung):
+    """The digest of the model a service serves at each ladder rung, from
+    the world's checkpoint: the port's `served_digest` equals the JAX
+    package's `params_digest` of its `load_model_state` (computed here, not
+    pinned). The bf16 and int8 rungs hash their bfloat16 leaves as
+    bfloat16; exact."""
+    c = world["common"]
+    _, state = jax_loader.load_model_state(
+        c["ae_config"], c["pc_config"], c["ckpt"], BUCKET, need_sinet=True,
+        precision=rung)
+    want = jax_loader.params_digest((state.params, state.batch_stats),
+                                    rung=rung)
+    model = port_loader.load_model_state(
+        c["ae_config"], c["pc_config"], c["ckpt"], need_sinet=True,
+        device="cpu", precision=rung)
+    assert port_loader.served_digest(model, rung) == want
+
+
+def test_bf16_service_reports_the_jax_digest(world):
+    """The service's `model_digest` is the served digest: at bf16, the JAX
+    package's digest of the same checkpoint at that rung."""
+    c = world["common"]
+    _, state = jax_loader.load_model_state(
+        c["ae_config"], c["pc_config"], c["ckpt"], BUCKET, need_sinet=True,
+        precision="bf16")
+    svc = _service(world, precision="bf16")
+    try:
+        assert svc.model_digest == jax_loader.params_digest(
+            (state.params, state.batch_stats), rung="bf16")
+    finally:
+        svc.drain()
 
 
 def test_decode_within_one_of_jax(world, port, streams):

@@ -29,6 +29,7 @@ from dsin_tpu_torch.ops import color as color_lib
 from dsin_tpu_torch.ops import patches as patches_lib
 from dsin_tpu_torch.ops import sifinder as sf
 from dsin_tpu_torch.ops import sifinder_kernel as sk
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 H, W, PH, PW = 24, 36, 8, 12
 P = (H // PH) * (W // PW)

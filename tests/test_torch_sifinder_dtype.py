@@ -26,6 +26,7 @@ from dsin_tpu.ops import sifinder_pallas as jsp
 from dsin_tpu_torch.config import Config
 from dsin_tpu_torch.ops import sifinder as sf
 from dsin_tpu_torch.ops import sifinder_kernel as sk
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 H, W, PH, PW = 40, 48, 8, 12
 HC, WC = H - PH + 1, W - PW + 1

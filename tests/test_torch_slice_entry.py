@@ -22,6 +22,7 @@ from dsin_tpu_torch import bridge
 from dsin_tpu_torch.entry import make_forward, tiny_configs
 from dsin_tpu_torch.models.dsin import build_model
 from dsin_tpu_torch.ops import sifinder as sf
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 H, W, PH, PW = 40, 48, 20, 24

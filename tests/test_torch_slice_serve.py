@@ -27,6 +27,7 @@ from dsin_tpu_torch.models.quantizer import centers_lookup
 from dsin_tpu_torch.ops import sifinder as sf
 from dsin_tpu_torch.ops import sifinder_kernel as sk
 from dsin_tpu_torch.serve.device import DeviceServer
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 N, H, W, PH, PW = 2, 40, 48, 20, 24
 

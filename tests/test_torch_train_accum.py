@@ -38,6 +38,7 @@ from dsin_tpu_torch.models.dsin import build_model
 from dsin_tpu_torch.ops.sifinder import gaussian_position_mask
 from dsin_tpu_torch.train import step as port_step
 from dsin_tpu_torch.train.optim import Optimizer
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope="module")

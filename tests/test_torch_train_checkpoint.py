@@ -42,6 +42,7 @@ from dsin_tpu_torch.train import checkpoint as port_ckpt
 from dsin_tpu_torch.train import step as port_step
 from dsin_tpu_torch.train.optim import Optimizer
 from torch_train_parity import H, PH, PW, W, leaves, stereo_batch
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 STEPS = 5
 

@@ -34,6 +34,7 @@ from dsin_tpu_torch.config import parse_config
 from dsin_tpu_torch.data import synthetic
 from dsin_tpu_torch.data.manifest import read_pair_manifest
 from dsin_tpu_torch.train import checkpoint as port_ckpt
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _configs(root, **over):

@@ -45,6 +45,7 @@ from torch_train_parity import (GRAD_RTOL, H, KINK_REL_L2, LR, PH, PW,
                                 STATS_RTOL, W, assert_grads_close,
                                 assert_leaves_close, assert_params_after_adam,
                                 leaves, run_both, stereo_batch)
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 # -- batch norm in train mode ---------------------------------------------------
 
 def _module_variables(module: torch.nn.Module):
