@@ -134,7 +134,22 @@ Phases; any failure raises, prints no result and exits non-zero:
      image is bit-equal alone and inside a full batch (not a gate), the
      open_session ms, submit -> result ms per kind (median, max), the
      per-kind serve_device_ms / serve_entropy_ms histograms, the overlap
-     ratio, requests per second and the peak device memory.
+     ratio, requests per second and the peak device memory (run A, the
+     thread backend). Then the same traffic (same seed, images and side images)
+     in turns: A1, run A with this process's OpenBLAS pinned to one thread (as
+     the children pin theirs), then the process entropy backend, 4 children: B
+     pipe at depth 2, C shm at depth 2, D shm at depth 4. Each of B-D holds
+     every encode stream byte-equal and every decoded image bit-equal to run
+     A's, K2 once per SI batch, no native build after warmup in the parent or
+     any child (the children's pings, before and after the traffic), no CUDA
+     context and no module the parent does not hold in a child, lane sends on
+     shm, no pool rebuild, drain() True with every future resolved; on C, after
+     the traffic, one child is SIGKILLed and the next encode must rebuild the
+     pool once and give run A's bytes. Each run prints the same numbers as run
+     A, its warmup s (child spawn included, with when each child's initializer
+     started and the size of the pool's start-up arguments), its shm lane sends
+     and fallbacks and the host's cores; A1 holds A's streams, images and K2
+     count.
 Each phase's wall time is printed after the last phase.
 Kernel times are CUDA events around back-to-back runs that the host
 enqueued while the device slept, so they are device time.
@@ -165,7 +180,8 @@ from dsin_tpu_torch.coding import probclass_kernel as pk
 from dsin_tpu_torch.coding import rans
 from dsin_tpu_torch import main as main_lib
 from dsin_tpu_torch import native_build
-from dsin_tpu_torch.coding.loader import make_codec, restore_checkpoint
+from dsin_tpu_torch.coding.loader import (blas_threads, make_codec,
+                                          restore_checkpoint)
 from dsin_tpu_torch.data import png
 from dsin_tpu_torch.data import synthetic
 from dsin_tpu_torch.data.loader import random_pair_crops
@@ -1980,68 +1996,141 @@ def typed_error_checks(svc, small_streams, records):
     return records[n0:], futs
 
 
-def service_phase(seed: int, dev) -> int:
-    """Phase 10; returns K2's launches in the service's traffic."""
-    from urllib.request import urlopen
-    from dsin_tpu_torch.serve import CompressionService, ServiceConfig
+def serve_traffic(seed: int):
+    """Phase 10's traffic from `seed`: 2 smooth stereo-like side images and
+    the 16 images to encode (SERVE_SHAPES), each owned by one side."""
     rng = np.random.default_rng(seed + 10)
-    svc = CompressionService(ServiceConfig(
-        ae_config=config_path("ae_kitti_stereo"),
-        pc_config=config_path("pc_default"), seed=seed,
-        buckets=SERVE_BUCKETS, max_batch=4, max_wait_ms=5.0,
-        entropy_workers=4, pipeline_depth=2, enable_si=True,
-        metrics_port=0, device=str(dev))).start()
+    base = smooth_images(rng, 2, extra_w=64)
+    sides = [np.clip(base[k, :, 16:16 + W], 0, 255).astype(np.uint8)
+             for k in range(2)]
+    imgs, owner = [], []
+    for i, (h, w) in enumerate(SERVE_SHAPES):
+        k = i % 2
+        noisy = base[k, :, :W] + rng.normal(0, 4, (H, W, 3))
+        imgs.append(np.clip(noisy[:h, :w], 0, 255).astype(np.uint8))
+        owner.append(k)
+    return sides, imgs, owner
+
+
+def serve_config(seed: int, dev, **over):
+    from dsin_tpu_torch.serve import ServiceConfig
+    kw = dict(ae_config=config_path("ae_kitti_stereo"),
+              pc_config=config_path("pc_default"), seed=seed,
+              buckets=SERVE_BUCKETS, max_batch=4, max_wait_ms=5.0,
+              entropy_workers=4, pipeline_depth=2, enable_si=True,
+              device=str(dev))
+    kw.update(over)
+    return ServiceConfig(**kw)
+
+
+def drive(svc, traffic) -> dict:
+    """Open the 2 sessions, then from SERVE_CLIENTS clients encode every
+    image and decode every stream (decode_si against its session at the
+    large bucket, decode at the small one), recording each batch the
+    service forms (its batch hook) and K1/K2's launches in the traffic."""
+    sides, imgs, owner = traffic
+    sids, open_ms = [], []
+    for side in sides:
+        t0 = time.perf_counter()
+        sids.append(svc.open_session(side))
+        open_ms.append(1e3 * (time.perf_counter() - t0))
+    records = []
+    svc._batch_hook = lambda batch: records.append((
+        batch[0].key[0], batch[0].key[1], batch[0].session,
+        [r.payload for r in batch], [r.future for r in batch]))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    builds = native_build.build_count()
+    sk.reset_launch_counts()
+    enc, enc_ms, enc_s = from_clients(svc.submit_encode, imgs)
+    big = SERVE_BUCKETS[-1]
+    jobs = [(r.stream, sids[k] if r.bucket == big else None)
+            for r, k in zip(enc, owner)]
+    dec, dec_ms, dec_s = from_clients(
+        lambda job: (svc.submit_decode_si(*job) if job[1] is not None
+                     else svc.submit_decode(job[0])), jobs)
+    torch.cuda.synchronize()
+    launches = dict(sk.launch_counts)
+    svc._batch_hook = None
+    if native_build.build_count() != builds:
+        raise AssertionError("serving built a native library after warmup")
+    si_batches = sum(r[0] == "decode_si" for r in records)
+    if launches != {"pearson_argmax": 0,
+                    "pearson_argmax_shared": si_batches}:
+        raise AssertionError(f"launches {launches}, SI batches "
+                             f"{si_batches}")
+    for img, out in zip(imgs, dec):
+        if out.shape != img.shape or out.dtype != np.uint8:
+            raise AssertionError(f"decoded {out.shape} {out.dtype} for "
+                                 f"{img.shape}")
+    return dict(enc=enc, enc_ms=enc_ms, enc_s=enc_s, dec=dec, dec_ms=dec_ms,
+                dec_s=dec_s, jobs=jobs, records=records, open_ms=open_ms,
+                launches=launches, si_batches=si_batches,
+                peak=torch.cuda.max_memory_allocated() / 2**30)
+
+
+def host_cores() -> str:
+    return (f"host cores {os.cpu_count()} (affinity "
+            f"{len(os.sched_getaffinity(0))})")
+
+
+def report_run(svc, run, label: str, warm_s: float) -> None:
+    """Per-run numbers: submit -> result median and max per kind, the
+    per-kind device / entropy histograms, overlap, requests/s, warmup s,
+    shm lane traffic, the host's cores and the card."""
+    snap = svc.metrics.snapshot()
+    hists, counters = snap["histograms"], snap["counters"]
+    kinds = {"encode": run["enc_ms"],
+             "decode": [m for m, j in zip(run["dec_ms"], run["jobs"])
+                        if j[1] is None],
+             "decode_si": [m for m, j in zip(run["dec_ms"], run["jobs"])
+                           if j[1] is not None]}
+    for kind, ms in kinds.items():
+        log(f"  {label} {kind}: {len(ms)} requests, submit -> result ms "
+            f"median {float(np.median(ms)):.1f}, max {max(ms):.1f}; "
+            f"serve_device_ms_{kind} "
+            f"{hist_line(hists[f'serve_device_ms_{kind}'])}; "
+            f"serve_entropy_ms_{kind} "
+            f"{hist_line(hists[f'serve_entropy_ms_{kind}'])}")
+    n_req = len(run["enc"]) + len(run["jobs"])
+    wall = run["enc_s"] + run["dec_s"]
+    shm = {k: counters.get(f"serve_shm_{k}", 0)
+           for k in ("sends", "bytes", "fallbacks")}
+    log(f"  {label}: serve_overlap_ratio "
+        f"{snap['gauges']['serve_overlap_ratio']:.3f}, {n_req} requests in "
+        f"{wall:.2f} s = {n_req / wall:.2f} requests/s (encode "
+        f"{len(run['enc']) / run['enc_s']:.2f}/s, decode "
+        f"{len(run['jobs']) / run['dec_s']:.2f}/s), {len(run['records'])} "
+        f"batches, warmup {warm_s:.2f} s, shm sends {shm['sends']} "
+        f"({shm['bytes']} B), fallbacks {shm['fallbacks']}, peak device "
+        f"memory {run['peak']:.2f} GiB, {host_cores()}, card {card_line()}")
+
+
+def drain_checked(svc, futures, label: str) -> None:
+    drained = svc.drain(timeout=SERVE_TIMEOUT_S)
+    hung = sum(not f.done() for f in futures)
+    if not drained or hung:
+        raise AssertionError(f"{label} drain: {drained}, {hung} unresolved "
+                             f"futures")
+    log(f"  {label}: drain() True, {len(futures)} futures all resolved")
+
+
+def thread_run(seed: int, dev, traffic):
+    """Run A, the thread backend: the traffic with every check against
+    DeviceServer and the codec; -> (K2 launches, streams, images)."""
+    from urllib.request import urlopen
+    from dsin_tpu_torch.serve import CompressionService
+    svc = CompressionService(serve_config(seed, dev,
+                                          metrics_port=0)).start()
     futures = []
     try:
         warm = svc.warmup()
-        builds = native_build.build_count()
-        log(f"  start + warmup: {warm['seconds']:.2f} s warmup, "
+        log(f"  A (thread): start + warmup: {warm['seconds']:.2f} s warmup, "
             f"{warm['builds']} native builds in it")
-        base = smooth_images(rng, 2, extra_w=64)
-        sides = [np.clip(base[k, :, 16:16 + W], 0, 255).astype(np.uint8)
-                 for k in range(2)]
-        sids, open_ms = [], []
-        for side in sides:
-            t0 = time.perf_counter()
-            sids.append(svc.open_session(side))
-            open_ms.append(1e3 * (time.perf_counter() - t0))
-        imgs, owner = [], []
-        for i, (h, w) in enumerate(SERVE_SHAPES):
-            k = i % 2
-            noisy = base[k, :, :W] + rng.normal(0, 4, (H, W, 3))
-            imgs.append(np.clip(noisy[:h, :w], 0, 255).astype(np.uint8))
-            owner.append(k)
-        records = []
-        svc._batch_hook = lambda batch: records.append((
-            batch[0].key[0], batch[0].key[1], batch[0].session,
-            [r.payload for r in batch], [r.future for r in batch]))
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        sk.reset_launch_counts()
-        enc, enc_ms, enc_s = from_clients(svc.submit_encode, imgs)
-        big = SERVE_BUCKETS[-1]
-        jobs = [(r.stream, sids[k] if r.bucket == big else None)
-                for r, k in zip(enc, owner)]
-        dec, dec_ms, dec_s = from_clients(
-            lambda job: (svc.submit_decode_si(*job) if job[1] is not None
-                         else svc.submit_decode(job[0])), jobs)
-        torch.cuda.synchronize()
-        launches = dict(sk.launch_counts)
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        if native_build.build_count() != builds:
-            raise AssertionError("serving built a native library after "
-                                 "warmup")
-        si_batches = sum(r[0] == "decode_si" for r in records)
-        if launches != {"pearson_argmax": 0,
-                        "pearson_argmax_shared": si_batches}:
-            raise AssertionError(f"launches {launches}, SI batches "
-                                 f"{si_batches}")
+        run = drive(svc, traffic)
+        records, launches = run["records"], run["launches"]
         for r in records:
             futures += r[4]
-        for img, out in zip(imgs, dec):
-            if out.shape != img.shape or out.dtype != np.uint8:
-                raise AssertionError(f"decoded {out.shape} {out.dtype} for "
-                                     f"{img.shape}")
         vols, n_streams = check_streams(svc, records)
         n_images = check_decode_records(svc, records, vols)
         si_record = next(r for r in records if r[0] == "decode_si")
@@ -2050,11 +2139,13 @@ def service_phase(seed: int, dev) -> int:
             f"encode_batch of DeviceServer's symbols, exact round trips; "
             f"{n_images} images bit-equal to DeviceServer on the recorded "
             f"batches; K2 {launches['pearson_argmax_shared']} launches = "
-            f"{si_batches} SI batches, K1 0; K2 on a service batch vs plain "
-            f"max |val - plain| {err:.3g}; no native build after warmup")
+            f"{run['si_batches']} SI batches, K1 0; K2 on a service batch "
+            f"vs plain max |val - plain| {err:.3g}; no native build after "
+            f"warmup")
         batchmates(svc, records, vols)
+        big = SERVE_BUCKETS[-1]
         err_records, err_futs = typed_error_checks(
-            svc, [r.stream for r in enc if r.bucket != big], records)
+            svc, [r.stream for r in run["enc"] if r.bucket != big], records)
         futures += err_futs
         check_decode_records(svc, err_records, vols)
         port = svc.metrics_port
@@ -2063,35 +2154,173 @@ def service_phase(seed: int, dev) -> int:
                 if r.status != 200 or not r.read():
                     raise AssertionError(f"{path} answered {r.status}")
         log(f"  /healthz and /metrics answer on port {port}")
-        snap = svc.metrics.snapshot()
-        hists = snap["histograms"]
-        log(f"  open_session ms {', '.join(f'{t:.2f}' for t in open_ms)} "
+        hists = svc.metrics.snapshot()["histograms"]
+        log(f"  open_session ms "
+            f"{', '.join(f'{t:.2f}' for t in run['open_ms'])} "
             f"(serve_si_prep_ms {hist_line(hists['serve_si_prep_ms'])})")
-        kinds = {"encode": enc_ms,
-                 "decode": [m for m, j in zip(dec_ms, jobs) if j[1] is None],
-                 "decode_si": [m for m, j in zip(dec_ms, jobs)
-                               if j[1] is not None]}
-        for kind, ms in kinds.items():
-            log(f"  {kind}: {len(ms)} requests, submit -> result ms median "
-                f"{float(np.median(ms)):.1f}, max {max(ms):.1f}; "
-                f"serve_device_ms_{kind} "
-                f"{hist_line(hists[f'serve_device_ms_{kind}'])}; "
-                f"serve_entropy_ms_{kind} "
-                f"{hist_line(hists[f'serve_entropy_ms_{kind}'])}")
-        log(f"  serve_overlap_ratio {snap['gauges']['serve_overlap_ratio']:.3f}"
-            f", {len(imgs) + len(jobs)} requests in {enc_s + dec_s:.2f} s = "
-            f"{(len(imgs) + len(jobs)) / (enc_s + dec_s):.2f} requests/s "
-            f"(encode {len(imgs) / enc_s:.2f}/s, decode {len(jobs) / dec_s:.2f}"
-            f"/s), {len(records)} batches, peak device memory {peak:.2f} GiB, "
-            f"card {card_line()}")
-        k2_launches = launches["pearson_argmax_shared"]
+        report_run(svc, run, "A (thread, 4 entropy threads, depth 2)",
+                   warm["seconds"])
     finally:
-        drained = svc.drain(timeout=SERVE_TIMEOUT_S)
-    hung = sum(not f.done() for f in futures)
-    if not drained or hung:
-        raise AssertionError(f"drain: {drained}, {hung} unresolved futures")
-    log(f"  drain() True, {len(futures)} futures all resolved")
-    return k2_launches
+        drain_checked(svc, futures, "A")
+    return (launches["pearson_argmax_shared"],
+            [r.stream for r in run["enc"]], run["dec"])
+
+
+def check_children(pings, label: str) -> None:
+    """No child initialised CUDA or built a native library, and none
+    imported a module the parent does not hold (the parent, this script,
+    imports nothing of JAX: tests/test_torch_package.py)."""
+    parent = {m.split(".")[0] for m in sys.modules}
+    for p in pings:
+        extra = sorted(set(p["top_modules"]) - parent)
+        if p["cuda_initialized"] or p["native_builds"] or extra:
+            raise AssertionError(f"{label}: entropy child {p['pid']}: CUDA "
+                                 f"{p['cuda_initialized']}, native builds "
+                                 f"{p['native_builds']}, modules the parent "
+                                 f"does not hold {extra}")
+
+
+def check_against_a(run, ref, label: str) -> list:
+    """Every encode stream byte-equal and every image bit-equal to run A's;
+    -> the run's streams."""
+    ref_streams, ref_images = ref
+    streams = [r.stream for r in run["enc"]]
+    if streams != ref_streams:
+        bad = [i for i, (a, b) in enumerate(zip(streams, ref_streams))
+               if a != b]
+        raise AssertionError(f"{label}: streams {bad} differ from run A's")
+    bad = [i for i, (a, b) in enumerate(zip(run["dec"], ref_images))
+           if not np.array_equal(a, b)]
+    if bad:
+        raise AssertionError(f"{label}: images {bad} differ from run A's")
+    return streams
+
+
+def pinned_thread_run(seed: int, dev, traffic, ref) -> int:
+    """Run A1: run A's thread backend with this process's OpenBLAS pinned to
+    one thread, as the process backend's children pin theirs, so the gap
+    between A and B-D splits into the pin and the processes. Streams and
+    images must equal run A's; the thread count is restored after. Returns
+    K2's launches in the traffic."""
+    from dsin_tpu_torch.serve import CompressionService
+    label = "A1 (thread, parent OpenBLAS pinned to 1 thread)"
+    before = blas_threads()
+    svc = CompressionService(serve_config(seed, dev)).start()
+    futures = []
+    try:
+        blas_threads(pin=1)
+        warm = svc.warmup()
+        log(f"  {label}: OpenBLAS threads {before} -> {blas_threads()}, "
+            f"warmup {warm['seconds']:.2f} s, {warm['builds']} native builds")
+        run = drive(svc, traffic)
+        for r in run["records"]:
+            futures += r[4]
+        check_against_a(run, ref, label)
+        log(f"  {label}: {len(run['enc'])} streams byte-equal and "
+            f"{len(run['dec'])} images bit-equal to run A's; K2 "
+            f"{run['launches']['pearson_argmax_shared']} launches = "
+            f"{run['si_batches']} SI batches")
+        report_run(svc, run, label, warm["seconds"])
+    finally:
+        drain_checked(svc, futures, label)
+        if before:
+            blas_threads(pin=max(before))
+    return run["launches"]["pearson_argmax_shared"]
+
+
+def process_run(seed: int, dev, traffic, ref, label: str, transport: str,
+                depth: int, kill: bool = False) -> int:
+    """One run of the process entropy backend (4 children) on the same
+    traffic: every stream byte-equal and every image bit-equal to run A's,
+    K2 once per SI batch, no native build after warmup in the parent or any
+    child, no CUDA context and no jax in a child, lane traffic on shm, no
+    pool rebuild. With `kill`, after the traffic one child is SIGKILLed and
+    the next encode must rebuild the pool once and give run A's bytes.
+    Returns K2's launches in the traffic."""
+    import pickle
+    import signal
+    from dsin_tpu_torch.serve import CompressionService
+    ref_streams = ref[0]
+    svc = CompressionService(serve_config(
+        seed, dev, entropy_backend="process", transport=transport,
+        pipeline_depth=depth)).start()
+    futures = []
+    try:
+        wall0 = time.time()
+        warm = svc.warmup()
+        pings = svc._proc_warm
+        check_children(pings, label)
+        initargs = svc._swap.current.proc_initargs
+        log(f"  {label}: the pool initializer's arguments pickle to "
+            f"{len(pickle.dumps(initargs))} B (the codec spec rides a "
+            f"{os.path.getsize(initargs[0])} B file)")
+        log(f"  {label}: start + warmup {warm['seconds']:.2f} s (4 children "
+            f"spawned, codec rebuilt and schedules "
+            f"{sorted({tuple(s) for p in pings for s in p['schedules']})} "
+            f"warmed in each), {warm['builds']} native builds in it; "
+            f"children {sorted(p['pid'] for p in pings)}, CUDA initialised "
+            f"in none, torch threads "
+            f"{sorted({p['torch_threads'] for p in pings})}, OpenBLAS "
+            f"threads {sorted({t for p in pings for t in p['blas_threads']})}"
+            f"; the children's initializers started "
+            f"{min(p['init_wall'] for p in pings) - wall0:.2f}-"
+            f"{max(p['init_wall'] for p in pings) - wall0:.2f} s into the "
+            f"warmup and took {min(p['init_s'] for p in pings):.2f}-"
+            f"{max(p['init_s'] for p in pings):.2f} s")
+        run = drive(svc, traffic)
+        for r in run["records"]:
+            futures += r[4]
+        streams = check_against_a(run, ref, label)
+        after = svc._ping_children(svc._swap.current)
+        check_children(after, label)
+        counters = svc.metrics.snapshot()["counters"]
+        if counters.get("serve_entropy_proc_rebuilds", 0) != 0:
+            raise AssertionError(f"{label}: the pool was rebuilt during the "
+                                 f"traffic")
+        if transport == "shm" and counters.get("serve_shm_sends", 0) <= 0:
+            raise AssertionError(f"{label}: no shm lane send")
+        log(f"  {label}: {len(streams)} streams byte-equal and "
+            f"{len(run['dec'])} images bit-equal to run A's; K2 "
+            f"{run['launches']['pearson_argmax_shared']} launches = "
+            f"{run['si_batches']} SI batches, K1 0; no native build after "
+            f"warmup in the parent or the {len(after)} children, none "
+            f"initialised CUDA or imported a module the parent does not "
+            f"hold; 0 pool rebuilds")
+        report_run(svc, run, label, warm["seconds"])
+        if kill:
+            victim = pings[0]["pid"]
+            os.kill(victim, signal.SIGKILL)
+            t0 = time.perf_counter()
+            again = svc.encode(traffic[1][0], timeout=SERVE_TIMEOUT_S)
+            rebuilds = svc.metrics.counter(
+                "serve_entropy_proc_rebuilds").value
+            if again.stream != ref_streams[0] or rebuilds != 1:
+                raise AssertionError(f"{label}: after SIGKILL of child "
+                                     f"{victim}: rebuilds {rebuilds}, bytes "
+                                     f"equal {again.stream == ref_streams[0]}")
+            log(f"  {label}: SIGKILL of child {victim}: the next encode "
+                f"rebuilt the pool once and returned run A's bytes in "
+                f"{1e3 * (time.perf_counter() - t0):.1f} ms (spawn and "
+                f"codec warm included)")
+    finally:
+        drain_checked(svc, futures, label)
+    return run["launches"]["pearson_argmax_shared"]
+
+
+def service_phase(seed: int, dev) -> int:
+    """Phase 10: run A (thread backend) with every check, then runs B-D of
+    the process backend on the same traffic, in turns on the card; returns
+    K2's launches summed over the runs' traffic."""
+    traffic = serve_traffic(seed)
+    k2, streams, images = thread_run(seed, dev, traffic)
+    k2 += pinned_thread_run(seed, dev, traffic, (streams, images))
+    for label, transport, depth, kill in (
+            ("B (process, pipe, depth 2)", "pipe", 2, False),
+            ("C (process, shm, depth 2)", "shm", 2, True),
+            ("D (process, shm, depth 4)", "shm", 4, False)):
+        k2 += process_run(seed, dev, traffic, (streams, images), label,
+                          transport, depth, kill)
+    return k2
 
 
 def main() -> int:

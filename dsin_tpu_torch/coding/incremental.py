@@ -183,6 +183,12 @@ class IncrementalResShallow:
                 sch = self._schedules.setdefault(shape, sch)
         return sch
 
+    def cached_shapes(self) -> List[Tuple[int, int, int]]:
+        """Shapes whose schedules are already built (warmup evidence: the
+        process entropy backend's residence probe reads it)."""
+        with self._sched_lock:
+            return sorted(self._schedules)
+
     def begin(self, shape) -> "_VolumePass":
         return _VolumePass(self, self.schedule(shape))
 

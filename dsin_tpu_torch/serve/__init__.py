@@ -5,10 +5,12 @@ package's `dsin_tpu.serve`), exported under the JAX names.
 requests onto static buckets (`buckets.py`, `batcher.py`), writes
 CRC-framed DSRV streams, caches side-image preps per session
 (`session.py`) and overlaps device batches with rANS coding on a thread
-pool; `device.py` `DeviceServer` holds its device functions. What the JAX
-package's serve stack has beyond that (router, federation, autoscale,
-protocol, shared-memory lanes, quality, placement, the hot swap) is not
-ported: see ROADMAP Queue 1 item 11.
+pool, or with `entropy_backend="process"` in spawned children that hold
+their own codec, their payloads on the pipe or in shared-memory lanes
+(`shmlane.py`); `device.py` `DeviceServer` holds its device functions.
+What the JAX package's serve stack has beyond that (router, federation,
+autoscale, protocol, quality, placement, the hot swap) is not ported: see
+ROADMAP Queue 1 item 11.
 """
 
 from dsin_tpu_torch.serve.batcher import (BULK, INTERACTIVE,

@@ -61,6 +61,22 @@ the LRU/TTL/byte-bounded `serve/session.py` store;
 share a session coalesce into one micro-batch (`Request.session`), one
 K2 launch each.
 
+Process entropy backend (`entropy_backend="process"`): the entropy
+stage's coding work runs in a spawn-context `ProcessPoolExecutor` of
+worker-resident codecs (`coding/loader.py` `CodecSpec`: rebuilt once per
+child as a host codec, schedules warmed there, mode 2 only; a child never
+initialises CUDA). The pool threads become bridges: the device-to-host
+transfer, the per-request `serve.rans` fault site and CRC re-verify,
+framing and futures. A payload in another mode than 2 (a client's mode-3
+stream) is decoded on the bridge thread through the bundle's codec, K3 on
+the card, never in a child. `transport="shm"` moves task and result
+payloads through CRC-framed lanes of one shared-memory ring per pool
+generation (`serve/shmlane.py`), all allocated and freed by the parent;
+only a descriptor crosses the pipe. A killed child breaks the pool: it is
+rebuilt once and the task retried (`serve_entropy_proc_rebuilds`); a
+child that hangs past `entropy_proc_timeout_s` fails its batch with a
+typed TimeoutError and its pool is replaced and its children killed.
+
 Observability: the JAX service's metric names (`serve_device_ms`,
 `serve_entropy_ms`, `serve_overlap_ratio`, `serve_si_prep_ms`,
 `serve_si_search_ms`, `serve_sessions_*`, ...), plus per-kind
@@ -71,20 +87,26 @@ Spans and flight events as in `serve/trace.py`.
 
 Not ported, and refused with NotImplementedError naming the ROADMAP item:
 quality telemetry and the canary, the hot swap and rollback (and its
-watchdog), more than one device and placement, priority classes, the
-process entropy backend and shared-memory lanes. `persistent_cache` (the
-XLA compile cache) has no meaning here and is not a field.
+watchdog), more than one device and placement, priority classes.
+`persistent_cache` (the XLA compile cache) has no meaning here and is not
+a field.
 """
 
 from __future__ import annotations
 
 import contextlib
+import multiprocessing
 import os
+import shutil
 import struct
+import tempfile
 import threading
 import time
+import weakref
 from collections import deque
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
+from concurrent.futures import TimeoutError as FutureTimeout
+from concurrent.futures.process import BrokenProcessPool
 from dataclasses import dataclass
 from typing import Optional, Sequence, Tuple
 
@@ -93,11 +115,13 @@ import torch
 
 from dsin_tpu_torch import native_build
 from dsin_tpu_torch.coding import loader as loader_lib
+from dsin_tpu_torch.coding.codec import MODE_WAVEFRONT_NP
 from dsin_tpu_torch.config import parse_config_file
 from dsin_tpu_torch.runtime import resolve_device
 from dsin_tpu_torch.serve import buckets as buckets_lib
 from dsin_tpu_torch.serve import metrics as metrics_lib
 from dsin_tpu_torch.serve import session as session_lib
+from dsin_tpu_torch.serve import shmlane as shmlane_lib
 from dsin_tpu_torch.serve import swap as swap_lib
 from dsin_tpu_torch.serve import trace as trace_lib
 from dsin_tpu_torch.serve.batcher import (Future, MicroBatcher, Request,
@@ -123,8 +147,6 @@ ROADMAP_QUALITY = "ROADMAP Queue 1 item 11a (quality telemetry and canary)"
 ROADMAP_SWAP = "ROADMAP Queue 1 item 11b (hot swap and rollback)"
 ROADMAP_DEVICES = "ROADMAP Queue 1 item 11c (devices > 1 and placement)"
 ROADMAP_PRIORITY = "ROADMAP Queue 1 item 11d (priority classes and admission)"
-ROADMAP_PROCESS = ("ROADMAP Queue 1 item 11e (the process entropy backend "
-                   "and shm lanes)")
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -157,9 +179,18 @@ class ServiceConfig:
     #: thread after/before the device call); None = min(4, cores - 1),
     #: at least 1
     entropy_workers: Optional[int] = None
-    #: "thread" only; "process" raises (ROADMAP_PROCESS)
+    #: where the entropy stage codes: "thread" (the pool threads, each
+    #: with its codec clone) or "process" (a spawn-context process pool
+    #: of worker-resident mode-2 codecs, the pool threads bridging to
+    #: it); "process" needs entropy_workers > 0
     entropy_backend: str = "thread"
-    #: "pipe" only; "shm" raises (ROADMAP_PROCESS)
+    #: process backend: ceiling on one micro-batch's task in a child,
+    #: including a rebuilt pool's spawn and codec warm; on expiry the
+    #: batch fails with TimeoutError and the pool is replaced
+    entropy_proc_timeout_s: float = 120.0
+    #: process backend payload transport: "pipe" (pickled through the
+    #: pool's pipe) or "shm" (CRC-framed shared-memory lanes, only a
+    #: descriptor on the pipe; streams byte-equal to "pipe")
     transport: str = "pipe"
     #: max batches a worker holds in flight (device launched, entropy
     #: pending) before finishing the oldest; >= 2 overlaps batch N's
@@ -213,13 +244,25 @@ def _refused(config: ServiceConfig) -> Optional[NotImplementedError]:
         return _not_ported("placement and rebalance", ROADMAP_DEVICES)
     if config.priority_classes is not None:
         return _not_ported("priority_classes", ROADMAP_PRIORITY)
-    if config.entropy_backend != "thread":
-        return _not_ported(f"entropy_backend={config.entropy_backend!r}",
-                           ROADMAP_PROCESS)
-    if config.transport != "pipe":
-        return _not_ported(f"transport={config.transport!r}",
-                           ROADMAP_PROCESS)
     return None
+
+
+def _validate_backend(config: ServiceConfig) -> None:
+    """The entropy-backend knobs, checked before the model build as the
+    JAX service checks them: a typo costs milliseconds, typed."""
+    if config.entropy_backend not in ("thread", "process"):
+        raise ValueError(f"entropy_backend must be 'thread' or 'process', "
+                         f"got {config.entropy_backend!r}")
+    ew = config.entropy_workers
+    if config.entropy_backend == "process" and ew is not None and ew <= 0:
+        raise ValueError("entropy_backend='process' needs entropy_workers "
+                         "> 0 (the process pool IS the entropy stage)")
+    if config.entropy_proc_timeout_s <= 0:
+        raise ValueError(f"entropy_proc_timeout_s must be > 0, got "
+                         f"{config.entropy_proc_timeout_s}")
+    if config.transport not in ("pipe", "shm"):
+        raise ValueError(f"transport must be 'pipe' or 'shm', got "
+                         f"{config.transport!r}")
 
 
 @dataclass
@@ -379,6 +422,37 @@ class _Inflight:
         self.si_entry = None
 
 
+class _EntropyPool:
+    """One process-pool GENERATION: the ProcessPoolExecutor plus (shm
+    transport) the lane ring its children attached at init. It answers the
+    two calls the service makes of a pool (`submit`, `shutdown`);
+    shutdown unlinks the ring with the pool, so a wedged child's late
+    reply lands in a detached mapping and hurts nobody. Every lane (task
+    and reply) is allocated and freed by the parent: the bridge thread
+    blocks on the reply, so there is no cross-process free to get
+    wrong."""
+
+    def __init__(self, pool: ProcessPoolExecutor, rings, reply_bytes: int):
+        self.pool = pool
+        self.rings = rings          # None = pipe transport
+        self.reply_bytes = int(reply_bytes)
+
+    def submit(self, fn, *args, **kwargs):
+        return self.pool.submit(fn, *args, **kwargs)
+
+    def shutdown(self, wait: bool = False, kill: bool = False) -> None:
+        """Refuse new work, and with `kill` SIGKILL the children first (a
+        wedged child would otherwise outlive the service: the interpreter
+        joins every pool at exit)."""
+        if kill:
+            # ProcessPoolExecutor has no public terminate before 3.14
+            for proc in list((self.pool._processes or {}).values()):
+                proc.kill()
+        self.pool.shutdown(wait=wait)
+        if self.rings is not None:
+            self.rings.unlink()
+
+
 class CompressionService:
     """Thread-per-worker micro-batching codec service on one device.
 
@@ -423,6 +497,13 @@ class CompressionService:
         self._batch_hook = None   # test/diagnostic: called with each batch
         self._entropy_pool: Optional[ThreadPoolExecutor] = None
         self._entropy_workers = 0
+        #: per-bucket (D, H, W) symbol volume shapes the codecs warm
+        self._warm_shapes = []
+        #: warmup's worker-residence pings, one per pool child
+        self._proc_warm = []
+        #: process backend: removes the directory of the pickled CodecSpec
+        #: the pool children load (run by drain, else at exit)
+        self._spec_cleanup = None
         self._codec_local = threading.local()
         self._si_enabled = False
         self._sessions: Optional[session_lib.SessionStore] = None
@@ -459,6 +540,7 @@ class CompressionService:
     def start(self) -> "CompressionService":
         if self._started:
             return self
+        _validate_backend(self.config)
         # the device first: without a card this raises in milliseconds
         self.device = resolve_device(self.config.device)
         self._si_enabled = bool(self.config.enable_si)
@@ -487,11 +569,9 @@ class CompressionService:
             torch.cuda.synchronize(self.device)
         digest = loader_lib.served_digest(model, self.config.precision)
         self._bn_channels = int(model.ae_config.num_chan_bn)
-        self._swap = swap_lib.SwapCoordinator(
-            swap_lib.ModelBundle(0, digest, DeviceServer.for_model(model),
-                                 loader_lib.make_codec(model),
-                                 ckpt=self.config.ckpt),
-            self.metrics)
+        sub = buckets_lib.SUBSAMPLING
+        self._warm_shapes = [(self._bn_channels, bh // sub, bw // sub)
+                             for bh, bw in self.policy.buckets]
         ew = self.config.entropy_workers
         if ew is None:
             ew = max(1, min(4, (os.cpu_count() or 2) - 1))
@@ -499,8 +579,26 @@ class CompressionService:
         if ew > 0:
             self._entropy_pool = ThreadPoolExecutor(
                 max_workers=ew, thread_name_prefix="serve-entropy")
+        codec = loader_lib.make_codec(model)
+        initargs = None
+        if self.config.entropy_backend == "process":
+            spec_dir = tempfile.mkdtemp(prefix="dsin-serve-spec-")
+            self._spec_cleanup = weakref.finalize(self, shutil.rmtree,
+                                                  spec_dir, True)
+            initargs = (loader_lib.write_codec_spec(
+                loader_lib.make_codec_spec(codec, rung=self.config.precision),
+                os.path.join(spec_dir, "codec-spec.pkl")),
+                list(self._warm_shapes))
+        bundle = swap_lib.ModelBundle(0, digest, DeviceServer.for_model(model),
+                                      codec, ckpt=self.config.ckpt,
+                                      proc_initargs=initargs)
+        if initargs is not None:
+            self.metrics.counter("serve_entropy_proc_rebuilds")
+            bundle.set_proc(self._make_entropy_proc(initargs))
+        self._swap = swap_lib.SwapCoordinator(bundle, self.metrics)
         self.metrics.set_info("serve_entropy_backend", {
-            "backend": "thread", "entropy_workers": ew,
+            "backend": self.config.entropy_backend,
+            "transport": self.config.transport, "entropy_workers": ew,
             "pipeline_depth": self.config.pipeline_depth})
         with self._workers_lock:
             for i in range(self.config.workers):
@@ -535,8 +633,10 @@ class CompressionService:
         """Run every (bucket, direction) once, and with SI a session prep
         and an SI decode per bucket; prime the codec's schedules with one
         entropy round trip per bucket; start the entropy pool threads (each
-        builds its codec clone), so the first request pays nothing. Returns
-        {"builds": native builds during warmup, "seconds": s}. After it,
+        builds its codec clone) and, on the process backend, every pool
+        child (spawn, codec rebuild, schedule warm) and ping it, so the
+        first request pays nothing. Returns {"builds": native builds during
+        warmup, "seconds": s}; the pings land in `_proc_warm`. After it,
         serving builds nothing (`native_build.build_count()` holds), the
         port's counterpart of the JAX service's zero-compile census."""
         if not self._started:
@@ -574,10 +674,32 @@ class CompressionService:
             for f in [self._entropy_pool.submit(_prime)
                       for _ in range(self._entropy_workers)]:
                 f.result(timeout=120)
+        if bundle.proc() is not None:
+            self._proc_warm = self._ping_children(bundle)
         builds = native_build.build_count() - before
         self.metrics.gauge("serve_warmup_builds").set(builds)
         self.metrics.gauge("serve_buckets").set(len(self.policy.buckets))
         return {"builds": builds, "seconds": time.monotonic() - t0}
+
+    def _ping_children(self, bundle, timeout_s: float = 300.0) -> list:
+        """One `worker_ping` answer per pool child. The first submits spawn
+        every child at once; pings go out in rounds until each child has
+        answered one (its initializer done), so no child is still warming
+        when the first batch arrives. Raises TimeoutError when a child has
+        not answered within `timeout_s`."""
+        pings = {}
+        deadline = time.monotonic() + timeout_s
+        while len(pings) < self._entropy_workers:
+            if time.monotonic() > deadline:
+                raise TimeoutError(
+                    f"{self._entropy_workers - len(pings)} entropy children "
+                    f"did not answer a ping within {timeout_s} s")
+            futs = [bundle.proc().submit(loader_lib.worker_ping, 0.2)
+                    for _ in range(self._entropy_workers)]
+            for f in futs:
+                ping = f.result(timeout=timeout_s)
+                pings.setdefault(ping["pid"], ping)
+        return list(pings.values())
 
     # -- what the port refuses ------------------------------------------------
 
@@ -646,6 +768,12 @@ class CompressionService:
                 # workers flushed their pipelines before exiting, so the
                 # pool is idle; shutdown is immediate (and idempotent)
                 self._entropy_pool.shutdown(wait=True)
+            if self._swap is not None:
+                # the process pool is idle too: its children exit, then
+                # its lane ring is unlinked
+                self._swap.current.retire(wait=True)
+            if self._spec_cleanup is not None:
+                self._spec_cleanup()
             if self._sessions is not None:
                 # drained services hold no device-resident preps
                 self._sessions.clear("drain")
@@ -1143,6 +1271,229 @@ class CompressionService:
         if not isinstance(e, Exception):
             rec.crash = e
 
+    # -- the process entropy backend -------------------------------------------
+
+    def _entropy_lane_bytes(self) -> int:
+        """Payload bound for ONE task or reply lane: a whole micro-batch of
+        the largest bucket's int32 symbol volumes, plus pickle slack.
+        Oversize falls back inline by the lane contract, so this sizes the
+        lanes; it guarantees nothing."""
+        vol = max((d * h * w for (d, h, w) in self._warm_shapes),
+                  default=128 * 1024)
+        return self.config.max_batch * vol * 4 + 65536
+
+    def _make_entropy_proc(self, initargs) -> _EntropyPool:
+        """A fresh process pool for one bundle's CodecSpec, spawned (never
+        forked: the parent holds a CUDA context). Its children rebuild the
+        codec once in the initializer and warm every bucket's schedule.
+        With transport="shm" each pool generation gets its own lane ring
+        (task and reply lanes, 2 per batch in flight, plus spares) whose
+        manifest rides the initializer; the ring is unlinked with the
+        pool."""
+        rings = None
+        manifest = None
+        lane_bytes = self._entropy_lane_bytes()
+        if self.config.transport == "shm":
+            n_lanes = 2 * max(2, self._entropy_workers
+                              * max(1, self.config.pipeline_depth)) + 2
+            classes = shmlane_lib.derive_lane_classes([("ent", lane_bytes)],
+                                                      n_lanes)
+            need = sum(c.lane_bytes * c.n_lanes for c in classes)
+            try:
+                st = os.statvfs("/dev/shm")
+                free = st.f_bavail * st.f_frsize
+            except OSError:
+                free = None
+            if free is not None and need > free:
+                # a lane written past the segment's backing store would
+                # kill the process with SIGBUS; refuse typed instead
+                raise RuntimeError(
+                    f"transport='shm' needs {need} bytes of /dev/shm for "
+                    f"{n_lanes} lanes of {classes[0].lane_bytes} B; "
+                    f"{free} are free")
+            rings = shmlane_lib.LaneRing.create("ent", classes,
+                                                metrics=self.metrics)
+            manifest = rings.manifest()
+        pool = ProcessPoolExecutor(
+            max_workers=self._entropy_workers,
+            mp_context=multiprocessing.get_context("spawn"),
+            initializer=loader_lib.init_worker_codec,
+            initargs=tuple(initargs) + (manifest,))
+        return _EntropyPool(pool, rings, lane_bytes)
+
+    def _proc_call(self, bundle, fn, *args, timeout: Optional[float] = None):
+        """One coding task on the process backend, surviving child death: a
+        child that is killed marks the whole pool broken (every later
+        submit raises BrokenProcessPool), so the first bridge thread to see
+        it swaps in a fresh pool and the task is retried once on it. A
+        second break propagates and fails this batch typed; the next batch
+        again finds a fresh pool. A child that HANGS never breaks the pool,
+        so the wait is bounded by `timeout` (default
+        `entropy_proc_timeout_s`): on expiry the wedged pool is replaced,
+        its children killed, and the batch fails with TimeoutError, not
+        retried. A submit that loses a swap race (another bridge thread
+        shut the pool down between our read and the submit: a bare
+        RuntimeError) is retried too: nothing ran in a child. No lock is
+        held across the wait."""
+        timeout = self.config.entropy_proc_timeout_s \
+            if timeout is None else timeout
+        last_exc = None
+        for _ in (0, 1):
+            proc = bundle.proc()
+            if proc is None:
+                raise RuntimeError(
+                    f"entropy pool of model bundle epoch {bundle.epoch} "
+                    f"was retired while this batch was in flight")
+            try:
+                # lanes per ATTEMPT on the current generation's ring: a
+                # retry must not name the dead generation's segment
+                fut, refs = self._submit_entropy(proc, fn, args)
+            except RuntimeError as e:
+                if (not isinstance(e, BrokenProcessPool)
+                        and "cannot schedule new futures" not in str(e)):
+                    raise
+                self._swap_entropy_proc(bundle, proc)
+                last_exc = e
+                continue
+            try:
+                out = fut.result(timeout)
+                # resolved BEFORE the finally frees the reply lane
+                return self._resolve_entropy(proc, out)
+            except BrokenProcessPool as e:
+                self._swap_entropy_proc(bundle, proc)
+                last_exc = e
+                continue
+            except FutureTimeout:
+                self._swap_entropy_proc(bundle, proc, kill=True)
+                raise TimeoutError(
+                    f"entropy process backend task exceeded {timeout}s "
+                    f"(child alive but stuck); pool replaced") from None
+            finally:
+                # the parent reclaims task and reply lanes once the future
+                # settled, whatever happened (a no-op after a swap
+                # unlinked the ring)
+                self._release_entropy(proc, refs)
+        raise last_exc
+
+    def _submit_entropy(self, proc: _EntropyPool, fn, args):
+        """Submit one coding task -> (future, (task_ref, reply_ref)). Pipe
+        transport submits as is. shm transport lanes the payload (args[0])
+        when it is big enough and a lane is free (inline otherwise,
+        counted by the ring) and claims a reply lane for the child to
+        write the result into."""
+        if proc.rings is None:
+            return proc.submit(fn, *args), (None, None)
+        payload, rest = args[0], args[1:]
+        task_ref = proc.rings.put_obj(payload)
+        reply_ref = proc.rings.claim(proc.reply_bytes)
+        try:
+            fut = proc.submit(fn, payload if task_ref is None else task_ref,
+                              *rest, reply=reply_ref)
+        except BaseException:
+            self._release_entropy(proc, (task_ref, reply_ref))
+            raise
+        return fut, (task_ref, reply_ref)
+
+    def _resolve_entropy(self, proc: _EntropyPool, out):
+        """A LaneRef result is copied out of the reply lane, CRC-verified
+        (corruption raises IntegrityError and fails the batch, never wrong
+        symbols) and counted in `serve_shm_replies` (the child's ring
+        counts nothing); free=False: `_proc_call`'s finally owns the
+        reclaim."""
+        if not isinstance(out, shmlane_lib.LaneRef):
+            return out
+        self.metrics.counter("serve_shm_replies").inc()
+        return proc.rings.take_obj(out, free=False)
+
+    @staticmethod
+    def _release_entropy(proc: _EntropyPool, refs) -> None:
+        if proc.rings is None:
+            return
+        for ref in refs:
+            if ref is not None:
+                proc.rings.free(ref)
+
+    def _swap_entropy_proc(self, bundle, seen: _EntropyPool,
+                           kill: bool = False) -> None:
+        """Replace a bundle's broken or wedged pool with a fresh one built
+        from ITS OWN CodecSpec (the first bridge thread to report `seen`
+        swaps; the rest find it done) and abandon the old one without
+        waiting on its children; `kill` terminates them."""
+        if bundle.swap_proc_if(
+                seen, lambda: self._make_entropy_proc(bundle.proc_initargs)):
+            self.metrics.counter("serve_entropy_proc_rebuilds").inc()
+            self.flight.record("entropy_proc_rebuild", epoch=bundle.epoch,
+                               killed=kill)
+        seen.shutdown(wait=False, kill=kill)         # idempotent
+
+    def _encode_vols(self, bundle, vols, trace=None) -> list:
+        """N (D, H, W) symbol volumes -> [(payload, None) | (None, exc)]
+        per lane, one batch call on the bundle's backend, always against
+        the BATCH's bundle. On the process backend each volume is first
+        copied into memory of its own: the pool pickles a task after
+        `submit` returns, and the task must not read the batch's host
+        buffer. `trace` (sampled contexts) rides the task and comes back
+        as a checked echo with the child's coding span."""
+        if bundle.proc_initargs is None:
+            return loader_lib.encode_batch_isolated(
+                self._thread_codec(bundle), vols)
+        vols = [np.array(v, order="C") for v in vols]
+        out = self._proc_call(bundle, loader_lib.worker_encode_batch, vols,
+                              trace)
+        if trace is not None:
+            out, echo = out
+            self._note_proc_echo(trace, echo)
+        return out
+
+    def _decode_payloads(self, bundle, payloads, trace=None) -> list:
+        """N DTPC payloads -> [(volume, None) | (None, exc)] per lane. On
+        the process backend the mode-2 lanes go to the pool in one task;
+        a lane in any other mode (a client's mode-3 stream) is decoded on
+        this bridge thread through the bundle's codec, K3 on the card, as
+        the thread backend decodes it, and a lane whose header does not
+        parse fails here with the codec's own error."""
+        codec = self._thread_codec(bundle)
+        if bundle.proc_initargs is None:
+            return loader_lib.decode_batch_isolated(codec, payloads)
+        out = [None] * len(payloads)
+        pool_idx, local_idx = [], []
+        for i, blob in enumerate(payloads):
+            try:
+                mode_id, _ = codec._parse_header(blob)
+            except ValueError as exc:
+                out[i] = (None, exc)
+                continue
+            (pool_idx if mode_id == MODE_WAVEFRONT_NP
+             else local_idx).append(i)
+        if local_idx:
+            for i, lane in zip(local_idx, loader_lib.decode_batch_isolated(
+                    codec, [payloads[i] for i in local_idx])):
+                out[i] = lane
+        if pool_idx:
+            got = self._proc_call(bundle, loader_lib.worker_decode_batch,
+                                  [payloads[i] for i in pool_idx], trace)
+            if trace is not None:
+                got, echo = got
+                self._note_proc_echo(trace, echo)
+            for i, lane in zip(pool_idx, got):
+                out[i] = lane
+        return out
+
+    def _note_proc_echo(self, sent, echo: dict) -> None:
+        """Check the trace contexts that rode a pool task against what came
+        back (serialization must be lossless for ids to stitch) and record
+        the child's coding span (its pid and coding_ms, ending at the
+        bridge's receive)."""
+        if tuple(echo.get("trace") or ()) != tuple(sent):
+            # a mangled context cannot corrupt results (the lanes ride
+            # separately) but it breaks stitching: count it
+            self.metrics.counter("serve_trace_proc_mismatch").inc()
+            return
+        t1 = time.monotonic()
+        t0 = t1 - echo.get("coding_ms", 0.0) / 1e3
+        self.tracer.record(trace_lib.SPAN_ENTROPY_PROC, t0, t1,
+                           [c.trace_id for c in sent], pid=echo.get("pid"))
+
     def _encode_results(self, batch, bucket, bundle, payloads, fail) -> None:
         """Frame each lane's payload and resolve its future; a lane's
         coding error goes to `fail(i, req, exc)` only."""
@@ -1159,14 +1510,16 @@ class CompressionService:
                 shape=(h, w), bucket=bucket,
                 model_digest=bundle.digest))
 
-    def _decode_batch_lanes(self, batch, sym, codec, fail) -> None:
+    def _decode_batch_lanes(self, batch, sym, decode, fail) -> None:
         """One micro-batch's decode-side entropy work under the
         per-request fault contract, shared by the pipelined task and the
         serialized path: the `serve.rans` fault site + payload-CRC
-        re-verify run per lane, the decode isolates structural errors per
-        lane, and the sym write itself is guarded per lane — a CRC-valid
-        stream whose DTPC header lies about the bucket geometry fails only
-        ITS request. `fail(i, req, exc)` records one lane's failure."""
+        re-verify run per lane on this thread, the decode (`decode(
+        payloads) -> [(vol, exc)]`, either backend) isolates structural
+        errors per lane, and the sym write itself is guarded per lane — a
+        CRC-valid stream whose DTPC header lies about the bucket geometry
+        fails only ITS request. `fail(i, req, exc)` records one lane's
+        failure."""
         good, payloads = [], []
         for i, req in enumerate(batch):
             try:
@@ -1179,8 +1532,7 @@ class CompressionService:
                 payloads.append(data)
         if not good:
             return
-        for i, (vol, exc) in zip(
-                good, loader_lib.decode_batch_isolated(codec, payloads)):
+        for i, (vol, exc) in zip(good, decode(payloads)):
             if exc is None:
                 # EXPLICIT shape check: numpy would BROADCAST a compatible
                 # wrong geometry into the slot
@@ -1202,7 +1554,8 @@ class CompressionService:
         te0 = te1 = None
         fail = lambda i, req, e: self._item_failed(rec, i, req, e)  # noqa: E731
         try:
-            codec = self._thread_codec(rec.bundle)
+            trace = self.tracer.sampled_tuple(rec.batch) \
+                if rec.bundle.proc_initargs is not None else None
             if rec.kind == ENCODE:
                 symbols = rec.handle.host()   # waits on this batch's copy
                 self.tracer.span_batch(
@@ -1212,7 +1565,7 @@ class CompressionService:
                 te0 = time.monotonic()
                 vols = [np.transpose(symbols[i], (2, 0, 1))
                         for i in range(len(rec.batch))]
-                payloads = loader_lib.encode_batch_isolated(codec, vols)
+                payloads = self._encode_vols(rec.bundle, vols, trace)
                 te1 = time.monotonic()
                 self._encode_results(rec.batch, rec.bucket, rec.bundle,
                                      payloads, fail)
@@ -1221,7 +1574,10 @@ class CompressionService:
                         self._observe_latency(req)
             else:
                 te0 = time.monotonic()
-                self._decode_batch_lanes(rec.batch, rec.sym, codec, fail)
+                self._decode_batch_lanes(
+                    rec.batch, rec.sym,
+                    lambda p: self._decode_payloads(rec.bundle, p, trace),
+                    fail)
                 te1 = time.monotonic()
         except BaseException as e:  # noqa: BLE001 — answer every caller
             for i, req in enumerate(rec.batch):
@@ -1234,7 +1590,7 @@ class CompressionService:
                 (te1 - te0) * 1e3)
             self.tracer.span_batch(rec.batch, trace_lib.SPAN_ENTROPY,
                                    te0, te1, kind=rec.kind,
-                                   backend="thread")
+                                   backend=self.config.entropy_backend)
         return (te0, te1)
 
     def _finish_batch(self, rec: _Inflight) -> None:
@@ -1333,7 +1689,7 @@ class CompressionService:
         t_ent = time.monotonic()
         vols = [np.transpose(symbols[i], (2, 0, 1))
                 for i in range(len(batch))]
-        payloads = loader_lib.encode_batch_isolated(bundle.codec, vols)
+        payloads = self._encode_vols(bundle, vols)
         self._encode_results(batch, bucket, bundle, payloads,
                              lambda i, r, e: r.future.set_exception(e))
         t_done = time.monotonic()
@@ -1361,7 +1717,8 @@ class CompressionService:
             if isinstance(e, IntegrityError):
                 self.metrics.counter("serve_integrity_errors").inc()
 
-        self._decode_batch_lanes(batch, sym, bundle.codec, _fail)
+        self._decode_batch_lanes(
+            batch, sym, lambda p: self._decode_payloads(bundle, p), _fail)
         t_ent_end = time.monotonic()
         entropy_ms = (t_ent_end - t_ent) * 1e3
         self.tracer.span_batch(batch, trace_lib.SPAN_ENTROPY, t_ent,

@@ -4,8 +4,9 @@ slot of `SwapCoordinator`).
 
 "The model" is several coupled things the dataplane reads at different
 moments: the device weights of the batched device functions, the codec's
-context-model weights on the host, and the per-thread codec clones of the
-entropy pool. A `ModelBundle` holds them all; a worker captures ONE bundle
+context-model weights on the host, the per-thread codec clones of the
+entropy pool, and with the process entropy backend the pool of children
+that hold their own codec. A `ModelBundle` holds them all; a worker captures ONE bundle
 at batch start and threads it through every stage of that batch, so the
 device stage and the entropy stage always read the same model.
 
@@ -27,17 +28,55 @@ SWAP_IDLE = 0
 class ModelBundle:
     """One model version, whole: the `DeviceServer` (weights on the
     device), the host codec, the digest that names them (the JAX package's
-    `params_digest`) and the checkpoint they came from. Immutable."""
+    `params_digest`) and the checkpoint they came from. Immutable except
+    the process entropy backend's pool slot, which a child-death rebuild
+    swaps under the slot's lock; `proc_initargs` (the pool initializer's
+    arguments: the path of the pickled `CodecSpec` and the warm shapes) is
+    None on the thread backend."""
 
-    __slots__ = ("epoch", "digest", "ckpt", "server", "codec")
+    __slots__ = ("epoch", "digest", "ckpt", "server", "codec",
+                 "proc_initargs", "_proc", "_proc_lock")
 
     def __init__(self, epoch: int, digest: str, server, codec, *,
-                 ckpt: Optional[str] = None):
+                 ckpt: Optional[str] = None, proc_initargs=None):
         self.epoch = int(epoch)
         self.digest = digest
         self.ckpt = ckpt
         self.server = server
         self.codec = codec
+        self.proc_initargs = proc_initargs
+        self._proc_lock = threading.Lock()
+        self._proc = None              # guarded-by: self._proc_lock
+
+    # -- process-backend pool slot -------------------------------------------
+
+    def proc(self):
+        with self._proc_lock:
+            return self._proc
+
+    def set_proc(self, pool) -> None:
+        with self._proc_lock:
+            self._proc = pool
+
+    def swap_proc_if(self, seen, factory) -> bool:
+        """Child-death rebuild: the first bridge thread to report `seen`
+        swaps in `factory()`; later reporters find it already replaced.
+        The factory runs under the slot lock: it only constructs an
+        executor (children spawn lazily at the first submit)."""
+        with self._proc_lock:
+            if self._proc is not seen:
+                return False
+            self._proc = factory()
+        return True
+
+    def retire(self, wait: bool = False) -> None:
+        """Shut down this bundle's process pool, if any, outside the slot
+        lock. Idempotent. Tasks already submitted run to completion
+        (shutdown only refuses new work); `wait` joins the children."""
+        with self._proc_lock:
+            pool, self._proc = self._proc, None
+        if pool is not None:
+            pool.shutdown(wait=wait)
 
     def __repr__(self) -> str:
         return (f"ModelBundle(epoch={self.epoch}, digest={self.digest!r}, "

@@ -1,6 +1,7 @@
 """Request tracing + crash flight recorder (a copy of the JAX package's
-`serve/trace.py`, for one service: no router, federation or process
-backend here, so no cross-process stitching).
+`serve/trace.py`, for one service: no router or federation here; the
+process entropy backend's tasks carry the sampled contexts to the child
+and back, `sampled_tuple`, and its coding span is `SPAN_ENTROPY_PROC`).
 
 * **Tracer** — span-based request tracing. A `TraceContext` (trace id +
   head sampling decision) is minted at admission (`service._submit`) and
@@ -47,6 +48,7 @@ from typing import (Any, Callable, Dict, Iterable, List, Mapping,
 SPAN_QUEUE = "queue.wait"           # arrival -> batch formation
 SPAN_DEVICE = "batch.device"        # device dispatch -> results on host
 SPAN_ENTROPY = "batch.entropy"      # batch rANS work (bridge-side span)
+SPAN_ENTROPY_PROC = "batch.entropy.proc"  # child-side coding (process backend)
 SPAN_SI_SEARCH = "batch.si_search"  # fused decode->siFinder->siNet executable
 SPAN_SESSION = "session.lookup"     # SI session store lookup at batch start
 SPAN_ERROR = "error"                # typed-error resolution (always recorded)
@@ -211,6 +213,17 @@ class Tracer:
                 tids.append(ctx.trace_id)
         if tids:
             self.record(name, t0, t1, tids, **args)
+
+    def sampled_tuple(self, requests: Iterable[Any]
+                      ) -> Optional[Tuple[TraceContext, ...]]:
+        """The sampled contexts of a batch as a picklable tuple (what the
+        process entropy backend ships with its task), or None when nothing
+        is sampled: the task then carries no trace bytes."""
+        if not self._enabled:
+            return None
+        out = [r.trace for r in requests
+               if r.trace is not None and r.trace.sampled]
+        return tuple(out) if out else None
 
     def error(self, ctx: Optional[TraceContext],
               exc: BaseException) -> None:

@@ -21,11 +21,12 @@ indices equal wherever the plain top-two margin exceeds 1e-4). Versions run
 in turns: A B .. B A, `turns` times over. Beside them, once per shape: the
 plain version (im2col and one cuBLAS fp32 matmul per 16 map rows) and the
 library call (one `F.conv2d` of the whole score map, then the epilogue and
-`torch.argmax`; not where the map exceeds LIBRARY_MAX_BYTES, as at
-1024x2048: 33.3 GB). Times are CUDA events over back-to-back launches
-(`k4_bench.warm_ms`). Bounds: fp32 on the CUDA cores (FLOPs / 67 TFLOP/s),
-3xTF32 on the tensor cores (3 x FLOPs / 495 TFLOP/s), and the bytes (inputs
-read once, outputs written once, at 3.35 TB/s).
+`torch.argmax`, the epilogue in place above 8 GiB so one map is live; not
+where the map exceeds LIBRARY_MAX_BYTES, and an allocator failure is
+recorded in place of the time). Times are CUDA events over back-to-back
+launches (`k4_bench.warm_ms`). Bounds: fp32 on the CUDA cores (FLOPs / 67
+TFLOP/s), 3xTF32 on the tensor cores (3 x FLOPs / 495 TFLOP/s), and the bytes
+(inputs read once, outputs written once, at 3.35 TB/s).
 Prints one line per (version, shape) and, last, a JSON object; exits 1 when
 a version disagrees with the plain version.
 """
@@ -54,7 +55,9 @@ TF32_PEAK = 495e12         # H100 SXM TF32 dense (tensor cores), 700 W
 HBM_RATE = 3.35e12         # H100 SXM device memory, bytes/s
 VAL_RTOL, VAL_ATOL = 1e-4, 1e-5
 MARGIN_ATOL = 1e-4
-LIBRARY_MAX_BYTES = 8 << 30
+# the largest library score map tried (1024x2048's is 31.1 GiB; 80 GB card),
+# and the size above which its epilogue runs in place
+LIBRARY_MAX_BYTES, INPLACE_ABOVE_BYTES = 48 << 30, 8 << 30
 # name: (kind, batch, H, W, ph, pw, kernel reps)
 SHAPES = {
     "k1_b2_320x1224": ("K1", 2, 320, 1224, 20, 24, 5),
@@ -108,7 +111,8 @@ def bounds(ops, shared: bool) -> dict:
 
 def library_argmax(ops, ph: int, pw: int, shared: bool):
     """Yardstick: the whole score map through one F.conv2d call, then the
-    epilogue and torch.argmax. Not used by the port."""
+    epilogue (in place above INPLACE_ABOVE_BYTES) and torch.argmax. Not
+    used by the port."""
     y_t, pk, inv, gh, gw_t = ops
     b, p, _ = pk.shape
     c = y_t.shape[-3]
@@ -120,7 +124,14 @@ def library_argmax(ops, ph: int, pw: int, shared: bool):
         num = F.conv2d(y_t.reshape(1, b * c, *y_t.shape[-2:]), filters,
                        groups=b)[0].reshape(b, p, *inv.shape[-2:])
         inv = inv[:, None]
-    score = num * inv * gh.t()[None, :, :, None] * gw_t[None, :, None, :]
+    if num.numel() * num.element_size() > INPLACE_ABOVE_BYTES:
+        # one map live; below this size the out-of-place chain measured
+        # faster on the H100 (PERF.md, the kernel table)
+        score = num.mul_(inv).mul_(gh.t()[None, :, :, None]).mul_(
+            gw_t[None, :, None, :])
+    else:
+        score = num * inv * gh.t()[None, :, :, None] \
+            * gw_t[None, :, None, :]
     return torch.argmax(score.reshape(b, p, -1), dim=2)
 
 
@@ -193,16 +204,24 @@ def main(argv=None) -> int:
         bnd = bounds(call, shared)
         hc, wc = ops[2].shape[-2:]
         map_bytes = 4.0 * batch * ops[1].shape[1] * hc * wc
-        library = (warm_ms(lambda: library_argmax(call, ph, pw, shared),
-                           max(1, reps // 2))
-                   if map_bytes <= LIBRARY_MAX_BYTES else None)
+        library, library_error = None, None
+        if map_bytes <= LIBRARY_MAX_BYTES:
+            try:
+                library = warm_ms(lambda: library_argmax(call, ph, pw, shared),
+                                  max(1, reps // 2))
+            except torch.cuda.OutOfMemoryError as e:
+                library_error = str(e).splitlines()[0]
+                torch.cuda.empty_cache()
+        else:
+            library_error = f"not run (a {map_bytes / 2**30:.1f} GiB map)"
         shapes[name] = dict(kind=kind, batch=batch, crop=[h, w],
                             patch=[ph, pw], P=int(ops[1].shape[1]),
                             K=int(ops[1].shape[2]), map=[int(hc), int(wc)],
-                            plain_ms=plain, library_ms=library, **bnd)
+                            plain_ms=plain, library_ms=library,
+                            library_error=library_error, **bnd)
         print(f"{name}: plain {plain:.3f} ms, library "
               + (f"{library:.3f} ms" if library is not None else
-                 f"not run (a {map_bytes / 2**30:.1f} GiB map)")
+                 library_error)
               + f"; bounds fp32 {bnd['fp32_ms']:.3f} ms, 3xTF32 "
               f"{bnd['tf32x3_ms']:.3f} ms, bytes {bnd['bytes_ms']:.4f} ms",
               flush=True)

@@ -1,9 +1,34 @@
-"""The serve bench's precision leg (counterpart of the JAX package's
-`tools/serve_bench.py:2334-2515`, `_run_precision_section` and
-`_gate_precision`).
+"""Three legs of the serve bench (counterparts of the JAX package's
+`tools/serve_bench.py`): the precision leg (`_run_precision_section`,
+`_gate_precision`, :2334-2515), the entropy-backend leg
+(`_run_backend_axis`, `_gate_backend_axis`, :484-575) and the entropy half
+of the transport leg (`_run_transport_section`, `_gate_transport`,
+:2160-2233; its router half is not ported).
 
-    python -m dsin_tpu_torch.tools.serve_bench --precision --out F.json \\
-        [--device cpu] [--reps N] [--bucket H,W] [--ae_config P] [--pc_config P]
+    python -m dsin_tpu_torch.tools.serve_bench --out F.json [--precision]
+        [--entropy_backend both] [--transport both] [--device cpu]
+        [--reps N] [--bucket H,W] [--ae_config P] [--pc_config P]
+        [--buckets "H,W H,W"] [--shapes "H,W ..."] [--requests N]
+        [--rate R] [--entropy_workers N] [--max_wait_ms MS]
+
+The entropy-backend leg serves one open-loop stream of encodes (`--requests`
+at `--rate` a second over `--shapes`, then `--decode_samples` decodes; by
+default the JAX leg's 200 at 20/s, which outruns the card's service, so the
+queue (256 deep, none rejected) holds the service at saturation for most of
+the run and `throughput_rps` reads its steady rate) through one warm
+`CompressionService` per backend, "thread" then "process", and records
+throughput, the stage histograms, the overlap ratio, the warmup (child spawn
+included), the children's pids and a two-thread probe of the host's free
+cores (`effective_cores`); a probe set of images is then encoded through
+both warm services, and `bit_identical` says whether their streams are
+byte-equal. The transport leg does the same through the process backend on
+"pipe" and on "shm" and records the lane counters; run after the backend
+leg, it takes that leg's process run as its pipe run (the same
+configuration, served once). Their gates hold only equality and health:
+byte-equal streams, no native build in the stream window (the JAX leg's
+compile sentinel), no failed request, no lane integrity error, lane sends on
+shm. The output names the card (`nvidia-smi`) and the host's cores
+(`os.cpu_count()` and the affinity mask): a served request is host-bound.
 
 For every rung of the precision ladder (`coding/precision.py`) the leg builds
 the model with `load_model_state(precision=rung)` and times each serving
@@ -35,7 +60,9 @@ import hashlib
 import json
 import os
 import statistics
+import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -52,10 +79,13 @@ from dsin_tpu_torch.models.quantizer import centers_lookup
 from dsin_tpu_torch.ops import epilogue as epi_lib
 from dsin_tpu_torch.ops import sifinder as sifinder_lib
 from dsin_tpu_torch.runtime import config_path, resolve_device
+from dsin_tpu_torch.serve import CompressionService, ServeError, ServiceConfig
 
 BATCH = 2
 FRONT_BLOCKS = 64
 MODES = ("wavefront_np", "wavefront_pl")
+#: the service legs' batching, as chip_smoke.py phase 10 serves
+LEG_MAX_BATCH, LEG_MAX_QUEUE, LEG_PIPELINE_DEPTH = 4, 256, 2
 STAGES = ("encode", "decode", "probclass_front_kernel",
           "probclass_front_library", "si_search", "sinet", "epilogue_kernel",
           "epilogue_library")
@@ -232,38 +262,340 @@ def gate_precision(section: dict) -> list:
     return violations
 
 
+# -- the entropy-backend and transport legs -----------------------------------
+
+def _parse_shapes(spec: str):
+    return [tuple(int(v) for v in part.split(",")) for part in spec.split()]
+
+
+def _build_service(args, backend: str = "thread", transport: str = "pipe"):
+    """A started, warm service for the legs -> (service, warmup dict)."""
+    service = CompressionService(ServiceConfig(
+        ae_config=args.ae_config, pc_config=args.pc_config, seed=args.seed,
+        buckets=_parse_shapes(args.buckets), max_batch=LEG_MAX_BATCH,
+        max_wait_ms=args.max_wait_ms, max_queue=LEG_MAX_QUEUE,
+        entropy_workers=args.entropy_workers, entropy_backend=backend,
+        transport=transport, pipeline_depth=LEG_PIPELINE_DEPTH,
+        device=args.device)).start()
+    return service, service.warmup()
+
+
+def _pace(i: int, t0: float, period: float) -> None:
+    """Open-loop arrival pacing: sleep until request i's slot."""
+    delay = t0 + i * period - time.monotonic()
+    if delay > 0:
+        time.sleep(delay)
+
+
+def _run_stream(service, args) -> dict:
+    """One open-loop pass of the request stream through a WARM service:
+    `requests` encodes at `rate` a second, then `decode_samples` decodes
+    of their streams; `steady_builds` counts native builds in the window."""
+    rng = np.random.default_rng(args.seed)
+    images = [rng.integers(0, 255, (h, w, 3), dtype=np.uint8)
+              for h, w in _parse_shapes(args.shapes)]
+    futures, rejected, errors = [], 0, 0
+    builds = native_build.build_count()
+    period = 1.0 / args.rate
+    t_start = time.monotonic()
+    for i in range(args.requests):
+        _pace(i, t_start, period)
+        try:
+            futures.append(service.submit_encode(images[i % len(images)]))
+        except ServeError:
+            rejected += 1
+    t_submit_done = time.monotonic()
+    for f in futures:
+        try:
+            f.result(timeout=600.0)
+        except Exception:  # noqa: BLE001 — counted as failed
+            errors += 1
+    t_done = time.monotonic()
+    decode_ok = 0
+    for f in futures[:args.decode_samples]:
+        if f.exception(timeout=0) is None:
+            img = service.decode(f.result().stream, timeout=600.0)
+            decode_ok += img.ndim == 3
+    duration = t_done - t_start
+    completed = len(futures) - errors
+    return {"submitted": len(futures), "rejected_at_submit": rejected,
+            "completed": completed, "failed": errors,
+            "duration_s": round(duration, 4),
+            "submit_window_s": round(t_submit_done - t_start, 4),
+            "throughput_rps": round(completed / duration, 3)
+            if duration > 0 else 0.0,
+            "decode_roundtrips": decode_ok,
+            "steady_builds": native_build.build_count() - builds}
+
+
+def _mode_sections(service) -> dict:
+    """The service's own stage metrics after a run."""
+    snap = service.metrics.snapshot()
+    hists, acc = snap["histograms"], snap.get("accumulators", {})
+
+    def hist(name):
+        return {k: round(float(v), 3) for k, v in hists.get(name, {}).items()}
+
+    return {
+        "latency_ms": hist("serve_latency_ms"),
+        "batch_occupancy": {
+            "mean": round(float(hists.get("serve_batch_occupancy",
+                                          {}).get("mean", 0.0)), 4),
+            "batches": snap["counters"].get("serve_batches", 0)},
+        "stages": {
+            "device_ms": hist("serve_device_ms"),
+            "entropy_ms": hist("serve_entropy_ms"),
+            "entropy_batch_ms": hist("serve_entropy_batch_ms"),
+            "device_ms_total": round(acc.get("serve_device_ms_total", 0.0), 3),
+            "entropy_ms_total": round(acc.get("serve_entropy_ms_total", 0.0),
+                                      3),
+            "busy_ms_total": round(acc.get("serve_busy_ms_total", 0.0), 3)},
+        "overlap_ratio": round(snap["gauges"].get("serve_overlap_ratio", 0.0),
+                               4),
+    }
+
+
+def _effective_cores(reps: int = 30) -> float:
+    """Two-thread matmul throughput over one thread's (about 1.0: the host
+    runs one thread at speed right now; about 2.0: two free cores)."""
+    a = np.random.default_rng(0).random((192, 192))
+
+    def rate(nthreads):
+        def burn():
+            for _ in range(reps):
+                (a @ a).sum()
+        ts = [threading.Thread(target=burn) for _ in range(nthreads)]
+        t0 = time.perf_counter()
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join()
+        return nthreads * reps / (time.perf_counter() - t0)
+
+    r1 = rate(1)
+    return rate(2) / r1 if r1 > 0 else 0.0
+
+
+def _probe_images(args):
+    rng = np.random.default_rng(args.seed + 1)
+    shapes = _parse_shapes(args.shapes)
+    return [rng.integers(0, 255, (h, w, 3), dtype=np.uint8)
+            for h, w in shapes[:3]]
+
+
+def _shm_counters(counters) -> dict:
+    out = {k: counters.get(f"serve_shm_{k}", 0)
+           for k in ("sends", "bytes", "replies", "frees", "fallbacks",
+                     "fallback_oversize", "fallback_exhausted")}
+    out["integrity_errors"] = counters.get("serve_integrity_errors", 0)
+    return out
+
+
+def _leg_run(args, backend: str, transport: str, probes) -> tuple:
+    """One warm service of the leg: the stream, then the probes encoded;
+    -> (run entry, probe streams)."""
+    svc, warm = _build_service(args, backend=backend, transport=transport)
+    try:
+        cores = round(_effective_cores(), 2)
+        run = _run_stream(svc, args)
+        frames = [svc.encode(im, timeout=600.0).stream for im in probes]
+        pids = sorted({p["pid"] for p in svc._proc_warm})
+    finally:
+        svc.drain(timeout=600.0)
+    sections = _mode_sections(svc)
+    entry = {
+        "throughput_rps": run["throughput_rps"],
+        "completed": run["completed"], "failed": run["failed"],
+        "steady_builds": run["steady_builds"],
+        "decode_roundtrips": run["decode_roundtrips"],
+        "entropy_workers": svc._entropy_workers,
+        "warmup": {k: (round(v, 4) if isinstance(v, float) else v)
+                   for k, v in warm.items()},
+        "latency_ms": sections["latency_ms"],
+        "stages": sections["stages"],
+        "overlap_ratio": sections["overlap_ratio"],
+        "effective_cores": cores,
+        "worker_pids": pids,
+        "shm": _shm_counters(svc.metrics.snapshot()["counters"]),
+        "pool_rebuilds": svc.metrics.counter(
+            "serve_entropy_proc_rebuilds").value,
+    }
+    return entry, frames
+
+
+def run_backend_axis(args) -> tuple:
+    """The entropy-backend leg: the same stream through one warm service
+    per backend, "thread" then "process" (on the pipe), and the probe
+    set's streams compared byte for byte (`bit_identical`). -> (section,
+    the process run and its probe streams, which the transport leg
+    reuses as its pipe run)."""
+    probes = _probe_images(args)
+    out = {"axis": ["thread", "process"], "runs": {}, "bit_identical": None}
+    frames = {}
+    for backend in out["axis"]:
+        out["runs"][backend], frames[backend] = _leg_run(args, backend,
+                                                         "pipe", probes)
+    out["bit_identical"] = frames["thread"] == frames["process"]
+    thread_rps = out["runs"]["thread"]["throughput_rps"]
+    out["process_vs_thread"] = (
+        round(out["runs"]["process"]["throughput_rps"] / thread_rps, 3)
+        if thread_rps else None)
+    return out, (out["runs"]["process"], frames["process"])
+
+
+def gate_backend_axis(section) -> list:
+    """Violations of the backend leg: streams that differ across backends,
+    a native build in the stream window, a failed request."""
+    violations = []
+    if section["bit_identical"] is not True:
+        violations.append("thread and process backends emitted different "
+                          "bytes for the same probe images")
+    for backend, entry in section["runs"].items():
+        if entry["steady_builds"] != 0:
+            violations.append(f"entropy_backend={backend}: "
+                              f"{entry['steady_builds']} native builds in "
+                              f"the stream window")
+        if entry["failed"]:
+            violations.append(f"entropy_backend={backend}: "
+                              f"{entry['failed']} requests failed")
+    return violations
+
+
+def run_transport_section(args, pipe_run=None) -> dict:
+    """The transport leg's entropy half: the same stream through the
+    process backend on "pipe" and on "shm", the probe set's streams
+    compared byte for byte, the lane counters of each run. `pipe_run`
+    (run entry, probe streams) is the backend leg's process run, the same
+    configuration, when that leg ran first."""
+    probes = _probe_images(args)
+    out = {"axis": ["pipe", "shm"],
+           "entropy": {"runs": {}, "bit_identical": None}}
+    frames = {}
+    for transport in out["axis"]:
+        if transport == "pipe" and pipe_run is not None:
+            out["entropy"]["runs"]["pipe"], frames["pipe"] = pipe_run
+            continue
+        out["entropy"]["runs"][transport], frames[transport] = _leg_run(
+            args, "process", transport, probes)
+    out["entropy"]["bit_identical"] = frames["pipe"] == frames["shm"]
+    pipe_rps = out["entropy"]["runs"]["pipe"]["throughput_rps"]
+    out["entropy"]["shm_vs_pipe"] = (
+        round(out["entropy"]["runs"]["shm"]["throughput_rps"] / pipe_rps, 3)
+        if pipe_rps else None)
+    return out
+
+
+def gate_transport(section) -> list:
+    """Violations of the transport leg: streams that differ across
+    transports, a failed request, a native build in the stream window, a
+    lane integrity error, or no lane send on shm (every payload fell back
+    to the pipe: the lanes never ran)."""
+    violations = []
+    sub = section["entropy"]
+    if sub["bit_identical"] is not True:
+        violations.append("transport/entropy: pipe and shm emitted "
+                          "different bytes for the same stream")
+    for transport, entry in sub["runs"].items():
+        if entry["failed"]:
+            violations.append(f"transport/entropy {transport}: "
+                              f"{entry['failed']} requests failed")
+        if entry["steady_builds"]:
+            violations.append(f"transport/entropy {transport}: "
+                              f"{entry['steady_builds']} native builds in "
+                              f"the stream window")
+        if entry["shm"]["integrity_errors"]:
+            violations.append(f"transport/entropy {transport}: "
+                              f"{entry['shm']['integrity_errors']} integrity "
+                              f"errors on a clean run")
+    if sub["runs"]["shm"]["shm"]["sends"] == 0:
+        violations.append("transport/entropy shm: zero lane sends — every "
+                          "payload fell back to the pipe")
+    return violations
+
+
+def host_line(device: str) -> dict:
+    """The card (`nvidia-smi` name and power limit; None on the CPU) and the
+    host's cores."""
+    card = None
+    if torch.device(device).type == "cuda":
+        card = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True).stdout.strip().splitlines()[0]
+    return {"card": card, "cpu_count": os.cpu_count(),
+            "affinity_cores": len(os.sched_getaffinity(0))}
+
+
 def main(argv=None) -> int:
-    p = argparse.ArgumentParser(description="the port's serve-bench "
-                                "precision leg")
-    p.add_argument("--precision", action="store_true", required=True,
-                   help="run the precision leg (the only leg ported)")
+    p = argparse.ArgumentParser(description="the port's serve bench: the "
+                                "precision, entropy-backend and transport "
+                                "legs")
+    p.add_argument("--precision", action="store_true",
+                   help="run the precision leg")
+    p.add_argument("--entropy_backend", choices=("both",),
+                   help="run the entropy-backend leg (thread vs process)")
+    p.add_argument("--transport", choices=("both",),
+                   help="run the transport leg (pipe vs shm, process "
+                        "backend)")
     p.add_argument("--out", required=True, help="JSON result file")
     p.add_argument("--ae_config", default=config_path("ae_kitti_stereo"))
     p.add_argument("--pc_config", default=config_path("pc_default"))
     p.add_argument("--bucket", default=None,
-                   help="H,W of the inputs (default: the AE config's "
-                        "eval_crop_size)")
+                   help="precision leg: H,W of the inputs (default: the AE "
+                        "config's eval_crop_size)")
     p.add_argument("--reps", type=int, default=5)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda")
+    p.add_argument("--buckets", default="160,600 320,1224",
+                   help="service legs: the service's buckets")
+    p.add_argument("--shapes", default="320,1224 300,1200 150,590",
+                   help="service legs: request image shapes, cycled")
+    p.add_argument("--requests", type=int, default=200)
+    p.add_argument("--rate", type=float, default=20.0,
+                   help="service legs: encode submits a second")
+    p.add_argument("--decode_samples", type=int, default=4)
+    p.add_argument("--max_wait_ms", type=float, default=5.0)
+    p.add_argument("--entropy_workers", type=int, default=4)
     args = p.parse_args(argv)
-    if args.bucket:
-        bucket = tuple(int(v) for v in args.bucket.split(","))
-    else:
-        bucket = parse_config_file(args.ae_config).get("eval_crop_size")
-        if bucket is None:
-            p.error("the AE config has no eval_crop_size: pass --bucket H,W")
+    if not (args.precision or args.entropy_backend or args.transport):
+        p.error("choose a leg: --precision, --entropy_backend both or "
+                "--transport both")
+    resolve_device(args.device)
     report = {"config": {"ae_config": args.ae_config,
                          "pc_config": args.pc_config, "seed": args.seed},
-              "precision": run_precision_section(
-                  args.ae_config, args.pc_config, bucket, args.reps,
-                  seed=args.seed, device=args.device)}
+              "host": host_line(args.device)}
+    violations = []
+    if args.precision:
+        if args.bucket:
+            bucket = tuple(int(v) for v in args.bucket.split(","))
+        else:
+            bucket = parse_config_file(args.ae_config).get("eval_crop_size")
+            if bucket is None:
+                p.error("the AE config has no eval_crop_size: pass "
+                        "--bucket H,W")
+        report["precision"] = run_precision_section(
+            args.ae_config, args.pc_config, bucket, args.reps,
+            seed=args.seed, device=args.device)
+        violations += gate_precision(report["precision"])
+    if args.entropy_backend or args.transport:
+        report["config"].update(
+            buckets=args.buckets, shapes=args.shapes,
+            requests=args.requests, rate=args.rate,
+            entropy_workers=args.entropy_workers,
+            pipeline_depth=LEG_PIPELINE_DEPTH, max_batch=LEG_MAX_BATCH)
+    pipe_run = None
+    if args.entropy_backend:
+        report["backend"], pipe_run = run_backend_axis(args)
+        violations += gate_backend_axis(report["backend"])
+    if args.transport:
+        report["transport"] = run_transport_section(args, pipe_run)
+        violations += gate_transport(report["transport"])
     tmp = args.out + ".tmp"
     with open(tmp, "w") as f:
         json.dump(report, f, indent=1)
     os.replace(tmp, args.out)
-    print(json.dumps(report["precision"], indent=1))
-    violations = gate_precision(report["precision"])
+    print(json.dumps({k: v for k, v in report.items() if k != "config"},
+                     indent=1))
     if violations:
         print(f"SERVE_BENCH_FAILED: {violations}", file=sys.stderr)
         return 1

@@ -1,5 +1,6 @@
 """The port's CompressionService on the card: stream and event ordering
-across worker streams and the entropy pool, and K2 once per SI batch.
+across worker streams and the entropy pool, K2 once per SI batch, and the
+process entropy backend (shm lanes) against the thread backend.
 
 Every test here needs an NVIDIA card; on a machine without one they skip
 (decided inside the `cuda` fixture, so every pytest-xdist worker collects
@@ -12,8 +13,12 @@ The tiny configuration (20x24 patches) at one 80x96 bucket, 2 workers
 served concurrently must give streams and images bit-equal to the same
 requests served one at a time: every batch is padded to 4 lanes, so only
 the other lanes differ, and a copy read before its event, or a prep read
-before it was complete, would show as a difference.
+before it was complete, would show as a difference. The process backend
+must give the thread backend's streams and images, bit for bit, from
+children that hold no CUDA context and built nothing.
 """
+
+import dataclasses
 
 import threading
 
@@ -115,3 +120,34 @@ def test_k2_once_per_si_batch(service):
     assert sum(si_batches) == N
     assert launches == {"pearson_argmax": 0,
                         "pearson_argmax_shared": len(si_batches)}
+
+
+@pytest.mark.gpu
+def test_process_backend_equals_thread_backend(service):
+    side, imgs = _images(2)
+    sid = service.open_session(side)
+    want = [service.encode(img) for img in imgs]
+    streams = [r.stream for r in want]
+    want_dec = [service.decode(s) for s in streams]
+    want_si = [service.decode_si(s, sid) for s in streams]
+    proc = CompressionService(dataclasses.replace(
+        service.config, entropy_backend="process", transport="shm")).start()
+    try:
+        proc.warmup()
+        assert len(proc._proc_warm) == 2
+        for ping in proc._proc_warm:
+            assert ping["cuda_initialized"] is False
+            assert ping["native_builds"] == 0
+        got = _concurrently(proc.encode, imgs)
+        assert [r.stream for r in got] == streams
+        psid = proc.open_session(side)
+        for op, ref in ((proc.decode, want_dec),
+                        (lambda s: proc.decode_si(s, psid), want_si)):
+            for a, b in zip(_concurrently(op, streams), ref):
+                np.testing.assert_array_equal(a, b)
+        after = proc._ping_children(proc._swap.current)
+        assert not any(p["cuda_initialized"] or p["native_builds"]
+                       for p in after)
+        assert proc.metrics.counter("serve_entropy_proc_rebuilds").value == 0
+    finally:
+        assert proc.drain()

@@ -287,14 +287,29 @@ def test_drain_leaves_no_hung_future(world, streams):
     ({"rollback_watchdog_window_s": 1.0}, "11b"), ({"devices": 2}, "11c"),
     ({"placement_weights": {BUCKET: 1.0}}, "11c"),
     ({"rebalance_check_every_s": 1.0}, "11c"),
-    ({"priority_classes": ()}, "11d"), ({"entropy_backend": "process"}, "11e"),
-    ({"transport": "shm"}, "11e")])
+    ({"priority_classes": ()}, "11d")])
 def test_refused_configurations_name_their_item(world, over, item):
     kw = dict(world["common"], device="cpu")
     kw.update(over)
     with pytest.raises(NotImplementedError,
                        match=f"ROADMAP Queue 1 item {item} "):
         CompressionService(ServiceConfig(**kw))
+
+
+@pytest.mark.parametrize("over,match", [
+    ({"entropy_backend": "process", "entropy_workers": 0},
+     "entropy_workers > 0"),
+    ({"entropy_backend": "fiber"}, "entropy_backend"),
+    ({"transport": "carrier-pigeon"}, "transport"),
+    ({"entropy_backend": "process", "entropy_proc_timeout_s": 0.0},
+     "entropy_proc_timeout_s")])
+def test_backend_configurations_are_validated_typed(world, over, match):
+    """The JAX service's validation of the entropy-backend knobs, typed
+    ValueError at start() before the model build."""
+    kw = dict(world["common"], device="cpu")
+    kw.update(over)
+    with pytest.raises(ValueError, match=match):
+        CompressionService(ServiceConfig(**kw)).start()
 
 
 @pytest.mark.parametrize("method,args,item", [
