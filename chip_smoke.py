@@ -149,7 +149,31 @@ Phases; any failure raises, prints no result and exits non-zero:
      A, its warmup s (child spawn included, with when each child's initializer
      started and the size of the pool's start-up arguments), its shm lane sends
      and fallbacks and the host's cores; A1 holds A's streams, images and K2
-     count.
+     count;
+ 11. the model lifecycle at full width (the phase 10 service on the process
+     backend, pipe, 4 children a bundle, quality on, the canary prober every
+     second, the watchdog armed), from two checkpoints A and B saved from
+     seeds with their manifests, the service started on A: (1) the publish
+     flow for B (prepare_swap -> canary_goldens(staged=True) -> abort_swap ->
+     re-save as B' with the goldens), the abort leaving no child and no
+     dsintorch segment behind; (2) phase 10's traffic mix from 4 clients
+     while prepare_swap(B') + commit_swap land mid-stream: no request fails
+     (a session opened before the commit answers SessionExpired and is
+     re-opened), every encode stream is byte-equal to A's or B''s stream of
+     that image alone, and only B''s after the commit; K2's launches equal
+     the SI micro-batches that ran plus the staged bundle's warm and canary
+     probe (scores off on the card: K2 runs with quality on); (3) rollback()
+     to A's digest and streams; (4) B'' (B' bit-flipped, B''s goldens)
+     refused with CanaryFailed, nothing staged; (5) swap_model(B'',
+     canary=False): the prober catches it and the watchdog rolls back to A
+     by itself; (6) a kill in the prepare window (serve.swap) and (7) a
+     corrupted manifest (ckpt.manifest) refused typed, A serving; no native
+     build after warmup; after the drain no child and no segment. Prints the
+     prepare s split into load, warm and pool start, commit ms (with no
+     bundle displaced, and with B' displaced in (5)), rollback ms,
+     the canary probe ms per bucket, the seconds from the forced commit to
+     the watchdog's rollback and requests/s before, during and after the
+     prepare window, each beside the card's name and power limit.
 Each phase's wall time is printed after the last phase.
 Kernel times are CUDA events around back-to-back runs that the host
 enqueued while the device slept, so they are device time.
@@ -2323,6 +2347,416 @@ def service_phase(seed: int, dev) -> int:
     return k2
 
 
+# -- phase 11: the model lifecycle on one card -------------------------------
+
+LIFE_SEEDS = {"A": 101, "B": 102}     # added to --seed
+LIFE_LOAD_S = 8.0            # traffic before the prepare and after the commit
+LIFE_CANARY_EVERY_S = 1.0
+LIFE_SESSIONS = 8
+LIFE_REOPENS = 3             # re-opens of a session a commit expired
+
+
+def child_pids() -> list:
+    """Every child process of this one (zombies included: an unreaped child
+    counts), read from /proc, less multiprocessing's resource tracker (one
+    for the process's life, started with the first pool)."""
+    from multiprocessing import resource_tracker
+    tracker = getattr(resource_tracker._resource_tracker, "_pid", None)
+    me, out = os.getpid(), []
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/stat") as f:
+                ppid = int(f.read().rsplit(")", 1)[1].split()[1])
+        except (OSError, IndexError, ValueError):
+            continue
+        if ppid == me and int(d) != tracker:
+            out.append(int(d))
+    return sorted(out)
+
+
+def shm_segments() -> list:
+    return sorted(n for n in os.listdir("/dev/shm")
+                  if n.startswith("dsintorch-"))
+
+
+def life_checkpoints(seed: int, root: str) -> dict:
+    """Checkpoints A and B: the full-width model from two seeds, saved with
+    the manifest a service verifies (pc-config hash, seed, bucket ladder);
+    name -> (dir, ModelState, manifest extra)."""
+    from dsin_tpu_torch.config import parse_config_file
+    ae = parse_config_file(config_path("ae_kitti_stereo")).replace(
+        AE_only=False)
+    pc = parse_config_file(config_path("pc_default"))
+    out = {}
+    for name, off in LIFE_SEEDS.items():
+        state = ckpt_lib.state_from_model(
+            build_model(ae, pc, device="cpu", seed=seed + off))
+        extra = {"pc_config_sha256": ckpt_lib.config_sha256(pc),
+                 "seed": seed + off,
+                 "buckets": [list(b) for b in SERVE_BUCKETS]}
+        path = os.path.join(root, name)
+        ckpt_lib.save_checkpoint(path, state, manifest_extra=extra)
+        out[name] = (path, state, extra)
+    return out
+
+
+def streams_alone(svc, bundle, imgs) -> list:
+    """Each image's stream from `bundle` as the dataplane codes a request
+    alone in its batch: lane 0 of a max_batch batch padded with zeros."""
+    from dsin_tpu_torch.serve.buckets import pad_to_bucket
+    from dsin_tpu_torch.serve.service import frame_stream
+    out = []
+    for img in imgs:
+        h, w = img.shape[:2]
+        bucket = svc.policy.bucket_for(h, w)
+        x = np.zeros((svc.config.max_batch, *bucket, 3), np.float32)
+        x[0] = pad_to_bucket(img.astype(np.float32), bucket)
+        sym = bundle.server.encode_symbols(x).cpu().numpy()
+        out.append(frame_stream(
+            bundle.codec.encode(np.transpose(sym[0], (2, 0, 1))), (h, w),
+            bucket))
+    return out
+
+
+class LifeLoad:
+    """Phase 10's traffic on a loop from SERVE_CLIENTS client threads: each
+    client encodes its images in turn and decodes each stream (decode_si
+    against its owner's session at the large bucket, decode at the small
+    one). A session that a commit or rollback expired answers typed
+    SessionExpired: the client re-opens it and retries. Every request
+    is recorded as (kind, image, submit s, resolve s, result, error)."""
+
+    def __init__(self, svc, traffic):
+        import threading
+        self.svc, self.traffic = svc, traffic
+        self.stop = threading.Event()
+        self._lock = threading.Lock()
+        self.records = []              # guarded-by: self._lock
+        self.sids = {}                 # guarded-by: self._lock
+        self.session_gone = 0          # guarded-by: self._lock
+        self.threads = [threading.Thread(target=self._client, args=(c,),
+                                         name=f"life-client-{c}")
+                        for c in range(SERVE_CLIENTS)]
+
+    def _sid(self, k: int, stale=None) -> str:
+        with self._lock:
+            if stale is not None and self.sids.get(k) == stale:
+                del self.sids[k]
+                self.session_gone += 1
+            sid = self.sids.get(k)
+        if sid is None:
+            opened = self.svc.open_session(self.traffic[0][k])
+            with self._lock:
+                sid = self.sids.setdefault(k, opened)
+            if sid != opened:      # another client re-opened it first
+                self.svc.close_session(opened)
+        return sid
+
+    def _note(self, kind, i, t0, result=None, error=None) -> None:
+        with self._lock:
+            self.records.append((kind, i, t0, time.perf_counter(), result,
+                                 error))
+
+    def _decode_si(self, stream, k):
+        """A session opened before the commit (or while it landed: its prep
+        built on the old model) answers SessionExpired; re-open and retry,
+        at most LIFE_REOPENS times."""
+        from dsin_tpu_torch.serve import SessionExpired
+        sid = self._sid(k)
+        for _ in range(LIFE_REOPENS):
+            try:
+                return self.svc.decode_si(stream, sid,
+                                          timeout=SERVE_TIMEOUT_S)
+            except SessionExpired:
+                sid = self._sid(k, stale=sid)
+        return self.svc.decode_si(stream, sid, timeout=SERVE_TIMEOUT_S)
+
+    def _client(self, c: int) -> None:
+        _, imgs, owner = self.traffic
+        big = SERVE_BUCKETS[-1]
+        while not self.stop.is_set():
+            for i in range(c, len(imgs), SERVE_CLIENTS):
+                for kind in ("encode", "decode"):
+                    t0 = time.perf_counter()
+                    try:
+                        if kind == "encode":
+                            res = self.svc.encode(imgs[i],
+                                                  timeout=SERVE_TIMEOUT_S)
+                            stream = res.stream
+                        elif self.svc.policy.bucket_for(
+                                *imgs[i].shape[:2]) == big:
+                            kind = "decode_si"
+                            res = self._decode_si(stream, owner[i])
+                        else:
+                            res = self.svc.decode(stream,
+                                                  timeout=SERVE_TIMEOUT_S)
+                    except Exception as e:  # noqa: BLE001 — every failure
+                        self._note(kind, i, t0, error=e)   # is a finding
+                        break
+                    self._note(kind, i, t0, result=res)
+
+    def start(self) -> "LifeLoad":
+        for t in self.threads:
+            t.start()
+        return self
+
+    def finish(self) -> list:
+        self.stop.set()
+        for t in self.threads:
+            t.join(SERVE_TIMEOUT_S)
+        if any(t.is_alive() for t in self.threads):
+            raise AssertionError("a load client did not finish")
+        return self.records
+
+
+def rate(records, t0: float, t1: float) -> float:
+    done = sum(t0 <= r[3] < t1 for r in records)
+    return done / (t1 - t0) if t1 > t0 else 0.0
+
+
+def hold_canary(svc):
+    """Claim the canary (waiting out a probe in flight), so no probe runs
+    while launches are counted; the caller releases it."""
+    deadline = time.monotonic() + SERVE_TIMEOUT_S
+    while not svc._canary.claim():
+        if time.monotonic() > deadline:
+            raise AssertionError("the canary prober never let go")
+        time.sleep(0.01)
+
+
+def check_still_a(svc, digest_a: str, a_streams, imgs, label: str) -> None:
+    snap = svc.health()["model"]
+    if snap["digest"] != digest_a or snap["swap_state"] != 0 \
+            or snap["staged_digest"] is not None:
+        raise AssertionError(f"{label}: not serving A, idle: {snap}")
+    got = svc.encode(imgs[0], timeout=SERVE_TIMEOUT_S)
+    if got.stream != a_streams[0] or got.model_digest != digest_a:
+        raise AssertionError(f"{label}: A's bytes lost")
+
+
+def lifecycle_phase(seed: int, dev) -> int:
+    """Phase 11 (see the module docstring); returns K2's launches in the
+    swap-under-load traffic."""
+    from dsin_tpu_torch.serve import CanaryFailed, CompressionService
+    from dsin_tpu_torch.tools.chaos_bench import bitflip_params
+    from dsin_tpu_torch.utils import faults
+    card = card_line()
+    root = tempfile.mkdtemp(prefix="chip_smoke_life_")
+    ckpts = life_checkpoints(seed, root)
+    path_a, _, _ = ckpts["A"]
+    path_b, state_b, extra_b = ckpts["B"]
+    children0, shm0 = child_pids(), shm_segments()
+    svc = CompressionService(serve_config(
+        seed, dev, ckpt=path_a, entropy_backend="process", transport="pipe",
+        session_max=LIFE_SESSIONS, canary_every_s=LIFE_CANARY_EVERY_S,
+        rollback_watchdog_window_s=2.0)).start()
+    traffic = serve_traffic(seed)
+    imgs = traffic[1]
+    k2 = 0
+    try:
+        warm = svc.warmup()
+        builds = native_build.build_count()
+        digest_a = svc.model_digest
+        a_streams = streams_alone(svc, svc._swap.current, imgs)
+        if svc.encode(imgs[0], timeout=SERVE_TIMEOUT_S).stream \
+                != a_streams[0]:
+            raise AssertionError("the service's stream is not A's alone")
+        children1 = child_pids()
+        log(f"  A from {path_a}: digest {digest_a}, warmup "
+            f"{warm['seconds']:.2f} s, {len(children1) - len(children0)} "
+            f"children, K2 route {svc._si_route!r} with scores "
+            f"{'on' if svc._si_scores_enabled else 'off'} and quality on; "
+            f"card {card}")
+
+        # 1: the publish flow for B
+        info = svc.prepare_swap(path_b)
+        staged = svc._swap.staged
+        b_streams = streams_alone(svc, staged, imgs)
+        goldens = svc.canary_goldens(staged=True)
+        during = len(child_pids())
+        svc.abort_swap()
+        left = sorted(set(child_pids()) - set(children1))
+        if left or child_pids() != children1 or shm_segments() != shm0:
+            raise AssertionError(f"abort left children {left} or segments "
+                                 f"{shm_segments()}")
+        path_b1 = os.path.join(root, "B1")
+        ckpt_lib.save_checkpoint(path_b1, state_b,
+                                 manifest_extra={**extra_b, "canary": goldens})
+        sp = info["split"]
+        log(f"  1 publish flow: prepare_swap(B) {info['seconds']:.2f} s "
+            f"(load {sp['load_s']:.2f}, warm {sp['warm_s']:.2f}, pool start "
+            f"{sp['pool_s']:.2f}; canary {info['canary']['status']}), "
+            f"canary_goldens(staged=True), abort_swap: children "
+            f"{len(children1)} -> {during} -> {len(child_pids())}, "
+            f"dsintorch segments {len(shm0)} -> {len(shm_segments())}; "
+            f"B' re-saved with goldens; card {card}")
+
+        # 2: the swap under load
+        records = []
+        hold_canary(svc)
+        svc._batch_hook = lambda batch: records.append(
+            (batch[0].key[0], [r.future for r in batch]))
+        torch.cuda.synchronize()
+        sk.reset_launch_counts()
+        svc._canary.release()
+        load = LifeLoad(svc, traffic).start()
+        t_start = time.perf_counter()
+        time.sleep(LIFE_LOAD_S)
+        t_prep = time.perf_counter()
+        info = svc.prepare_swap(path_b1)
+        t_commit = time.perf_counter()
+        snap = svc.commit_swap(expect_digest=info["digest"])
+        t_done = time.perf_counter()
+        digest_b = snap["digest"]
+        time.sleep(LIFE_LOAD_S)
+        done = load.finish()
+        t_end = time.perf_counter()
+        hold_canary(svc)
+        torch.cuda.synchronize()
+        svc._batch_hook = None
+        launches = dict(sk.launch_counts)
+        svc._canary.release()
+        for _, futs in records:
+            for f in futs:
+                f.exception(SERVE_TIMEOUT_S)
+        si_batches = sum(kind == "decode_si" and any(
+            f.exception(0) is None for f in futs) for kind, futs in records)
+        probes = 2 * len(SERVE_BUCKETS)   # the warm and the canary check
+        if launches != {"pearson_argmax": 0,
+                        "pearson_argmax_shared": si_batches + probes}:
+            raise AssertionError(f"launches {launches}: {si_batches} SI "
+                                 f"batches + {probes} warm and probe")
+        k2 = launches["pearson_argmax_shared"]
+        failed = [r for r in done if r[5] is not None]
+        if failed:
+            raise AssertionError(f"{len(failed)} requests failed under the "
+                                 f"swap: {[repr(r[5]) for r in failed[:4]]}")
+        old = new = 0
+        for kind, i, t0, _, res, _ in done:
+            if kind != "encode":
+                if res.shape != imgs[i].shape or res.dtype != np.uint8:
+                    raise AssertionError(f"{kind} gave {res.shape}")
+                continue
+            if res.model_digest == digest_a and res.stream == a_streams[i] \
+                    and t0 < t_done:
+                old += 1
+            elif res.model_digest == digest_b and res.stream == b_streams[i]:
+                new += 1
+            else:
+                raise AssertionError(f"encode of image {i} (submitted "
+                                     f"{t0 - t_done:+.3f} s from the commit's "
+                                     f"end) is neither A's stream nor B''s")
+        if new == 0 or old == 0:
+            raise AssertionError(f"{old} A and {new} B' streams: the swap "
+                                 f"did not land mid-stream")
+        sp = info["split"]
+        log(f"  2 swap under load: {len(done)} requests ({old} A streams, "
+            f"{new} B' streams, each byte-equal to its model's stream alone; "
+            f"none failed; {load.session_gone} sessions re-opened after a "
+            f"typed SessionExpired); prepare_swap(B') {info['seconds']:.2f} s "
+            f"(load {sp['load_s']:.2f}, warm {sp['warm_s']:.2f}, pool start "
+            f"{sp['pool_s']:.2f}, canary {sp['canary_s']:.2f}: "
+            f"{info['canary']['status']}), commit "
+            f"{1e3 * (t_done - t_commit):.2f} ms; requests/s before "
+            f"{rate(done, t_start, t_prep):.2f}, during the prepare "
+            f"{rate(done, t_prep, t_commit):.2f}, after the commit "
+            f"{rate(done, t_done, t_end):.2f}; K2 {k2} launches = "
+            f"{si_batches} SI batches + {probes} warm and canary; card {card}")
+
+        # 3: rollback
+        t0 = time.perf_counter()
+        svc.rollback()
+        roll_ms = 1e3 * (time.perf_counter() - t0)
+        check_still_a(svc, digest_a, a_streams, imgs, "rollback")
+        if streams_alone(svc, svc._swap.current, imgs) != a_streams:
+            raise AssertionError("rollback: A's streams changed")
+        probe = {"status": "busy"}
+        while probe["status"] == "busy":
+            probe = svc.run_canary()
+        if probe["status"] != "ok":
+            raise AssertionError(f"canary on A after the rollback: {probe}")
+        log(f"  3 rollback {roll_ms:.2f} ms: serving A ({digest_a}), its "
+            f"streams again; canary probe through the serve path "
+            f"{probe['ms']:.1f} ms, per bucket {probe['bucket_ms']} ms "
+            f"({probe['baseline']}); card {card}")
+
+        # 4: the bit-flipped twin refused by the canary
+        path_b2 = os.path.join(root, "B2")
+        ckpt_lib.save_checkpoint(path_b2, bitflip_params(state_b),
+                                 manifest_extra={**extra_b, "canary": goldens})
+        try:
+            svc.prepare_swap(path_b2)
+            raise AssertionError("B'' was staged")
+        except CanaryFailed as e:
+            refusal = str(e)[:80]
+        if svc._swap.staged is not None:
+            raise AssertionError("B'' stays staged")
+        check_still_a(svc, digest_a, a_streams, imgs, "canary refusal")
+        log(f"  4 prepare_swap(B''): CanaryFailed ({refusal}...), nothing "
+            f"staged, A serving its bytes; card {card}")
+
+        # 5: the forced commit rolled back by the watchdog
+        wd0 = svc.metrics.counter("serve_watchdog_rollbacks").value
+        if svc._swap.snapshot()["prev_digest"] != digest_b:
+            raise AssertionError("B' is not the bundle kept for rollback")
+        t0 = time.perf_counter()
+        forced = svc.swap_model(path_b2, canary=False)
+        t_forced = time.perf_counter()
+        while svc.model_digest != digest_a:
+            if time.perf_counter() - t_forced > 120.0:
+                raise AssertionError("the watchdog did not roll B'' back")
+            time.sleep(0.01)
+        t_back = time.perf_counter()
+        if svc.metrics.counter("serve_watchdog_rollbacks").value != wd0 + 1 \
+                or svc.metrics.counter("serve_canary_failures").value < 1:
+            raise AssertionError("the rollback was not the watchdog's")
+        check_still_a(svc, digest_a, a_streams, imgs, "watchdog rollback")
+        log(f"  5 swap_model(B'', canary=False) {t_forced - t0:.2f} s, its "
+            f"commit {forced['commit_ms']:.2f} ms (B' displaced, its "
+            f"children joined off the caller's thread): the prober caught "
+            f"it and the watchdog rolled back to A {t_back - t_forced:.2f} s "
+            f"after the commit; card {card}")
+
+        # 6 and 7: a kill in the prepare window, a corrupted manifest
+        plan = faults.FaultPlan([faults.FaultSpec(
+            site="serve.swap", action="crash", times=1)], seed=seed)
+        with faults.installed(plan):
+            try:
+                svc.swap_model(path_b1)
+                raise AssertionError("the kill in the prepare window did "
+                                     "not fire")
+            except faults.InjectedCrash:
+                pass
+        check_still_a(svc, digest_a, a_streams, imgs, "prepare-window kill")
+        plan = faults.FaultPlan([faults.FaultSpec(
+            site="ckpt.manifest", action="corrupt", flips=64, times=1)],
+            seed=seed)
+        with faults.installed(plan):
+            try:
+                svc.swap_model(path_b1)
+                raise AssertionError("a corrupted manifest was adopted")
+            except ValueError as e:
+                refusal = type(e).__name__
+        check_still_a(svc, digest_a, a_streams, imgs, "corrupted manifest")
+        if native_build.build_count() != builds:
+            raise AssertionError("a native build after warmup")
+        log(f"  6 a kill in the prepare window (serve.swap): A serving, the "
+            f"claim released; 7 a corrupted manifest (ckpt.manifest): "
+            f"refused typed ({refusal}); no native build since warmup; "
+            f"card {card}")
+    finally:
+        drained = svc.drain(timeout=SERVE_TIMEOUT_S)
+        shutil.rmtree(root, ignore_errors=True)
+    if not drained or child_pids() != children0 or shm_segments() != shm0:
+        raise AssertionError(f"after the drain: drained {drained}, children "
+                             f"{child_pids()}, segments {shm_segments()}")
+    log(f"  drain() True; children and dsintorch segments back to "
+        f"{len(children0)} and {len(shm0)}")
+    return k2
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2337,13 +2771,13 @@ def main() -> int:
     rows, launches, walls = {}, {}, []
 
     def phase(title, fn):
-        log(f"[{len(walls) + 2}/10] {title}")
+        log(f"[{len(walls) + 2}/11] {title}")
         t0 = time.perf_counter()
         out = fn()
         walls.append((len(walls) + 2, time.perf_counter() - t0))
         return out
 
-    log(f"[1/10] card: {card}; torch {torch.__version__}, CUDA "
+    log(f"[1/11] card: {card}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}")
     phase("build", build_phase)
     rows.update(phase(f"kernel vs plain at {H}x{W}, patches {PH}x{PW}, seed "
@@ -2371,6 +2805,10 @@ def main() -> int:
         "the compression service at full width (ae_kitti_stereo + "
         "pc_default, buckets 160x600 and 320x1224, batches of 4)",
         lambda: service_phase(args.seed, dev))
+    launches["pearson_argmax_shared"] += phase(
+        "the model lifecycle at full width: publish, swap under load, "
+        "rollback, canary refusal, watchdog, faults (process backend, "
+        "pipe)", lambda: lifecycle_phase(args.seed, dev))
     log("phase wall s: " + ", ".join(f"[{i}] {t:.1f}" for i, t in walls))
     kernels = [dict(name=name, route="cuda", source=SOURCES[name],
                     replaces=REPLACES[name], launches=launches[name], **r)

@@ -9,8 +9,10 @@ manifest verified), and casts it to a rung of the precision ladder
 construction the call sites share; `params_digest` is the JAX package's
 parameter digest; `encode_batch_isolated` and `decode_batch_isolated`
 (the JAX package's `coding/loader.py:318, :373`) keep one lane's coding
-error on that lane, for the service's entropy stage. The port's modules are
-fully convolutional and eager, so no image shape is needed to build them.
+error on that lane, for the service's entropy stage; `load_swap_state`
+restores and verifies an incoming checkpoint for the service's hot swap.
+The port's modules are fully convolutional and eager, so no image shape is
+needed to build them.
 
 The worker-resident codec of the service's process entropy backend (the
 JAX package's `coding/loader.py:172-404`): `make_codec_spec` turns a live
@@ -45,26 +47,31 @@ from dsin_tpu_torch.train import checkpoint as ckpt_lib
 
 def build_at_rung(ae_config, pc_config, device="cuda", seed: int = 0,
                   precision: str = "fp32",
-                  ckpt_dir: Optional[str] = None) -> DSIN:
+                  ckpt_dir: Optional[str] = None,
+                  state: Optional[ckpt_lib.ModelState] = None
+                  ) -> Tuple[DSIN, Optional[dict]]:
     """The seeded DSIN of two parsed configs on `device`, cast to the ladder
-    rung `precision`. With `ckpt_dir` the AE partitions (+ siNet when the
+    rung `precision`, and the checkpoint's verification record (None
+    without `ckpt_dir`). With `ckpt_dir` the AE partitions (+ siNet when the
     config builds it) are restored over the seeded weights and verified
     against the checkpoint's manifest (typed `ManifestMismatch`; a
-    pre-manifest checkpoint loads with a UserWarning). At a rung other than
-    fp32 the AE config's `compute_dtype` follows the rung; the float32
-    weights are built and restored first, cast afterwards (identity is
-    checked against the checkpoint's own bytes), and the entropy-critical
-    tripwire runs last."""
+    pre-manifest checkpoint loads with a UserWarning); with `state` (an
+    already verified `ModelState`, `load_swap_state`) its trees are loaded
+    instead. At a rung other than fp32 the AE config's `compute_dtype`
+    follows the rung; the float32 weights are built and restored first,
+    cast afterwards (identity is checked against the checkpoint's own
+    bytes), and the entropy-critical tripwire runs last."""
     policy = precision_lib.PrecisionPolicy(precision)
     if policy.rung != "fp32":
         ae_config = ae_config.replace(compute_dtype=policy.compute_dtype)
     model = build_model(ae_config, pc_config, device=device, seed=seed)
-    if ckpt_dir:
-        restore_checkpoint(model, ckpt_dir)
+    record = restore_checkpoint(model, ckpt_dir) if ckpt_dir else None
+    if state is not None:
+        ckpt_lib.load_state(model, state)
     if policy.rung != "fp32":
         policy.cast_model(model)
         precision_lib.check_entropy_critical(model)
-    return model
+    return model, record
 
 
 def restore_checkpoint(model: DSIN, ckpt_dir: str) -> dict:
@@ -103,7 +110,33 @@ def load_model_state(ae_config_path: str, pc_config_path: str,
         AE_only=not need_sinet)
     pc_cfg = parse_config_file(pc_config_path)
     return build_at_rung(ae_cfg, pc_cfg, device=device, seed=seed,
-                         precision=precision, ckpt_dir=ckpt_dir)
+                         precision=precision, ckpt_dir=ckpt_dir)[0]
+
+
+def load_swap_state(ckpt_dir: str, template: ckpt_lib.ModelState, *,
+                    pc_config=None, buckets=None, need_sinet: bool = False):
+    """Restore an INCOMING checkpoint's partitions (+ 'sinet' with
+    `need_sinet`) into a copy of a live model's trees (`template`,
+    `train/checkpoint.state_from_model`: the same architecture; its
+    structure is the compatibility contract) and verify its manifest, for
+    the hot swap (the JAX package's `coding/loader.py:105`). Returns
+    (new_state, manifest_info); a wrong partition digest, pc-config hash
+    or bucket ladder raises typed `ManifestMismatch`, and a manifest-less
+    checkpoint is REFUSED (unlike a cold start, a swap replaces a
+    known-good model: adopting an unverifiable one is what manifests
+    exist to prevent)."""
+    parts = list(ckpt_lib.AE_PARTITIONS)
+    if need_sinet:
+        parts.append("sinet")
+    new_state = ckpt_lib.restore_partitions(ckpt_dir, template, parts)
+    info = ckpt_lib.verify_manifest(ckpt_dir, new_state, parts,
+                                    pc_config=pc_config, buckets=buckets)
+    if info["status"] == "legacy":
+        raise ckpt_lib.ManifestMismatch(
+            f"checkpoint {ckpt_dir} has no manifest.json — hot-swap "
+            f"refuses unversioned checkpoints (re-save it with the "
+            f"current trainer to gain a manifest)")
+    return new_state, info
 
 
 def make_codec(model: DSIN) -> BottleneckCodec:

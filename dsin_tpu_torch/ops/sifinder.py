@@ -44,7 +44,7 @@ float32.
 from __future__ import annotations
 
 import threading
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -175,6 +175,27 @@ def choose_route(impl: str, device_type: str, *, l2: bool = False,
             raise ValueError("sifinder_impl='kernel' needs a SidePrep built "
                              "with for_kernel=True")
     return impl
+
+
+def service_si_scores(config, device_type: str,
+                      quality_enabled: bool) -> Tuple[str, bool]:
+    """The service's SI-score decision (the JAX service's rule at its
+    `service.py:895-905`) -> (route of its prepped searches, whether they
+    return the winning scores). Scores are on only where quality telemetry
+    is, the search is Pearson and its route is not the kernel: the kernel
+    folds the scores on the card and does not return them, so asking for
+    them would push every SI batch off K2 onto the plain search. On the
+    card under 'auto' the route is K2 with scores off (telemetry notes
+    their absence, as the JAX service does on its Pallas path); on the CPU
+    it is 'torch' with scores on."""
+    l2 = use_l2(config)
+    prior = "standard" if bool(getattr(config, "use_gauss_mask",
+                                       False)) else "none"
+    route = choose_route(sifinder_impl(config), device_type, l2=l2,
+                         prior=prior,
+                         kernel_half=prep_for_kernel(
+                             config, torch.device(device_type)))
+    return route, bool(quality_enabled) and not l2 and route != "kernel"
 
 
 def sifinder_conv_dtype(config) -> torch.dtype:

@@ -8,9 +8,11 @@ CRC-framed DSRV streams, caches side-image preps per session
 pool, or with `entropy_backend="process"` in spawned children that hold
 their own codec, their payloads on the pipe or in shared-memory lanes
 (`shmlane.py`); `device.py` `DeviceServer` holds its device functions.
-What the JAX package's serve stack has beyond that (router, federation,
-autoscale, protocol, quality, placement, the hot swap) is not ported: see
-ROADMAP Queue 1 item 11.
+The model lifecycle (`swap.py`: hot swap, instant rollback, the
+post-commit watchdog) and model-health telemetry (`quality.py`: coding
+gap, SI-match alarm, golden canary) are ported; what the JAX package's
+serve stack has beyond that (router, federation, autoscale, protocol,
+placement, priority classes) is not: see ROADMAP Queue 1 item 11.
 """
 
 from dsin_tpu_torch.serve.batcher import (BULK, INTERACTIVE,
@@ -24,28 +26,34 @@ from dsin_tpu_torch.serve.buckets import (BucketPolicy, NoBucketFits,
                                           crop_from_bucket, pad_to_bucket)
 from dsin_tpu_torch.serve.device import DeviceServer
 from dsin_tpu_torch.serve.metrics import MetricsRegistry, MetricsServer
+from dsin_tpu_torch.serve.quality import (CanaryFailed, CanaryState,
+                                          QualityMonitor)
 from dsin_tpu_torch.serve.service import (CompressionService, EncodeResult,
                                           ServiceConfig, StreamCorrupt,
                                           frame_stream, parse_stream)
 from dsin_tpu_torch.serve.session import (SessionEntry, SessionError,
                                           SessionExpired, SessionOverCapacity,
                                           SessionStore)
-from dsin_tpu_torch.serve.swap import ModelBundle, SwapCoordinator
+from dsin_tpu_torch.serve.swap import (ConditionalRollbackRefused,
+                                       ModelBundle, RollbackWatchdog,
+                                       SwapCoordinator, SwapError)
 from dsin_tpu_torch.serve.trace import FlightRecorder, TraceContext, Tracer
 from dsin_tpu_torch.train.checkpoint import ManifestMismatch
 from dsin_tpu_torch.utils.integrity import IntegrityError
 
 __all__ = [
     "BULK", "INTERACTIVE",
-    "BucketPolicy", "CompressionService", "DeadlineExceeded",
+    "BucketPolicy", "CanaryFailed", "CanaryState", "CompressionService",
+    "ConditionalRollbackRefused", "DeadlineExceeded",
     "DeviceServer", "EncodeResult", "FlightRecorder", "Future",
     "IntegrityError", "ManifestMismatch", "MetricsRegistry",
     "MetricsServer", "MicroBatcher", "ModelBundle", "NoBucketFits",
-    "PriorityClass", "Request", "ServeError", "ServiceConfig",
+    "PriorityClass", "QualityMonitor", "Request", "RollbackWatchdog",
+    "ServeError", "ServiceConfig",
     "ServiceDraining", "ServiceOverloaded", "ServiceUnavailable",
     "SessionEntry", "SessionError", "SessionExpired", "SessionKey",
     "SessionOverCapacity", "SessionStore", "StreamCorrupt",
-    "SwapCoordinator", "TraceContext", "Tracer", "crop_from_bucket",
+    "SwapCoordinator", "SwapError", "TraceContext", "Tracer", "crop_from_bucket",
     "default_priority_classes", "frame_stream", "pad_to_bucket",
     "parse_stream",
 ]

@@ -20,7 +20,9 @@ of serving:
     `_make_si_fns(with_scores)`, the SI-match quality signal) on the routes
     that have them.
 `serve/service.py` (`CompressionService`) batches requests onto these
-functions.
+functions; each model version it holds (a hot swap keeps up to three:
+current, previous and staged) has a `DeviceServer` of its own, its weights
+loaded on the caller's thread and `sync`ed before any worker reads them.
 """
 
 from __future__ import annotations
@@ -47,7 +49,7 @@ class DeviceServer:
     def __init__(self, ae_config, pc_config, device="cuda", seed: int = 0,
                  precision: str = "fp32"):
         self._bind(build_at_rung(ae_config, pc_config, device=device,
-                                 seed=seed, precision=precision))
+                                 seed=seed, precision=precision)[0])
 
     @classmethod
     def for_model(cls, model: DSIN) -> "DeviceServer":
@@ -66,6 +68,15 @@ class DeviceServer:
         self.for_kernel = sifinder_lib.prep_for_kernel(self.config,
                                                        self.device)
         self._factors: Dict[Tuple[int, int], Optional[tuple]] = {}
+
+    def sync(self) -> None:
+        """Wait until everything issued on the caller's stream has run: the
+        weights a hot swap loaded onto the device and the warm that read
+        them. A bundle is staged only after this, so a worker's stream
+        (another stream, on another thread) never reads half-copied
+        weights after the commit. A no-op on the CPU."""
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
 
     def _tensor(self, x) -> torch.Tensor:
         return torch.as_tensor(x, dtype=torch.float32, device=self.device)

@@ -77,17 +77,50 @@ rebuilt once and the task retried (`serve_entropy_proc_rebuilds`); a
 child that hangs past `entropy_proc_timeout_s` fails its batch with a
 typed TimeoutError and its pool is replaced and its children killed.
 
+Live model operations (`serve/swap.py`): every dataplane stage reads the
+`ModelBundle` its worker captured at batch start, so a batch is
+version-coherent by construction. `prepare_swap(ckpt_dir)` restores the
+incoming checkpoint into a copy of the live model's trees, verifies its
+manifest (`coding/loader.load_swap_state`: typed `ManifestMismatch` on a
+wrong params digest, pc-config hash or bucket ladder, or no manifest),
+re-casts it onto the service's rung, loads it onto the card on the
+caller's thread (`DeviceServer.sync` before anything stages), warms it
+through every bucket (K2 on the SI path), starts its own pool of children
+on the process backend, and with goldens in its manifest probes the
+STAGED bundle (`CanaryFailed` refuses it); `commit_swap` is a pointer
+swap under the coordinator's lock, the displaced model kept warm for an
+instant `rollback()`. A commit or rollback clears the session store
+(preps embed the old weights: clients get `SessionExpired` and re-open).
+No native build happens in any of it: K2's library is keyed by its
+source, not by weights. The post-commit `RollbackWatchdog` on the
+supervisor thread compares typed-error rates around every commit and
+watches the committed digest for a canary failure, and rolls back
+CONDITIONALLY (`expect_current`) by itself.
+
+Model health (`serve/quality.py`): bpp and the head-sampled coding gap
+per bucket after an encode's futures resolve; per-session SI-match scores
+where the search returns them (`ops/sifinder.service_si_scores`: on the
+CPU, not on the card, where K2 folds them); the golden canary
+(`run_canary`, and a prober thread behind `canary_every_s`) drives pinned
+inputs through the real serve path and compares digests against the
+serving model's manifest goldens or its self-anchored first probe.
+
 Observability: the JAX service's metric names (`serve_device_ms`,
 `serve_entropy_ms`, `serve_overlap_ratio`, `serve_si_prep_ms`,
-`serve_si_search_ms`, `serve_sessions_*`, ...), plus per-kind
-`serve_device_ms_<kind>` / `serve_entropy_ms_<kind>` histograms; with no
-XLA, `serve_native_builds` and `serve_warmup_builds` count native builds
+`serve_si_search_ms`, `serve_sessions_*`, `serve_swaps`,
+`serve_rollbacks`, `serve_swap_errors`, `serve_watchdog_*`,
+`serve_canary_*`, `serve_coding_gap_pct_<bh>x<bw>`, `serve_bpp_*`,
+`serve_si_match_*`, ...), plus per-kind `serve_device_ms_<kind>` /
+`serve_entropy_ms_<kind>` histograms; with no XLA, `serve_native_builds`
+and `serve_warmup_builds` count native builds
 (`native_build.build_count()`) where the JAX service counts compiles.
-Spans and flight events as in `serve/trace.py`.
+Spans and flight events as in `serve/trace.py`, plus the JAX service's
+lifecycle events (`swap_prepared`, `swap_commit`, `swap_abort`,
+`swap_rollback`, `watchdog_verdict`, `quality_alarm`, `canary_failure`,
+`canary_refused_swap`).
 
 Not ported, and refused with NotImplementedError naming the ROADMAP item:
-quality telemetry and the canary, the hot swap and rollback (and its
-watchdog), more than one device and placement, priority classes.
+more than one device and placement, priority classes.
 `persistent_cache` (the XLA compile cache) has no meaning here and is not
 a field.
 """
@@ -97,18 +130,16 @@ from __future__ import annotations
 import contextlib
 import multiprocessing
 import os
-import shutil
 import struct
 import tempfile
 import threading
 import time
-import weakref
 from collections import deque
 from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 from concurrent.futures import TimeoutError as FutureTimeout
 from concurrent.futures.process import BrokenProcessPool
 from dataclasses import dataclass
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -118,8 +149,10 @@ from dsin_tpu_torch.coding import loader as loader_lib
 from dsin_tpu_torch.coding.codec import MODE_WAVEFRONT_NP
 from dsin_tpu_torch.config import parse_config_file
 from dsin_tpu_torch.runtime import resolve_device
+from dsin_tpu_torch.ops import sifinder as sifinder_lib
 from dsin_tpu_torch.serve import buckets as buckets_lib
 from dsin_tpu_torch.serve import metrics as metrics_lib
+from dsin_tpu_torch.serve import quality as quality_lib
 from dsin_tpu_torch.serve import session as session_lib
 from dsin_tpu_torch.serve import shmlane as shmlane_lib
 from dsin_tpu_torch.serve import swap as swap_lib
@@ -128,6 +161,7 @@ from dsin_tpu_torch.serve.batcher import (Future, MicroBatcher, Request,
                                           ServeError, ServiceDraining,
                                           ServiceUnavailable)
 from dsin_tpu_torch.serve.device import DeviceServer
+from dsin_tpu_torch.train import checkpoint as ckpt_lib
 from dsin_tpu_torch.utils import faults
 from dsin_tpu_torch.utils.integrity import (IntegrityError, frame_crc,
                                             verify_crc)
@@ -143,8 +177,6 @@ DECODE = "decode"
 DECODE_SI = "decode_si"   # session-affine SI decode
 
 #: ROADMAP Queue 1 items naming what the port's service does not have yet
-ROADMAP_QUALITY = "ROADMAP Queue 1 item 11a (quality telemetry and canary)"
-ROADMAP_SWAP = "ROADMAP Queue 1 item 11b (hot swap and rollback)"
 ROADMAP_DEVICES = "ROADMAP Queue 1 item 11c (devices > 1 and placement)"
 ROADMAP_PRIORITY = "ROADMAP Queue 1 item 11d (priority classes and admission)"
 
@@ -156,11 +188,10 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 
 @dataclass
 class ServiceConfig:
-    """The JAX service's configuration, less what the port does not serve.
-    `quality_enabled` defaults to False here (quality telemetry is not
-    ported; True raises), and `persistent_cache` does not exist (there is
-    no XLA cache). `device` is the card by default; without one the service
-    raises unless it is "cpu"."""
+    """The JAX service's configuration, less what the port does not serve:
+    `persistent_cache` does not exist (there is no XLA cache). `device` is
+    the card by default; without one the service raises unless it is
+    "cpu"."""
     ae_config: str
     pc_config: str
     ckpt: Optional[str] = None
@@ -212,11 +243,34 @@ class ServiceConfig:
     flight_capacity: int = 2048
     flight_dir: Optional[str] = None
     flight_dump_min_interval_s: float = 1.0
-    #: not None raises (ROADMAP_SWAP: the watchdog judges hot swaps)
+    #: post-swap rollback watchdog: compare typed-error-rate windows
+    #: before and after every commit_swap and roll back by itself when
+    #: the rate jumps by more than `rollback_watchdog_threshold` over at
+    #: least `rollback_watchdog_min_requests` post-commit resolutions (or
+    #: at once on a canary failure of the committed model). None = off.
     rollback_watchdog_window_s: Optional[float] = None
-    #: True raises (ROADMAP_QUALITY), as does canary_every_s
-    quality_enabled: bool = False
+    rollback_watchdog_threshold: float = 0.5
+    rollback_watchdog_min_requests: int = 8
+    #: model-health telemetry (serve/quality.py); False removes the layer:
+    #: no bpp / gap observation, no SI scores, no canary
+    quality_enabled: bool = True
+    #: head-sampling rate of the coding-gap pass (a second engine pass on
+    #: the entropy-pool thread per sampled encode)
+    quality_gap_sample_rate: float = 1.0 / 16.0
+    #: SI-match alarm: a session is alarmed once >= `si_alarm_frac` of its
+    #: winning match scores (after `si_alarm_min_samples` of them) fall
+    #: below `si_score_floor`
+    si_score_floor: float = 0.25
+    si_alarm_frac: float = 0.5
+    si_alarm_min_samples: int = 8
+    #: golden canary prober period; None = no background prober (a swap
+    #: still probes its staged bundle when the incoming manifest records
+    #: goldens and quality_enabled)
     canary_every_s: Optional[float] = None
+    #: seed of the pinned canary inputs; must match the publisher's
+    canary_seed: int = 0
+    #: per-op result timeout inside one canary probe
+    canary_timeout_s: float = 120.0
     #: precision-ladder rung (coding/precision.py)
     precision: str = "fp32"
     #: None = no HTTP endpoint; 0 = ephemeral port (tests)
@@ -231,12 +285,6 @@ class ServiceConfig:
 
 def _refused(config: ServiceConfig) -> Optional[NotImplementedError]:
     """The NotImplementedError a configuration asks for, or None."""
-    if config.quality_enabled:
-        return _not_ported("quality_enabled=True", ROADMAP_QUALITY)
-    if config.canary_every_s is not None:
-        return _not_ported("canary_every_s", ROADMAP_QUALITY)
-    if config.rollback_watchdog_window_s is not None:
-        return _not_ported("the rollback watchdog", ROADMAP_SWAP)
     if config.devices not in (None, 1):
         return _not_ported(f"devices={config.devices}", ROADMAP_DEVICES)
     if (config.placement_weights is not None
@@ -247,9 +295,25 @@ def _refused(config: ServiceConfig) -> Optional[NotImplementedError]:
     return None
 
 
-def _validate_backend(config: ServiceConfig) -> None:
-    """The entropy-backend knobs, checked before the model build as the
-    JAX service checks them: a typo costs milliseconds, typed."""
+def _validate_knobs(config: ServiceConfig, n_buckets: int) -> None:
+    """The entropy-backend and canary knobs, checked before the model build
+    as the JAX service checks them: a typo costs milliseconds, typed."""
+    if config.canary_every_s is not None and config.canary_every_s <= 0:
+        raise ValueError(f"canary_every_s must be > 0 (or None), got "
+                         f"{config.canary_every_s}")
+    if config.canary_timeout_s <= 0:
+        raise ValueError(f"canary_timeout_s must be > 0, got "
+                         f"{config.canary_timeout_s}")
+    if (config.canary_every_s is not None and config.enable_si
+            and config.session_max < n_buckets + 1):
+        # the prober's pinned sessions (one per bucket) live in the shared
+        # store and take part in its LRU like any client
+        raise ValueError(
+            f"canary_every_s with enable_si needs session_max >= "
+            f"{n_buckets + 1} (one pinned canary session per bucket + at "
+            f"least one user slot), got {config.session_max} — budget the "
+            f"prober's sessions into the store or disable the background "
+            f"canary")
     if config.entropy_backend not in ("thread", "process"):
         raise ValueError(f"entropy_backend must be 'thread' or 'process', "
                          f"got {config.entropy_backend!r}")
@@ -475,6 +539,38 @@ class CompressionService:
             capacity=config.flight_capacity, dump_dir=config.flight_dir,
             min_dump_interval_s=config.flight_dump_min_interval_s,
             metrics=self.metrics, enabled=config.trace_enabled)
+        self._watchdog: Optional[swap_lib.RollbackWatchdog] = None
+        if config.rollback_watchdog_window_s is not None:
+            self._watchdog = swap_lib.RollbackWatchdog(
+                config.rollback_watchdog_window_s,
+                config.rollback_watchdog_threshold,
+                config.rollback_watchdog_min_requests)
+        # model-health telemetry: built up front like the tracer (the
+        # constructors validate the knobs), so every stage can reach
+        # self.quality without a None check
+        self.quality = quality_lib.QualityMonitor(
+            metrics=self.metrics, flight=self.flight,
+            enabled=config.quality_enabled,
+            gap_sample_rate=config.quality_gap_sample_rate,
+            si_score_floor=config.si_score_floor,
+            si_alarm_frac=config.si_alarm_frac,
+            si_alarm_min_samples=config.si_alarm_min_samples)
+        self._canary = quality_lib.CanaryState(
+            config.canary_seed, self.metrics, flight=self.flight)
+        self._canary_imgs = {}        # bucket -> (img, side), pinned
+        self._canary_sids = {}        # bucket -> live canary session id
+        self._canary_thread: Optional[threading.Thread] = None
+        # threads retiring the bundles commits displaced (wait_drained
+        # joins them before the last bundles retire);
+        # guarded-by: self._workers_lock
+        self._retirers: List[threading.Thread] = []
+        self._warmup_done = False
+        #: whether the SI decode returns the winning scores (start())
+        self._si_scores_enabled = False
+        self._si_route: Optional[str] = None
+        #: the parsed configs every bundle is built from (start())
+        self._ae_cfg = None
+        self._pc_cfg = None
         self._batcher = MicroBatcher(
             config.max_batch, config.max_wait_ms, config.max_queue,
             on_expired=self._note_expired)
@@ -501,9 +597,6 @@ class CompressionService:
         self._warm_shapes = []
         #: warmup's worker-residence pings, one per pool child
         self._proc_warm = []
-        #: process backend: removes the directory of the pickled CodecSpec
-        #: the pool children load (run by drain, else at exit)
-        self._spec_cleanup = None
         self._codec_local = threading.local()
         self._si_enabled = False
         self._sessions: Optional[session_lib.SessionStore] = None
@@ -540,13 +633,15 @@ class CompressionService:
     def start(self) -> "CompressionService":
         if self._started:
             return self
-        _validate_backend(self.config)
+        _validate_knobs(self.config, len(self.policy.buckets))
         # the device first: without a card this raises in milliseconds
         self.device = resolve_device(self.config.device)
         self._si_enabled = bool(self.config.enable_si)
+        self._ae_cfg = parse_config_file(self.config.ae_config).replace(
+            AE_only=not self._si_enabled)
+        self._pc_cfg = parse_config_file(self.config.pc_config)
         if self._si_enabled:
-            ph, pw = (int(v) for v in parse_config_file(
-                self.config.ae_config).y_patch_size)
+            ph, pw = (int(v) for v in self._ae_cfg.y_patch_size)
             bad = [b for b in self.policy.buckets
                    if b[0] % ph or b[1] % pw]
             if bad:
@@ -555,19 +650,24 @@ class CompressionService:
                     f"y_patch_size ({ph}, {pw}) — the siFinder patch "
                     f"grid must tile the bucket exactly; offending "
                     f"buckets: {bad}")
+            # the SI-score decision: scores only where the search is not
+            # the kernel (K2 folds them on the card)
+            self._si_route, self._si_scores_enabled = \
+                sifinder_lib.service_si_scores(
+                    self._ae_cfg, self.device.type,
+                    self.config.quality_enabled)
+            # the evict hook keeps the SI-match tracker from holding
+            # stats or alarms for sessions that no longer exist
             self._sessions = session_lib.SessionStore(
                 self.config.session_max, self.config.session_max_bytes,
                 self.config.session_ttl_s, metrics=self.metrics,
-                flight=self.flight)
-        model = loader_lib.load_model_state(
-            self.config.ae_config, self.config.pc_config, self.config.ckpt,
-            need_sinet=self._si_enabled, seed=self.config.seed,
-            device=self.device, precision=self.config.precision)
-        if self.device.type == "cuda":
-            # the weights reach the device on this thread's stream; every
-            # worker stream reads them
-            torch.cuda.synchronize(self.device)
-        digest = loader_lib.served_digest(model, self.config.precision)
+                flight=self.flight, on_evict=self.quality.session_gone)
+        # the start bundle keeps its checkpoint's manifest too: the canary
+        # compares against publisher goldens from the very first model
+        model, record = loader_lib.build_at_rung(
+            self._ae_cfg, self._pc_cfg, device=self.device,
+            seed=self.config.seed, precision=self.config.precision,
+            ckpt_dir=self.config.ckpt)
         self._bn_channels = int(model.ae_config.num_chan_bn)
         sub = buckets_lib.SUBSAMPLING
         self._warm_shapes = [(self._bn_channels, bh // sub, bw // sub)
@@ -579,22 +679,10 @@ class CompressionService:
         if ew > 0:
             self._entropy_pool = ThreadPoolExecutor(
                 max_workers=ew, thread_name_prefix="serve-entropy")
-        codec = loader_lib.make_codec(model)
-        initargs = None
         if self.config.entropy_backend == "process":
-            spec_dir = tempfile.mkdtemp(prefix="dsin-serve-spec-")
-            self._spec_cleanup = weakref.finalize(self, shutil.rmtree,
-                                                  spec_dir, True)
-            initargs = (loader_lib.write_codec_spec(
-                loader_lib.make_codec_spec(codec, rung=self.config.precision),
-                os.path.join(spec_dir, "codec-spec.pkl")),
-                list(self._warm_shapes))
-        bundle = swap_lib.ModelBundle(0, digest, DeviceServer.for_model(model),
-                                      codec, ckpt=self.config.ckpt,
-                                      proc_initargs=initargs)
-        if initargs is not None:
             self.metrics.counter("serve_entropy_proc_rebuilds")
-            bundle.set_proc(self._make_entropy_proc(initargs))
+        bundle = self._make_bundle(0, model, self.config.ckpt,
+                                   record["manifest"] if record else None)
         self._swap = swap_lib.SwapCoordinator(bundle, self.metrics)
         self.metrics.set_info("serve_entropy_backend", {
             "backend": self.config.entropy_backend,
@@ -611,6 +699,16 @@ class CompressionService:
                                             name="serve-supervisor",
                                             daemon=True)
         self._supervisor.start()
+        # golden canary: pinned inputs at the EXISTING bucket shapes (the
+        # warmed paths, no native build), probed by a thread of its own so
+        # a slow probe never stalls the supervisor's healing
+        self._canary_imgs = quality_lib.canary_inputs(
+            self.policy.buckets, self.config.canary_seed)
+        if self.config.canary_every_s is not None \
+                and self.config.quality_enabled:
+            self._canary_thread = threading.Thread(
+                target=self._canary_loop, name="serve-canary", daemon=True)
+            self._canary_thread.start()
         if self.config.metrics_port is not None:
             self._metrics_server = metrics_lib.MetricsServer(
                 self.metrics, self.health,
@@ -629,21 +727,38 @@ class CompressionService:
         snap["flight"] = self.flight.meta()
         return snap
 
-    def warmup(self) -> dict:
-        """Run every (bucket, direction) once, and with SI a session prep
-        and an SI decode per bucket; prime the codec's schedules with one
-        entropy round trip per bucket; start the entropy pool threads (each
-        builds its codec clone) and, on the process backend, every pool
-        child (spawn, codec rebuild, schedule warm) and ping it, so the
-        first request pays nothing. Returns {"builds": native builds during
-        warmup, "seconds": s}; the pings land in `_proc_warm`. After it,
-        serving builds nothing (`native_build.build_count()` holds), the
-        port's counterpart of the JAX service's zero-compile census."""
-        if not self._started:
-            raise RuntimeError("start() before warmup()")
-        t0 = time.monotonic()
-        before = native_build.build_count()
-        bundle = self._swap.current
+    def _make_bundle(self, epoch: int, model, ckpt: Optional[str],
+                     manifest: Optional[dict]) -> swap_lib.ModelBundle:
+        """One model version as a ModelBundle: its served digest, its
+        DeviceServer (the weights complete on the device before this
+        returns: `sync` on the caller's stream, so no worker stream reads
+        them half-copied), its codec, and on the process backend its own
+        CodecSpec file (in a directory the bundle removes when it retires)
+        and its own pool of children, spawned at the first submit."""
+        server = DeviceServer.for_model(model)
+        server.sync()
+        codec = loader_lib.make_codec(model)
+        initargs = spec_dir = None
+        if self.config.entropy_backend == "process":
+            spec_dir = tempfile.mkdtemp(prefix="dsin-serve-spec-")
+            initargs = (loader_lib.write_codec_spec(
+                loader_lib.make_codec_spec(codec, rung=self.config.precision),
+                os.path.join(spec_dir, "codec-spec.pkl")),
+                list(self._warm_shapes))
+        bundle = swap_lib.ModelBundle(
+            epoch, loader_lib.served_digest(model, self.config.precision),
+            server, codec, ckpt=ckpt, proc_initargs=initargs,
+            manifest=manifest, spec_dir=spec_dir)
+        if initargs is not None:
+            bundle.set_proc(self._make_entropy_proc(initargs))
+        return bundle
+
+    def _warm_device(self, bundle: swap_lib.ModelBundle) -> None:
+        """Run every bucket's device functions once on `bundle` (encode,
+        decode, and with SI a session prep and an SI decode, K2 on the
+        card), and prime its codec's schedule for each bucket's volume with
+        one entropy round trip. The same shapes for every bundle, so a
+        swap's warm builds nothing."""
         server = bundle.server
         sub = buckets_lib.SUBSAMPLING
         n = self.config.max_batch
@@ -655,13 +770,29 @@ class CompressionService:
             server.decode(sym)
             if self._si_enabled:
                 prep = server.open_session(np.zeros((bh, bw, 3), np.float32))
-                server.decode_si(sym, prep)
-            # one per-image entropy round trip primes the incremental
-            # engine's schedule for this bucket's volume geometry
+                server.decode_si(sym, prep,
+                                 with_scores=self._si_scores_enabled)
             stream = bundle.codec.encode(np.transpose(symbols[0], (2, 0, 1)))
             bundle.codec.decode(stream)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        server.sync()
+
+    def warmup(self) -> dict:
+        """Run every (bucket, direction) once, and with SI a session prep
+        and an SI decode per bucket; prime the codec's schedules with one
+        entropy round trip per bucket; start the entropy pool threads (each
+        builds its codec clone) and, on the process backend, every pool
+        child (spawn, codec rebuild, schedule warm) and ping it, so the
+        first request pays nothing. Returns {"builds": native builds during
+        warmup, "seconds": s}; the pings land in `_proc_warm`. After it,
+        serving builds nothing (`native_build.build_count()` holds), the
+        port's counterpart of the JAX service's zero-compile census, and
+        the canary prober may run."""
+        if not self._started:
+            raise RuntimeError("start() before warmup()")
+        t0 = time.monotonic()
+        before = native_build.build_count()
+        bundle = self._swap.current
+        self._warm_device(bundle)
         if self._entropy_pool is not None:
             # force every pool thread into existence and build its codec
             # clone now (the barrier keeps the tasks on distinct threads)
@@ -677,6 +808,7 @@ class CompressionService:
         if bundle.proc() is not None:
             self._proc_warm = self._ping_children(bundle)
         builds = native_build.build_count() - before
+        self._warmup_done = True
         self.metrics.gauge("serve_warmup_builds").set(builds)
         self.metrics.gauge("serve_buckets").set(len(self.policy.buckets))
         return {"builds": builds, "seconds": time.monotonic() - t0}
@@ -701,31 +833,395 @@ class CompressionService:
                 pings.setdefault(ping["pid"], ping)
         return list(pings.values())
 
-    # -- what the port refuses ------------------------------------------------
-
-    def swap_model(self, ckpt_dir: str, canary: bool = True) -> dict:
-        raise _not_ported("swap_model", ROADMAP_SWAP)
+    # -- live model operations ----------------------------------------------
 
     def prepare_swap(self, ckpt_dir: str, canary: bool = True) -> dict:
-        raise _not_ported("prepare_swap", ROADMAP_SWAP)
+        """Load, verify and warm an incoming checkpoint into a STAGED
+        ModelBundle while the dataplane keeps serving the current one (this
+        runs on the CALLER's thread). Manifest-verified: a wrong params
+        digest, pc-config hash or bucket ladder, or a checkpoint without a
+        manifest, raises typed ManifestMismatch and nothing stages. The
+        float32 weights are verified, then re-cast onto this service's rung
+        and loaded onto the device (complete before anything stages, see
+        `_make_bundle`); the warm drives every bucket's device functions
+        with them (the shapes the service already runs: no native build)
+        and, on the process backend, spawns and pings the bundle's own
+        children.
+
+        Golden canary gate: when the incoming manifest records `canary`
+        goldens (and quality telemetry is on), the STAGED bundle is probed
+        and a digest mismatch raises typed `CanaryFailed` before the model
+        answers a single request. `canary=False` is the operator override
+        (the post-commit prober and the watchdog remain the safety net).
+        Returns {"digest", "epoch", "ckpt", "warm", "canary", "seconds",
+        "split"}: `split` is the seconds of the load, the warm, the pool
+        start and the canary probe. commit_swap() makes it live."""
+        if not (self._started and self._warmup_done):
+            raise RuntimeError("start() + warmup() before a hot swap")
+        epoch = self._swap.begin_prepare()
+        t0 = time.monotonic()
+        bundle = None
+        try:
+            template = ckpt_lib.state_from_model(
+                self._swap.current.server.model)
+            new_state, info = loader_lib.load_swap_state(
+                ckpt_dir, template, pc_config=self._pc_cfg,
+                buckets=self.policy.buckets, need_sinet=self._si_enabled)
+            # the prepare window: a kill here leaves the service serving
+            # the old model with the claim released
+            faults.inject("serve.swap")
+            model, _ = loader_lib.build_at_rung(
+                self._ae_cfg, self._pc_cfg, device=self.device,
+                seed=self.config.seed, precision=self.config.precision,
+                state=new_state)
+            bundle = self._make_bundle(epoch, model, ckpt_dir,
+                                       info.get("manifest"))
+            t_load = time.monotonic()
+            warm = self._warm_bundle(bundle)
+            t_warm = time.monotonic()
+            canary_info = {"status": "disabled"}
+            if canary and self.config.quality_enabled:
+                # probe AFTER the warm and BEFORE the stage: a failing
+                # canary leaves nothing to commit
+                canary_info = self._canary_check_bundle(bundle)
+            t_canary = time.monotonic()
+            self._swap.stage(bundle)
+        except BaseException:
+            # InjectedCrash included: the service keeps serving the old
+            # model; release the claim, retire the partial bundle
+            if bundle is not None:
+                bundle.retire()
+            self._swap.abandon_prepare()
+            raise
+        self.flight.record("swap_prepared", digest=bundle.digest,
+                           ckpt=ckpt_dir)
+        return {"digest": bundle.digest, "epoch": epoch, "ckpt": ckpt_dir,
+                "warm": warm, "canary": canary_info,
+                "seconds": round(time.monotonic() - t0, 3),
+                "split": {"load_s": round(t_load - t0, 3),
+                          "warm_s": warm["device_s"],
+                          "pool_s": warm["pool_s"],
+                          "canary_s": round(t_canary - t_warm, 3)}}
+
+    def _warm_bundle(self, bundle: swap_lib.ModelBundle) -> dict:
+        """The incoming bundle through every bucket's device functions and
+        its codec's schedules (`_warm_device`), then, on the process
+        backend, its children spawned, warmed and pinged."""
+        t0 = time.monotonic()
+        self._warm_device(bundle)
+        t1 = time.monotonic()
+        pings = (self._ping_children(bundle) if bundle.proc() is not None
+                 else [])
+        return {"buckets": len(self.policy.buckets),
+                "proc_workers": len(pings),
+                "device_s": round(t1 - t0, 3),
+                "pool_s": round(time.monotonic() - t1, 3)}
 
     def commit_swap(self, expect_digest: Optional[str] = None) -> dict:
-        raise _not_ported("commit_swap", ROADMAP_SWAP)
+        """Make the staged bundle live: a pointer swap under the
+        coordinator's lock. In-flight batches finish on the bundle they
+        captured; the displaced model stays warm for rollback().
+        `expect_digest` pins which model the caller believes it is
+        committing."""
+        if not self._started:
+            raise RuntimeError("start() before commit_swap()")
+        # the commit window: a kill HERE leaves current serving and the
+        # staged bundle parked (the caller aborts it)
+        faults.inject("serve.swap")
+        self._retire_off_thread(self._swap.commit(expect_digest))
+        # sessions are model-versioned: their preps embed the OLD
+        # weights' y-hat; clients re-open
+        self._invalidate_sessions("swap")
+        snap = self._swap.snapshot()
+        self.flight.record("swap_commit", digest=snap["digest"],
+                           prev=snap["prev_digest"])
+        if self._watchdog is not None:
+            errors, resolved = self._error_counters()
+            self._watchdog.arm(time.monotonic(), snap["digest"],
+                               errors, resolved)
+        return snap
+
+    def _retire_off_thread(self, bundles: List[swap_lib.ModelBundle]) -> None:
+        """Retire the bundles a commit displaced on a thread of their own:
+        joining a pool's children takes seconds, and the commit is a pointer
+        swap on the caller's thread (the JAX package's `retire` does not wait
+        for its pool either). Batches that captured such a bundle finish
+        their submitted tasks before its ring is unlinked."""
+        if not bundles:
+            return
+
+        def _retire():
+            for b in bundles:
+                b.retire()
+
+        t = threading.Thread(target=_retire, name="serve-retire",
+                             daemon=True)
+        with self._workers_lock:
+            self._retirers = [r for r in self._retirers if r.is_alive()]
+            self._retirers.append(t)
+        t.start()
+
+    def _error_counters(self) -> Tuple[int, int]:
+        """(typed errors, resolutions): the watchdog's inputs, both counted
+        in one place (`_note_resolution`)."""
+        return (self.metrics.counter("serve_typed_errors").value,
+                self.metrics.counter("serve_resolved").value)
 
     def abort_swap(self) -> dict:
-        raise _not_ported("abort_swap", ROADMAP_SWAP)
+        """Discard the staged bundle (its children reaped, its spec file
+        and lane segments released) or cancel a prepare still loading; safe
+        when nothing is staged. The current bundle keeps serving."""
+        if not self._started:
+            raise RuntimeError("start() before abort_swap()")
+        for b in self._swap.abort():
+            b.retire()
+        self.flight.record("swap_abort")
+        return self._swap.snapshot()
+
+    def swap_model(self, ckpt_dir: str, canary: bool = True) -> dict:
+        """The one-call hot swap: prepare (load, verify, warm, canary when
+        the manifest records goldens) then commit. Any failure (manifest
+        mismatch, canary refusal, a kill in either window) aborts back to
+        the old model; the service never stops serving. `canary=False` is
+        the operator override. The result is prepare_swap's, with the
+        commit's own `commit_ms`."""
+        info = self.prepare_swap(ckpt_dir, canary=canary)
+        t0 = time.monotonic()
+        try:
+            self.commit_swap(expect_digest=info["digest"])
+        except BaseException:
+            self.abort_swap()
+            raise
+        info["commit_ms"] = round(1e3 * (time.monotonic() - t0), 3)
+        return info
 
     def rollback(self, expect_current: Optional[str] = None) -> dict:
-        raise _not_ported("rollback", ROADMAP_SWAP)
+        """Re-instate the previous model bundle: instant (its weights never
+        left the device, its pool never stopped). `expect_current` makes it
+        conditional: only if the serving digest IS that one (a typed
+        `ConditionalRollbackRefused` otherwise)."""
+        if not self._started:
+            raise RuntimeError("start() before rollback()")
+        for b in self._swap.rollback(expect_current=expect_current):
+            b.retire()
+        if self._watchdog is not None:
+            # a rollback (operator or watchdog) supersedes any pending
+            # judgement: never judge a model that already left
+            self._watchdog.disarm()
+        self._invalidate_sessions("rollback")
+        snap = self._swap.snapshot()
+        self.flight.record("swap_rollback", digest=snap["digest"])
+        return snap
+
+    def _invalidate_sessions(self, reason: str) -> None:
+        """Drop every cached SidePrep (the serving weights changed: a stale
+        prep would search against the wrong y-hat). Clients see typed
+        SessionExpired and re-open."""
+        if self._sessions is not None and self._sessions.live:
+            self._sessions.clear(reason)
 
     def rebalance_placement(self, weights=None) -> dict:
         raise _not_ported("rebalance_placement", ROADMAP_DEVICES)
 
-    def run_canary(self) -> dict:
-        raise _not_ported("run_canary", ROADMAP_QUALITY)
+    # -- golden canary ------------------------------------------------------
 
     def canary_goldens(self, staged: bool = False) -> dict:
-        raise _not_ported("canary_goldens", ROADMAP_QUALITY)
+        """The `manifest_extra["canary"]` entry a checkpoint publisher
+        records: golden output digests of the CURRENT model, or with
+        `staged` of a prepared, uncommitted bundle (the publish flow:
+        prepare the candidate, record what it SHOULD produce, abort,
+        re-save the checkpoint with the goldens)."""
+        if not (self._started and self._warmup_done):
+            raise RuntimeError("start() + warmup() before canary_goldens()")
+        bundle = self._swap.staged if staged else self._swap.current
+        if bundle is None:
+            raise swap_lib.SwapError(
+                "canary_goldens(staged=True) with nothing staged — "
+                "prepare_swap first")
+        return quality_lib.goldens_struct(
+            self.config.canary_seed, self.policy.buckets,
+            self._canary_probe_bundle(bundle))
+
+    def _canary_probe_bundle(self, bundle) -> dict:
+        """The pinned canary inputs through one bundle's device functions
+        and codec, on the caller's thread, and every output digested: lane
+        0 of a max_batch-padded batch, as the dataplane assembles one, so
+        the digests equal what the serve path gives for the same model
+        (a lane's result does not depend on its batchmates; the tests pin
+        the equality)."""
+        server = bundle.server
+        sub = buckets_lib.SUBSAMPLING
+        digests = {}
+        for bucket in self.policy.buckets:
+            bh, bw = bucket
+            img, side = self._canary_imgs[bucket]
+            x = np.zeros((self.config.max_batch, bh, bw, 3), np.float32)
+            x[0] = buckets_lib.pad_to_bucket(
+                img.astype(np.float32, copy=False), bucket)
+            symbols = server.encode_symbols(x).cpu().numpy()
+            payload = bundle.codec.encode(np.transpose(symbols[0], (2, 0, 1)))
+            stream = frame_stream(payload, (bh, bw), bucket)
+            entry = {"encode": quality_lib.digest_bytes(stream)}
+            sym = np.zeros((self.config.max_batch, bh // sub, bw // sub,
+                            self._bn_channels), np.int32)
+            sym[0] = np.transpose(bundle.codec.decode(payload), (1, 2, 0))
+            out = server.decode(sym).cpu().numpy()
+            entry["decode"] = quality_lib.digest_bytes(
+                buckets_lib.crop_from_bucket(out[0], (bh, bw))
+                .astype(np.uint8).tobytes())
+            entry["decode_si"] = None
+            if self._si_enabled:
+                prep = server.open_session(buckets_lib.pad_to_bucket(
+                    side.astype(np.float32, copy=False), bucket))
+                si_out = server.decode_si(sym, prep,
+                                          with_scores=self._si_scores_enabled)
+                if self._si_scores_enabled:
+                    si_out = si_out[0]
+                entry["decode_si"] = quality_lib.digest_bytes(
+                    buckets_lib.crop_from_bucket(
+                        si_out.cpu().numpy()[0], (bh, bw))
+                    .astype(np.uint8).tobytes())
+            digests[quality_lib.bucket_key(bucket)] = entry
+        return digests
+
+    def _canary_check_bundle(self, bundle) -> dict:
+        """Prepare-time canary: probe a staged bundle against ITS
+        manifest's goldens. A manifest without goldens skips (recorded);
+        goldens that mismatch, or that cannot be compared (another canary
+        seed, a served bucket they do not cover), refuse typed
+        `CanaryFailed`."""
+        goldens = (bundle.manifest or {}).get("canary")
+        if goldens is None:
+            self.metrics.counter("serve_canary_swap_skipped").inc()
+            return {"status": "skipped",
+                    "reason": "checkpoint manifest records no canary "
+                              "goldens"}
+        observed = self._canary_probe_bundle(bundle)
+        mismatches = quality_lib.compare_goldens(
+            goldens, observed, seed=self.config.canary_seed,
+            buckets=self.policy.buckets)
+        if mismatches:
+            self.metrics.counter("serve_canary_swap_refusals").inc()
+            self.flight.record("canary_refused_swap",
+                               digest=bundle.digest,
+                               mismatches=mismatches[:8])
+            raise quality_lib.CanaryFailed(
+                f"staged model {bundle.digest} failed its golden canary "
+                f"— its outputs are not the outputs its manifest "
+                f"promises; refusing to commit it: "
+                f"{'; '.join(mismatches[:4])}")
+        self.metrics.counter("serve_canary_swap_passes").inc()
+        return {"status": "passed", "buckets": len(observed)}
+
+    def run_canary(self) -> dict:
+        """One canary probe through the REAL serve path (encode, decode and
+        decode_si on a pinned canary session per bucket), compared against
+        the serving model's baseline: its manifest's goldens when they are
+        comparable, else the self-anchored first probe of this digest. A
+        digest MISMATCH is definitive: it fails the canary, dumps the
+        flight recorder, and tells the watchdog when one watches this
+        model. Typed serve errors during the probe (a drain, a swap
+        expiring the canary session mid-probe) are infrastructure, counted
+        apart, never a canary failure. One probe at a time: a caller that
+        finds one running gets {"status": "busy"}."""
+        if not (self._started and self._warmup_done):
+            raise RuntimeError("start() + warmup() before run_canary()")
+        if not self.config.quality_enabled:
+            return {"status": "disabled"}
+        if not self._canary.claim():
+            return {"status": "busy"}
+        try:
+            return self._run_canary_claimed()
+        finally:
+            self._canary.release()
+
+    def _run_canary_claimed(self) -> dict:
+        t0 = time.monotonic()
+        timeout = self.config.canary_timeout_s
+        start_digest = self.model_digest
+        bundle = self._swap.current
+        observed, bucket_ms = {}, {}
+        try:
+            for bucket in self.policy.buckets:
+                tb = time.monotonic()
+                img, side = self._canary_imgs[bucket]
+                res = self.encode(img, timeout=timeout)
+                entry = {"encode": quality_lib.digest_bytes(res.stream)}
+                dec = self.decode(res.stream, timeout=timeout)
+                entry["decode"] = quality_lib.digest_bytes(dec.tobytes())
+                entry["decode_si"] = None
+                if self._si_enabled:
+                    si = self._canary_decode_si(bucket, side, res.stream,
+                                                timeout)
+                    entry["decode_si"] = quality_lib.digest_bytes(
+                        si.tobytes())
+                observed[quality_lib.bucket_key(bucket)] = entry
+                bucket_ms[quality_lib.bucket_key(bucket)] = round(
+                    (time.monotonic() - tb) * 1e3, 1)
+        except (ServeError, ValueError, TimeoutError) as e:
+            # typed infrastructure trouble: the probe learned nothing
+            # about quality
+            self.metrics.counter("serve_canary_errors").inc()
+            result = {"status": "error", "digest": start_digest,
+                      "error": type(e).__name__}
+            self._canary.note_result(result)
+            return result
+        if self.model_digest != start_digest:
+            # a swap or rollback landed mid-probe: the digests mix two
+            # models; judge neither
+            self.metrics.counter("serve_canary_races").inc()
+            result = {"status": "raced", "digest": start_digest}
+            self._canary.note_result(result)
+            return result
+        source, mismatches = self._canary.baseline_for(
+            start_digest, bundle.manifest, self.policy.buckets, observed)
+        ms = (time.monotonic() - t0) * 1e3
+        self.metrics.counter("serve_canary_runs").inc()
+        self.metrics.histogram("serve_canary_ms").observe(ms)
+        if mismatches:
+            self.metrics.counter("serve_canary_failures").inc()
+            self.metrics.gauge("serve_canary_ok").set(0)
+            result = {"status": "failed", "digest": start_digest,
+                      "baseline": source, "mismatches": mismatches}
+            self._canary.note_result(result)
+            self.flight.note_death("canary_failure", digest=start_digest,
+                                   baseline=source,
+                                   mismatches=mismatches[:8])
+            if self._watchdog is not None:
+                self._watchdog.note_canary_failure(start_digest)
+            return result
+        self.metrics.gauge("serve_canary_ok").set(1)
+        result = {"status": "ok", "digest": start_digest,
+                  "baseline": source, "ms": round(ms, 1),
+                  "bucket_ms": bucket_ms}
+        self._canary.note_result(result)
+        return result
+
+    def _canary_decode_si(self, bucket, side, stream, timeout):
+        """The SI leg of one probe on the pinned canary session, re-opened
+        once when the store expired it (LRU pressure, a swap's clear); a
+        second expiry inside one probe propagates as the probe's typed
+        error."""
+        sid = self._canary_sids.get(bucket)
+        if sid is None:
+            sid = self._canary_sids[bucket] = self.open_session(side)
+        try:
+            return self.decode_si(stream, sid, timeout=timeout)
+        except session_lib.SessionExpired:
+            sid = self._canary_sids[bucket] = self.open_session(side)
+            return self.decode_si(stream, sid, timeout=timeout)
+
+    def _canary_loop(self) -> None:
+        """The prober thread: one run_canary per period once warmup ran.
+        Errors are counted, never fatal: the prober outlives everything
+        but the drain."""
+        while not self._draining.wait(self.config.canary_every_s):
+            if not self._warmup_done:
+                continue
+            try:
+                self.run_canary()
+            except Exception:   # noqa: BLE001 — the prober must survive
+                self.metrics.counter("serve_canary_errors").inc()
 
     # -- drain ----------------------------------------------------------------
 
@@ -758,6 +1254,10 @@ class CompressionService:
             # the supervisor exits once draining is set; join it first so
             # no restart races the worker joins below
             self._supervisor.join(timeout)
+        if self._canary_thread is not None:
+            # the prober exits on the drain flag too; a probe in flight
+            # resolves typed (the queue is closing), counted as an error
+            self._canary_thread.join(timeout)
         with self._workers_lock:
             workers = list(self._workers)
         for t in workers:
@@ -768,12 +1268,16 @@ class CompressionService:
                 # workers flushed their pipelines before exiting, so the
                 # pool is idle; shutdown is immediate (and idempotent)
                 self._entropy_pool.shutdown(wait=True)
+            with self._workers_lock:
+                retirers = list(self._retirers)
+            for t in retirers:
+                t.join(timeout)
             if self._swap is not None:
-                # the process pool is idle too: its children exit, then
-                # its lane ring is unlinked
-                self._swap.current.retire(wait=True)
-            if self._spec_cleanup is not None:
-                self._spec_cleanup()
+                # every bundle (current, prev, staged) retires: its pool's
+                # children exit, its lane ring is unlinked, its spec file
+                # removed
+                for b in self._swap.all_bundles():
+                    b.retire()
             if self._sessions is not None:
                 # drained services hold no device-resident preps
                 self._sessions.clear("drain")
@@ -833,7 +1337,14 @@ class CompressionService:
                           if self._swap is not None else {}),
                 **({"sessions": {"live": self._sessions.live,
                                  "bytes": self._sessions.bytes_used}}
-                   if self._sessions is not None else {})}
+                   if self._sessions is not None else {}),
+                # model health (absent with quality off): the last canary
+                # verdict and how many sessions are alarmed
+                **({"quality": {
+                        "canary": self._canary.last,
+                        "si_alarms": self.metrics.gauge(
+                            "serve_si_match_alarms").value}}
+                   if self.config.quality_enabled else {})}
 
     def _deadline(self, deadline_ms: Optional[float]) -> Optional[float]:
         return (None if deadline_ms is None
@@ -981,9 +1492,17 @@ class CompressionService:
             (time.monotonic() - t0) * 1e3)
         sid = session_id if session_id is not None \
             else sessions.next_sid()
-        sessions.put(session_lib.SessionEntry(
-            sid=sid, prep=prep, bucket=bucket, nbytes=_prep_nbytes(prep),
-            digest=bundle.digest))
+        # tracker registration BEFORE the store put: the store's evict hook
+        # un-registers, and it only fires for sids the store holds
+        self.quality.session_open(sid)
+        try:
+            sessions.put(session_lib.SessionEntry(
+                sid=sid, prep=prep, bucket=bucket, nbytes=_prep_nbytes(prep),
+                digest=bundle.digest))
+        except BaseException:
+            # refused (SessionOverCapacity): no evict hook will fire
+            self.quality.session_gone(sid, "rejected")
+            raise
         self.metrics.counter("serve_sessions_opened").inc()
         return sid
 
@@ -1018,15 +1537,20 @@ class CompressionService:
         return self.submit_decode_si(blob, session_id,
                                      deadline_ms).result(timeout)
 
-    def _resolve_session(self, batch) -> session_lib.SessionEntry:
+    def _resolve_session(self, batch, bundle) -> session_lib.SessionEntry:
         """Batch-start session lookup (worker side): the entry captured
         HERE is what the device stage reads — immutable, so a concurrent
         eviction cannot tear the search. A session that outlived its slot
-        (LRU/TTL) fails the whole batch typed. (Without a hot swap every
-        entry was built against the one bundle; the JAX service also
-        checks the entry's digest against the batch's bundle here.)"""
+        (LRU/TTL) or its model (a swap or rollback landed since its prep
+        was built) fails the whole batch typed."""
         t0 = time.monotonic()
         entry = self._sessions.get(batch[0].session)
+        if entry.digest != bundle.digest:
+            self._sessions.evict(batch[0].session, "swap")
+            raise session_lib.SessionExpired(
+                f"session {batch[0].session!r} was prepared against "
+                f"model {entry.digest} but {bundle.digest} is serving "
+                f"(hot swap/rollback since) — re-open it")
         self.tracer.span_batch(batch, trace_lib.SPAN_SESSION, t0,
                                time.monotonic(),
                                session=batch[0].session)
@@ -1152,8 +1676,35 @@ class CompressionService:
                                            restarts=self._restarts[i])
                         live += 1
             self.metrics.gauge("serve_workers_live").set(live)
+            if self._watchdog is not None:
+                self._watchdog_tick(now)
             self._draining.wait(self.config.supervise_every_s)
         self.metrics.gauge("serve_workers_live").set(self.live_workers)
+
+    def _watchdog_tick(self, now: float) -> None:
+        """One rollback-watchdog step on the supervisor thread: feed the
+        counter sample, and when a verdict on the committed model fires,
+        roll back CONDITIONALLY (`expect_current` pins the judged digest,
+        so a watchdog racing an operator's rollback is refused typed and
+        counted, never flipping the model back twice). The verdict is
+        computed outside every lock; the rollback is a pointer swap."""
+        errors, resolved = self._error_counters()
+        self._watchdog.sample(now, errors, resolved)
+        verdict = self._watchdog.evaluate(now, errors, resolved)
+        if verdict is None:
+            return
+        self.flight.record("watchdog_verdict", **verdict)
+        if not verdict["fire"]:
+            return
+        try:
+            self.rollback(expect_current=verdict["digest"])
+        except swap_lib.SwapError:
+            # the judged model already left (an operator rollback or a
+            # second swap won the race)
+            self.metrics.counter("serve_watchdog_refused").inc()
+            return
+        self.metrics.counter("serve_watchdog_rollbacks").inc()
+        self.flight.note_death("watchdog_rollback", **verdict)
 
     @property
     def _busy_ms(self) -> metrics_lib.Accumulator:
@@ -1162,13 +1713,24 @@ class CompressionService:
         return self.metrics.accumulator("serve_busy_ms_total")
 
     def _thread_codec(self, bundle: swap_lib.ModelBundle):
-        """Entropy-stage codec for the CURRENT pool thread: its own clone
-        of the bundle's codec (per-pass buffers stay thread-private; the
-        clone shares the bundle codec's lock-guarded schedule cache). One
-        bundle serves for the service's life, so one clone per thread."""
-        codec = getattr(self._codec_local, "codec", None)
+        """Entropy-stage codec for the CURRENT thread and the batch's
+        bundle: a clone of the bundle's codec PER EPOCH (per-pass buffers
+        stay thread-private; the clone shares the bundle codec's
+        lock-guarded schedule cache). Keying by epoch is the swap's
+        coherence: a thread coding an old-bundle batch keeps the old
+        model's clone after the commit. Clones of retired epochs are pruned
+        lazily against the coordinator's live set."""
+        clones = getattr(self._codec_local, "clones", None)
+        if clones is None:
+            clones = self._codec_local.clones = {}
+        codec = clones.get(bundle.epoch)
         if codec is None:
-            codec = self._codec_local.codec = bundle.codec.thread_clone()
+            codec = clones[bundle.epoch] = bundle.codec.thread_clone()
+            if len(clones) > 3:
+                live = set(self._swap.live_epochs())
+                live.add(bundle.epoch)
+                for e in [e for e in clones if e not in live]:
+                    del clones[e]
         return codec
 
     def _device_encode(self, bundle, x: np.ndarray):
@@ -1179,14 +1741,48 @@ class CompressionService:
 
     def _device_decode(self, bundle, sym: np.ndarray, si_entry):
         """The batched decode (the SI decode against `si_entry`'s prep) on
-        this thread's stream -> host images (N, H, W, 3) float32, waited
-        for."""
+        this thread's stream -> (host images (N, H, W, 3) float32, waited
+        for; the SI search's winning scores (N, P) on the host where the
+        service asks for them, else None)."""
         sym_dev = _to_device(sym, self.device)
-        if si_entry is not None:
-            imgs = bundle.server.decode_si(sym_dev, si_entry.prep)
-        else:
+        scores = None
+        if si_entry is None:
             imgs = bundle.server.decode(sym_dev)
-        return _host_array(*_to_host(imgs))
+        elif self._si_scores_enabled:
+            imgs, scores = bundle.server.decode_si(sym_dev, si_entry.prep,
+                                                   with_scores=True)
+            scores = scores.cpu().numpy()
+        else:
+            imgs = bundle.server.decode_si(sym_dev, si_entry.prep)
+        return _host_array(*_to_host(imgs)), scores
+
+    def _note_encode_quality(self, bundle, batch, bucket, vols,
+                             payloads) -> None:
+        """Model-health telemetry of one encode batch, after its futures
+        resolved, on the thread that coded it: the bpp export and the
+        head-sampled coding-gap pass (never on the caller's latency)."""
+        if not self.quality.enabled:
+            return
+        gap_codec = None
+        for i, req in enumerate(batch):
+            payload, exc = payloads[i]
+            if exc is not None:
+                continue
+            self.quality.note_encode(bucket, req.payload[1], len(payload),
+                                     len(payload) + _FRAME_LEN)
+            if self.quality.sample_gap():
+                if gap_codec is None:
+                    gap_codec = self._thread_codec(bundle)
+                self.quality.observe_gap(gap_codec, vols[i], payload, bucket)
+
+    def _note_si_scores(self, batch, scores, failed) -> None:
+        """Per-session SI-match summary of one SI batch, after its futures
+        resolved; failed lanes decoded zeros, so their scores stay out."""
+        if scores is None or not self.quality.enabled:
+            return
+        for i, r in enumerate(batch):
+            if i not in failed:
+                self.quality.note_si_scores(r.session, scores[i])
 
     def _start_batch(self, batch) -> Optional[_Inflight]:
         """Stage 1, on the worker thread. Serialized mode
@@ -1233,7 +1829,7 @@ class CompressionService:
             if kind == DECODE_SI:
                 # resolve the session BEFORE any entropy work is queued:
                 # a gone session fails the batch typed here
-                rec.si_entry = self._resolve_session(batch)
+                rec.si_entry = self._resolve_session(batch, bundle)
             rec.sym = self._empty_symbols(bucket)
         # ONE pool task per micro-batch: per-request isolation lives
         # INSIDE the task
@@ -1572,6 +2168,8 @@ class CompressionService:
                 for i, req in enumerate(rec.batch):
                     if i not in rec.per_item_exc:
                         self._observe_latency(req)
+                self._note_encode_quality(rec.bundle, rec.batch, rec.bucket,
+                                          vols, payloads)
             else:
                 te0 = time.monotonic()
                 self._decode_batch_lanes(
@@ -1607,7 +2205,8 @@ class CompressionService:
             self.metrics.counter("serve_device_skipped_batches").inc()
         else:
             t_dev = time.monotonic()
-            imgs = self._device_decode(rec.bundle, rec.sym, rec.si_entry)
+            imgs, scores = self._device_decode(rec.bundle, rec.sym,
+                                               rec.si_entry)
             t_dev_end = time.monotonic()
             device_ms = (t_dev_end - t_dev) * 1e3
             self._note_device_span(rec.batch, rec.kind, rec.bucket, t_dev,
@@ -1620,6 +2219,7 @@ class CompressionService:
                     buckets_lib.crop_from_bucket(imgs[i], (h, w))
                     .astype(np.uint8))
                 self._observe_latency(r)
+            self._note_si_scores(rec.batch, scores, rec.per_item_exc)
         starts = [s[0] for s in spans if s[0] is not None]
         ends = [s[1] for s in spans if s[1] is not None]
         entropy_ms = (max(ends) - min(starts)) * 1e3 \
@@ -1693,6 +2293,7 @@ class CompressionService:
         self._encode_results(batch, bucket, bundle, payloads,
                              lambda i, r, e: r.future.set_exception(e))
         t_done = time.monotonic()
+        self._note_encode_quality(bundle, batch, bucket, vols, payloads)
         self.tracer.span_batch(batch, trace_lib.SPAN_DEVICE, t_dev,
                                t_ent, kind=ENCODE, bucket=list(bucket))
         self.tracer.span_batch(batch, trace_lib.SPAN_ENTROPY, t_ent,
@@ -1705,7 +2306,7 @@ class CompressionService:
         inline on the worker thread. Returns (device_ms, entropy_ms).
         With `si` the session is resolved FIRST — a gone session fails the
         batch typed before any entropy work."""
-        si_entry = self._resolve_session(batch) if si else None
+        si_entry = self._resolve_session(batch, bundle) if si else None
         sym = self._empty_symbols(bucket)
         per_item_exc = {}
         t_ent = time.monotonic()
@@ -1730,7 +2331,7 @@ class CompressionService:
             self.metrics.counter("serve_device_skipped_batches").inc()
             return (0.0, entropy_ms)
         t_dev = time.monotonic()
-        imgs = self._device_decode(bundle, sym, si_entry)
+        imgs, scores = self._device_decode(bundle, sym, si_entry)
         t_dev_end = time.monotonic()
         self._note_device_span(batch, batch[0].key[0], bucket, t_dev,
                                t_dev_end)
@@ -1742,4 +2343,5 @@ class CompressionService:
             r.future.set_result(
                 buckets_lib.crop_from_bucket(imgs[i], (h, w))
                 .astype(np.uint8))
+        self._note_si_scores(batch, scores, per_item_exc)
         return ((t_dev_end - t_dev) * 1e3, entropy_ms)

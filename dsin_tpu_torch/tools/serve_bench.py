@@ -1,12 +1,14 @@
-"""Three legs of the serve bench (counterparts of the JAX package's
+"""Four legs of the serve bench (counterparts of the JAX package's
 `tools/serve_bench.py`): the precision leg (`_run_precision_section`,
 `_gate_precision`, :2334-2515), the entropy-backend leg
-(`_run_backend_axis`, `_gate_backend_axis`, :484-575) and the entropy half
+(`_run_backend_axis`, `_gate_backend_axis`, :484-575), the entropy half
 of the transport leg (`_run_transport_section`, `_gate_transport`,
-:2160-2233; its router half is not ported).
+:2160-2233; its router half is not ported) and the model-health leg
+(`_run_quality_section`, :1062).
 
     python -m dsin_tpu_torch.tools.serve_bench --out F.json [--precision]
-        [--entropy_backend both] [--transport both] [--device cpu]
+        [--entropy_backend both] [--transport both] [--quality]
+        [--quality_requests N] [--quality_repeats N] [--device cpu]
         [--reps N] [--bucket H,W] [--ae_config P] [--pc_config P]
         [--buckets "H,W H,W"] [--shapes "H,W ..."] [--requests N]
         [--rate R] [--entropy_workers N] [--max_wait_ms MS]
@@ -29,6 +31,18 @@ byte-equal streams, no native build in the stream window (the JAX leg's
 compile sentinel), no failed request, no lane integrity error, lane sends on
 shm. The output names the card (`nvidia-smi`) and the host's cores
 (`os.cpu_count()` and the affinity mask): a served request is host-bound.
+
+The model-health leg (`--quality`) serves a mixed encode / decode /
+decode_si stream (`--quality_requests` a pass, round-robin over the
+shapes) through one warm SI service with the canary prober on: one pass
+with the coding-gap sampler at 1.0 populates every per-bucket gap and bpp
+histogram (and the SI-match scores where the search returns them: on the
+CPU; on the card K2 folds them, and the leg says so), one explicit canary
+probe, then `--quality_repeats` pairs of passes with telemetry on and off
+at the default gap rate, in alternating order. `gate_quality` holds the
+JSON contract, populated telemetry, a green canary and no native build;
+the on/off overhead is recorded, not gated (a wall-clock gate fails on a
+shared host).
 
 For every rung of the precision ladder (`coding/precision.py`) the leg builds
 the model with `load_model_state(precision=rung)` and times each serving
@@ -513,6 +527,164 @@ def gate_transport(section) -> list:
     return violations
 
 
+def _quiesce(svc, timeout_s: float = 5.0) -> None:
+    """Wait until the dataplane has published every batch it started
+    (futures resolve before a worker publishes its batch's metrics)."""
+    batches = svc.metrics.counter("serve_batches")
+    gauge = svc.metrics.gauge("serve_pipeline_inflight")
+    deadline = time.monotonic() + timeout_s
+    last = -1
+    while time.monotonic() < deadline:
+        if gauge.value == 0 and svc._batcher.depth == 0:
+            now = batches.value
+            if now == last:
+                return
+            last = now
+        time.sleep(0.05)
+
+
+def run_quality_section(args) -> dict:
+    """The model-health leg (see the module docstring) on ONE warm
+    SI-enabled service with the canary prober on."""
+    buckets = _parse_shapes(args.buckets)
+    svc = CompressionService(ServiceConfig(
+        ae_config=args.ae_config, pc_config=args.pc_config, seed=args.seed,
+        buckets=buckets, max_batch=LEG_MAX_BATCH,
+        max_wait_ms=args.max_wait_ms, max_queue=LEG_MAX_QUEUE,
+        entropy_workers=args.entropy_workers,
+        pipeline_depth=LEG_PIPELINE_DEPTH, enable_si=True,
+        session_max=len(buckets) + 4, canary_every_s=0.4,
+        device=args.device)).start()
+    warm = svc.warmup()
+    shapes = _parse_shapes(args.shapes)
+    rng = np.random.default_rng(args.seed + 7)
+    images = [rng.integers(0, 255, (h, w, 3), dtype=np.uint8)
+              for h, w in shapes]
+    served = sorted({svc.policy.bucket_for(h, w) for h, w in shapes})
+    sides = {b: rng.integers(0, 255, (b[0], b[1], 3), dtype=np.uint8)
+             for b in served}
+    n = args.quality_requests
+    runs = {"on": [], "off": []}
+    canary_result = {}
+    builds = native_build.build_count()
+    try:
+        streams = [(svc.encode(img, timeout=600.0).stream,
+                    svc.policy.bucket_for(*img.shape[:2])) for img in images]
+        sids = {b: svc.open_session(sides[b]) for b in served}
+
+        def one_pass():
+            t0 = time.monotonic()
+            for i in range(n):
+                stream, bucket = streams[i % len(streams)]
+                if i % 3 == 0:
+                    svc.encode(images[(i // 3) % len(images)], timeout=600.0)
+                elif i % 3 == 1:
+                    svc.decode(stream, timeout=600.0)
+                else:
+                    svc.decode_si(stream, sids[bucket], timeout=600.0)
+            _quiesce(svc)
+            dur = time.monotonic() - t0
+            return n / dur if dur > 0 else 0.0
+
+        prev = svc.quality.set_gap_sample_rate(1.0)
+        one_pass()
+        svc.quality.set_gap_sample_rate(prev)
+        for _ in range(200):
+            canary_result = svc.run_canary()
+            if canary_result.get("status") in ("ok", "failed"):
+                break      # "busy": the prober holds the claim
+            time.sleep(0.05)
+        for r in range(args.quality_repeats):
+            order = ["on", "off"] if r % 2 == 0 else ["off", "on"]
+            for mode in order:
+                svc.quality.set_enabled(mode == "on")
+                runs[mode].append(round(one_pass(), 3))
+        svc.quality.set_enabled(True)
+        snap = svc.metrics.snapshot()
+        si_summaries = svc.quality.si_session_summaries()
+    finally:
+        svc.drain(timeout=600.0)
+    h, c = snap["histograms"], snap["counters"]
+
+    def hist(name):
+        return {k: round(float(v), 4)
+                for k, v in h.get(name, {"count": 0, "mean": 0.0}).items()}
+
+    ratios = [a / b for a, b in zip(runs["on"], runs["off"]) if b > 0]
+    return {
+        "requests_per_pass": n, "repeats": args.quality_repeats,
+        "si_scores": svc._si_scores_enabled, "si_route": svc._si_route,
+        "gap": {
+            "sample_rate_default": svc.config.quality_gap_sample_rate,
+            "samples": c.get("serve_coding_gap_samples", 0),
+            "errors": c.get("serve_coding_gap_errors", 0),
+            "per_bucket_pct": {f"{bh}x{bw}": hist(
+                f"serve_coding_gap_pct_{bh}x{bw}") for bh, bw in served},
+            "bits": hist("serve_coding_gap_bits")},
+        "bpp": {f"{bh}x{bw}": {
+            "payload": hist(f"serve_bpp_payload_{bh}x{bw}"),
+            "wire": hist(f"serve_bpp_wire_{bh}x{bw}")} for bh, bw in served},
+        "si_match": {
+            "score": hist("serve_si_match_score"),
+            "min_score": hist("serve_si_match_min_score"),
+            "alarms": snap["gauges"].get("serve_si_match_alarms", 0),
+            "alarm_transitions": c.get("serve_si_match_alarm_transitions",
+                                       0),
+            "sessions": si_summaries},
+        "canary": {
+            "result": canary_result,
+            "runs": c.get("serve_canary_runs", 0),
+            "failures": c.get("serve_canary_failures", 0),
+            "errors": c.get("serve_canary_errors", 0),
+            "races": c.get("serve_canary_races", 0),
+            "ok": snap["gauges"].get("serve_canary_ok", 0),
+            "probe_ms": hist("serve_canary_ms")},
+        "runs": runs,
+        "pair_ratios": [round(r, 4) for r in ratios],
+        "overhead": (round(1.0 - statistics.median(ratios), 4)
+                     if ratios else None),
+        "steady_builds": native_build.build_count() - builds,
+        "warmup": {k: (round(v, 4) if isinstance(v, float) else v)
+                   for k, v in warm.items()},
+    }
+
+
+def gate_quality(section) -> list:
+    """Violations of the model-health leg: a native build with telemetry
+    on, empty or negative gap histograms, empty bpp histograms or no frame
+    overhead, no SI-match scores where the search returns them, a canary
+    that never ran or is not green. The on/off overhead is not gated."""
+    violations = []
+    if section["steady_builds"]:
+        violations.append(f"quality leg: {section['steady_builds']} native "
+                          f"builds with telemetry on")
+    gap = section["gap"]
+    if gap["samples"] < 1 or gap["errors"]:
+        violations.append(f"coding-gap sampler: {gap['samples']} samples, "
+                          f"{gap['errors']} errors")
+    for key, hist in gap["per_bucket_pct"].items():
+        if hist["count"] < 1:
+            violations.append(f"gap histogram for bucket {key} is empty")
+        elif hist.get("min", 0.0) < -0.5:
+            violations.append(f"bucket {key} recorded a negative coding "
+                              f"gap ({hist['min']}%)")
+    for key, entry in section["bpp"].items():
+        if entry["payload"]["count"] < 1 or entry["wire"]["count"] < 1:
+            violations.append(f"bpp histograms for bucket {key} are empty")
+        elif entry["wire"]["mean"] <= entry["payload"]["mean"]:
+            violations.append(f"bucket {key}: wire bpp <= payload bpp")
+    if section["si_scores"] and section["si_match"]["score"]["count"] < 1:
+        violations.append("SI-match score histogram is empty")
+    canary = section["canary"]
+    if canary["runs"] < 1:
+        violations.append("the canary never ran")
+    if canary["failures"] or canary["ok"] != 1:
+        violations.append(f"canary not green: {canary['failures']} "
+                          f"failures, ok gauge {canary['ok']} (last: "
+                          f"{canary.get('result')})")
+    return violations
+
+
 def host_line(device: str) -> dict:
     """The card (`nvidia-smi` name and power limit; None on the CPU) and the
     host's cores."""
@@ -537,6 +709,11 @@ def main(argv=None) -> int:
     p.add_argument("--transport", choices=("both",),
                    help="run the transport leg (pipe vs shm, process "
                         "backend)")
+    p.add_argument("--quality", action="store_true",
+                   help="run the model-health leg (telemetry coverage, "
+                        "canary, on/off overhead)")
+    p.add_argument("--quality_requests", type=int, default=24)
+    p.add_argument("--quality_repeats", type=int, default=3)
     p.add_argument("--out", required=True, help="JSON result file")
     p.add_argument("--ae_config", default=config_path("ae_kitti_stereo"))
     p.add_argument("--pc_config", default=config_path("pc_default"))
@@ -557,9 +734,10 @@ def main(argv=None) -> int:
     p.add_argument("--max_wait_ms", type=float, default=5.0)
     p.add_argument("--entropy_workers", type=int, default=4)
     args = p.parse_args(argv)
-    if not (args.precision or args.entropy_backend or args.transport):
-        p.error("choose a leg: --precision, --entropy_backend both or "
-                "--transport both")
+    if not (args.precision or args.entropy_backend or args.transport
+            or args.quality):
+        p.error("choose a leg: --precision, --entropy_backend both, "
+                "--transport both or --quality")
     resolve_device(args.device)
     report = {"config": {"ae_config": args.ae_config,
                          "pc_config": args.pc_config, "seed": args.seed},
@@ -590,6 +768,13 @@ def main(argv=None) -> int:
     if args.transport:
         report["transport"] = run_transport_section(args, pipe_run)
         violations += gate_transport(report["transport"])
+    if args.quality:
+        report["config"].update(
+            buckets=args.buckets, shapes=args.shapes,
+            quality_requests=args.quality_requests,
+            quality_repeats=args.quality_repeats)
+        report["quality"] = run_quality_section(args)
+        violations += gate_quality(report["quality"])
     tmp = args.out + ".tmp"
     with open(tmp, "w") as f:
         json.dump(report, f, indent=1)

@@ -32,7 +32,7 @@ import time
 from typing import Any, Dict, Iterable, List, NamedTuple, Optional
 
 from dsin_tpu_torch import bridge
-from dsin_tpu_torch.utils import flax_msgpack
+from dsin_tpu_torch.utils import faults, flax_msgpack
 from dsin_tpu_torch.utils.integrity import IntegrityError, frame_crc
 
 AE_PARTITIONS = ("encoder", "decoder", "centers", "probclass")
@@ -156,10 +156,18 @@ def build_manifest(state: ModelState,
         manifest["files"] = dict(sorted(files.items()))
     if extra:
         if "canary" in extra:
-            raise NotImplementedError(
-                "manifest_extra['canary']: validating canary goldens needs "
-                "the serve control plane's quality module, which is not "
-                "ported yet (ROADMAP Queue 1, the serve control plane)")
+            # golden canary digests (serve/quality.py): a service refuses a
+            # swap whose staged outputs do not match them, so a malformed
+            # entry would refuse every swap of this checkpoint; validate
+            # at save, where the publisher can still fix it
+            from dsin_tpu_torch.serve.quality import validate_goldens
+            bad = validate_goldens(extra["canary"])
+            if bad is not None:
+                raise ValueError(
+                    f"manifest_extra['canary'] is malformed ({bad}) — "
+                    f"record the structure serve/quality.py "
+                    f"goldens_struct builds (CompressionService"
+                    f".canary_goldens returns it)")
         manifest.update(extra)
     return manifest
 
@@ -311,6 +319,8 @@ def load_manifest(ckpt_dir: str) -> Optional[Dict[str, Any]]:
             raw = f.read()
     except FileNotFoundError:
         return None
+    # fault site: a corrupted read must surface as a typed refusal
+    raw = faults.corrupt("ckpt.manifest", raw)
     try:
         manifest = json.loads(raw.decode("utf-8"))
     except (ValueError, UnicodeDecodeError) as e:

@@ -402,10 +402,13 @@ def test_latest_checkpoint_resolves_a_kill_between_the_renames(
 
 def test_what_waits_for_other_slices_raises(world, tmp_path):
     model = build_model(world["ae"], world["pc"], device="cpu", seed=1)
-    with pytest.raises(NotImplementedError, match="quality module"):
+    # canary goldens are validated now that the quality module is ported:
+    # a malformed entry is refused at save, as the JAX package refuses it
+    with pytest.raises(ValueError, match="canary"):
         port_ckpt.save_checkpoint(str(tmp_path / "c"),
                                   port_ckpt.state_from_model(model),
                                   manifest_extra={"canary": {}})
+    assert not os.path.exists(str(tmp_path / "c"))
     # load_train_step restores an optimizer state, so it needs one to
     # restore into; given one, the JAX checkpoint's opt_state restores
     resume = world["ae"].replace(load_train_step=True, train_model=False,

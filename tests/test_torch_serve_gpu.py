@@ -1,6 +1,7 @@
 """The port's CompressionService on the card: stream and event ordering
-across worker streams and the entropy pool, K2 once per SI batch, and the
-process entropy backend (shm lanes) against the thread backend.
+across worker streams and the entropy pool, K2 once per SI batch, the
+process entropy backend (shm lanes) against the thread backend, and a hot
+swap under load with quality telemetry on (K2 still once per SI batch).
 
 Every test here needs an NVIDIA card; on a machine without one they skip
 (decided inside the `cuda` fixture, so every pytest-xdist worker collects
@@ -28,7 +29,8 @@ import torch
 
 from dsin_tpu_torch.entry import tiny_configs
 from dsin_tpu_torch.ops import sifinder_kernel as sk
-from dsin_tpu_torch.serve import CompressionService, ServiceConfig
+from dsin_tpu_torch.serve import (CompressionService, ServiceConfig,
+                                  SessionExpired)
 from dsin_tpu_torch.serve.service import DECODE_SI
 
 BUCKET = (80, 96)
@@ -151,3 +153,78 @@ def test_process_backend_equals_thread_backend(service):
         assert proc.metrics.counter("serve_entropy_proc_rebuilds").value == 0
     finally:
         assert proc.drain()
+
+
+@pytest.mark.gpu
+def test_swap_under_load_keeps_k2_and_streams(service, tmp_path):
+    """A hot swap while encodes and SI decodes run concurrently, quality
+    telemetry on: every encode stream is model A's or model B's stream for
+    that image alone, K2 launches once per SI batch (the SI-score decision
+    keeps the search on the kernel: route 'kernel', scores off), and after
+    the rollback A's streams come back; no native build in any of it."""
+    from dsin_tpu_torch import native_build
+    from dsin_tpu_torch.models.dsin import build_model
+    from dsin_tpu_torch.train import checkpoint as ckpt_lib
+    assert service.config.quality_enabled
+    assert (service._si_route, service._si_scores_enabled) == ("kernel",
+                                                              False)
+    ae, pc = tiny_configs()
+    ckpt = str(tmp_path / "b")
+    ckpt_lib.save_checkpoint(ckpt, ckpt_lib.state_from_model(build_model(
+        ae.replace(AE_only=False), pc, device="cpu", seed=7)),
+        manifest_extra={"pc_config_sha256": ckpt_lib.config_sha256(pc),
+                        "buckets": [list(BUCKET)]})
+    side, imgs = _images(3)
+    builds = native_build.build_count()
+    a_streams = [service.encode(img).stream for img in imgs]
+    digest_a = service.model_digest
+    si_batches = []
+    service._batch_hook = lambda batch: si_batches.append(
+        [r.future for r in batch]) if batch[0].key[0] == DECODE_SI else None
+    sk.reset_launch_counts()
+    stop, results, errors, reopens = threading.Event(), [], [], []
+
+    def load():
+        try:
+            sid = service.open_session(side)
+            while not stop.is_set():
+                for img in imgs:
+                    res = service.encode(img)
+                    results.append((img, res))
+                    try:
+                        service.decode_si(res.stream, sid)
+                    except SessionExpired:   # a commit expired the session
+                        reopens.append(sid)
+                        sid = service.open_session(side)
+        except Exception as e:  # noqa: BLE001 — any other failure fails
+            errors.append(e)    # the test below
+
+    threads = [threading.Thread(target=load) for _ in range(2)]
+    for t in threads:
+        t.start()
+    try:
+        info = service.swap_model(ckpt)
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(timeout=300)
+    assert not errors, errors
+    # the one commit expires each client's session; a session re-opened
+    # while the commit landed (its prep built on A) expires once more
+    assert len(reopens) <= 3 * len(threads), reopens
+    torch.cuda.synchronize()
+    service._batch_hook = None
+    warm_and_probe = 1                  # the staged bundle's warm, 1 bucket
+    ran = sum(any(f.exception(60) is None for f in futs)
+              for futs in si_batches)
+    assert sk.launch_counts == {"pearson_argmax": 0,
+                                "pearson_argmax_shared": ran + warm_and_probe}
+    b_streams = [service.encode(img).stream for img in imgs]
+    index = {id(img): i for i, img in enumerate(imgs)}
+    for img, res in results:
+        i = index[id(img)]
+        assert (res.model_digest, res.stream) in (
+            (digest_a, a_streams[i]), (info["digest"], b_streams[i]))
+    service.rollback()
+    assert [service.encode(img).stream for img in imgs] == a_streams
+    assert native_build.build_count() == builds

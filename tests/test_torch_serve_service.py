@@ -283,8 +283,7 @@ def test_drain_leaves_no_hung_future(world, streams):
 
 
 @pytest.mark.parametrize("over,item", [
-    ({"quality_enabled": True}, "11a"), ({"canary_every_s": 1.0}, "11a"),
-    ({"rollback_watchdog_window_s": 1.0}, "11b"), ({"devices": 2}, "11c"),
+    ({"devices": 2}, "11c"),
     ({"placement_weights": {BUCKET: 1.0}}, "11c"),
     ({"rebalance_check_every_s": 1.0}, "11c"),
     ({"priority_classes": ()}, "11d")])
@@ -312,11 +311,31 @@ def test_backend_configurations_are_validated_typed(world, over, match):
         CompressionService(ServiceConfig(**kw)).start()
 
 
+@pytest.mark.parametrize("over,match", [
+    ({"canary_every_s": 0.0}, "canary_every_s"),
+    ({"canary_every_s": -1.0}, "canary_every_s"),
+    ({"canary_timeout_s": 0.0}, "canary_timeout_s"),
+    ({"canary_every_s": 1.0, "session_max": 1}, "session_max"),
+    ({"quality_gap_sample_rate": 1.5}, "gap_sample_rate"),
+    ({"quality_gap_sample_rate": -0.1}, "gap_sample_rate"),
+    ({"si_alarm_frac": 0.0}, "si_alarm_frac"),
+    ({"si_alarm_min_samples": 0}, "si_alarm_min_samples"),
+    ({"rollback_watchdog_window_s": 0.0}, "window_s"),
+    ({"rollback_watchdog_window_s": 1.0, "rollback_watchdog_threshold": 0.0},
+     "threshold"),
+    ({"rollback_watchdog_window_s": 1.0,
+      "rollback_watchdog_min_requests": 0}, "min_requests")])
+def test_lifecycle_configurations_are_validated_typed(world, over, match):
+    """The quality, canary and watchdog knobs, validated as the JAX service
+    validates them: a typed ValueError before the model build."""
+    kw = dict(world["common"], device="cpu")
+    kw.update(over)
+    with pytest.raises(ValueError, match=match):
+        CompressionService(ServiceConfig(**kw)).start()
+
+
 @pytest.mark.parametrize("method,args,item", [
-    ("swap_model", ("ckpt",), "11b"), ("prepare_swap", ("ckpt",), "11b"),
-    ("commit_swap", (), "11b"), ("abort_swap", (), "11b"),
-    ("rollback", (), "11b"), ("rebalance_placement", (), "11c"),
-    ("run_canary", (), "11a"), ("canary_goldens", (), "11a")])
+    ("rebalance_placement", (), "11c")])
 def test_refused_operations_name_their_item(port, method, args, item):
     with pytest.raises(NotImplementedError,
                        match=f"ROADMAP Queue 1 item {item} "):
