@@ -88,7 +88,15 @@ Phases; any failure raises, prints no result and exits non-zero:
      periodic checkpoint every 4 steps, testing the best-val checkpoint
      with real bpp, and a second run resuming it (numbering, best_val) for
      2 more: K1 once per step, validation batch and test image, K3 once per
-     front; last the ms per train step (median of 5 warm steps, host clock)
+     front. The first run has a profile_dir and a replicate_to: its trace
+     must hold exactly the 3 train_step annotations of its window (steps
+     3-5), K1 launched once inside each and once per validation batch
+     processed in the window, and device events; it prints the 10 kernels
+     with the most device time and the operator (with its input shapes)
+     that launched each; the replica of its best-val checkpoint must match
+     its manifest's CRCs and carry the source's params_digest, and a second
+     (forced) best-val save must rotate the replica's .prev-*; last the ms
+     per train step (median of 5 warm steps, host clock)
      split by CUDA events into forward, backward and optimizer, the peak
      memory, and the same at compute_dtype = 'bfloat16';
   9. the rest of the patch search and the Cityscapes geometry: (a) the
@@ -136,8 +144,7 @@ Phases; any failure raises, prints no result and exits non-zero:
      per-kind serve_device_ms / serve_entropy_ms histograms, the overlap
      ratio, requests per second and the peak device memory (run A, the
      thread backend). Then the same traffic (same seed, images and side images)
-     in turns: A1, run A with this process's OpenBLAS pinned to one thread (as
-     the children pin theirs), then the process entropy backend, 4 children: B
+     in turns on the process entropy backend, 4 children: B
      pipe at depth 2, C shm at depth 2, D shm at depth 4. Each of B-D holds
      every encode stream byte-equal and every decoded image bit-equal to run
      A's, K2 once per SI batch, no native build after warmup in the parent or
@@ -148,8 +155,7 @@ Phases; any failure raises, prints no result and exits non-zero:
      pool once and give run A's bytes. Each run prints the same numbers as run
      A, its warmup s (child spawn included, with when each child's initializer
      started and the size of the pool's start-up arguments), its shm lane sends
-     and fallbacks and the host's cores; A1 holds A's streams, images and K2
-     count;
+     and fallbacks and the host's cores;
  11. the model lifecycle at full width (the phase 10 service on the process
      backend, pipe, 4 children a bundle, quality on, the canary prober every
      second, the watchdog armed), from two checkpoints A and B saved from
@@ -173,7 +179,28 @@ Phases; any failure raises, prints no result and exits non-zero:
      bundle displaced, and with B' displaced in (5)), rollback ms,
      the canary probe ms per bucket, the seconds from the forced commit to
      the watchdog's rollback and requests/s before, during and after the
-     prepare window, each beside the card's name and power limit.
+     prepare window, each beside the card's name and power limit;
+ 12. the rate-distortion path at the full width of ae_kitti_stereo +
+     pc_default: (a) the 3-phase run of `eval/synthetic_rd.py` through its
+     CLI's configuration (a corpus of 40 / 8 / 8 synthetic pairs at the
+     320x1224 eval crop generated in a temporary directory, the config's
+     KITTI manifests rewired to it), 12 steps a phase, 2 test images: both
+     points finite; each with-SI test image's real bpp its mode-3 stream's,
+     which decodes exactly; the phase-2 warm start holding phase 1's scored
+     AE partitions bit-equal and siNet at its seeded init, at step 0; K1
+     launched once per phase-2 step, phase-2 validation batch and SI test
+     image, K3 once per front of each real-bpp encode and of each decode
+     that checks it. Then the same command again: phase 1 skipped by its
+     marker, phase 2 resumed for exactly 1 step. (b) `eval/rd_sweep.sweep`
+     at targets 0.02 and 0.08, 2 steps and 1 test image a point:
+     rd_curve.json holds both points with H_target = bpp * 64 / 32, K1
+     once per step, validation batch and test image. (c) the precision
+     RD-delta gate (`tools/rd_delta.py`) at its default (ae_synthetic_micro,
+     48x96) and at ae_kitti_stereo on 160x600 images: pass, streams
+     byte-identical across the rungs in both modes, K3 launched once per
+     front of each mode-3 encode and decode at every rung. Prints both RD
+     points (bpp, PSNR, MS-SSIM, real bpp), ms per step per phase, test ms
+     per image and the gates' deltas.
 Each phase's wall time is printed after the last phase.
 Kernel times are CUDA events around back-to-back runs that the host
 enqueued while the device slept, so they are device time.
@@ -200,17 +227,19 @@ import torch.nn.functional as F
 
 from dsin_tpu_torch.coding import cli as cli_lib
 from dsin_tpu_torch.coding import codec as codec_lib
+from dsin_tpu_torch.coding import precision as precision_lib
 from dsin_tpu_torch.coding import probclass_kernel as pk
 from dsin_tpu_torch.coding import rans
 from dsin_tpu_torch import main as main_lib
 from dsin_tpu_torch import native_build
-from dsin_tpu_torch.coding.loader import (blas_threads, make_codec,
-                                          restore_checkpoint)
+from dsin_tpu_torch.coding.loader import make_codec, restore_checkpoint
 from dsin_tpu_torch.data import png
 from dsin_tpu_torch.data import synthetic
 from dsin_tpu_torch.data.loader import random_pair_crops
 from dsin_tpu_torch.data.manifest import read_pair_manifest
+from dsin_tpu_torch.config import parse_config_file
 from dsin_tpu_torch.entry import entry, full_configs, make_forward
+from dsin_tpu_torch.eval import rd_sweep, synthetic_rd
 from dsin_tpu_torch.eval.reporting import ScoreLists
 from dsin_tpu_torch.models import probclass as pc_lib
 from dsin_tpu_torch.models.dsin import build_model
@@ -230,6 +259,9 @@ from dsin_tpu_torch.tools import serve_bench as leg_lib
 from dsin_tpu_torch.train import checkpoint as ckpt_lib
 from dsin_tpu_torch.train import optim as optim_lib
 from dsin_tpu_torch.train import step as step_lib
+from dsin_tpu_torch.tools import rd_delta
+from dsin_tpu_torch.utils import profiling
+from dsin_tpu_torch.utils.logging import JsonlLogger
 
 H, W, PH, PW = 320, 1224, 20, 24
 FP32_PEAK = k1_bench.FP32_PEAK   # H100 SXM fp32 outside the tensor cores
@@ -1355,6 +1387,7 @@ def run_phase(seed: int, dev, root: str):
     fronts = len(make_codec(build_model(ae, pc, device="cpu"))._wavefronts(
         ae.num_chan_bn, h // 8, w // 8))
     runs = []
+    trace_dir, peer = os.path.join(root, "trace"), os.path.join(root, "peer")
     for steps in (RUN_STEPS, RESUME_STEPS):
         cfg = ae if not runs else ae.replace(
             load_model=True, load_train_step=True,
@@ -1365,6 +1398,8 @@ def run_phase(seed: int, dev, root: str):
         t0 = time.perf_counter()
         results = main_lib.run(
             cfg, pc, out_root=root, max_steps=steps, real_bpp=True,
+            profile_dir=None if runs else trace_dir,
+            replicate_to=None if runs else peer,
             device=dev, on_image=lambda exp, i, rec: seen.append(exp))
         secs = time.perf_counter() - t0
         launches = {"pearson_argmax": sk.launch_counts["pearson_argmax"],
@@ -1417,6 +1452,89 @@ def run_phase(seed: int, dev, root: str):
         f"opt_state.msgpack) and a periodic one; the resumed run continued "
         f"at step {RUN_STEPS}, read best_val {meta['best_val']:.4f}, and "
         f"restore_best_for_test scored the test split")
+    trace_checks(trace_dir)
+    replica_checks(first["exp"], peer)
+
+
+def trace_checks(trace_dir: str) -> None:
+    """The first run's --profile_dir trace: the window's 3 train_step
+    annotations, K1 once inside each and once per validation batch
+    processed while the window was open, device events; prints the
+    kernels with the most device time and what launched them."""
+    (name,) = [f for f in os.listdir(trace_dir) if f.endswith(".json")]
+    path = os.path.join(trace_dir, name)
+    t0 = time.perf_counter()
+    summary = profiling.trace_summary(path)
+    read_s = time.perf_counter() - t0
+    first = min(5, max(RUN_STEPS - 3, 0))
+    window = list(range(first, first + 3))
+    # metrics lag one step: step j is processed (and validated) after step
+    # j+1 is dispatched, so from step first-1 on inside the window
+    validations = sum(1 for j in range(first - 1, RUN_STEPS)
+                      if (j + 1) % RUN_EVERY == 0 or j + 1 == RUN_STEPS)
+    k1 = [row for kname, row in summary["kernels"].items()
+          if "pearson_argmax_tc" in kname]
+    count = sum(row["count"] for row in k1)
+    attributed = sum(row["attributed"] for row in k1)
+    in_steps = sum(row["launches_in_steps"] for row in k1)
+    want = len(window) + validations * VAL_PAIRS
+    if summary["annotations"] != window or count != want \
+            or not summary["device_events"]:
+        raise AssertionError(
+            f"trace {path}: annotations {summary['annotations']} (expected "
+            f"{window}), K1 {count} (expected {want}: one a traced step and "
+            f"{validations} validations of {VAL_PAIRS} batches), "
+            f"{summary['device_events']} device events")
+    if attributed == count and in_steps != len(window):
+        raise AssertionError(f"trace {path}: K1 launched {in_steps} times "
+                             f"inside the train_step annotations")
+    log(f"  profile_dir: {os.path.getsize(path) / 2 ** 20:.1f} MiB Chrome "
+        f"trace of steps {window} (read in {read_s:.1f} s), "
+        f"{summary['device_events']} device events; K1 {count} kernels = "
+        f"{len(window)} steps + {validations} x {VAL_PAIRS} validation "
+        f"batches, " + (f"{in_steps} launched inside the step annotations"
+                        if attributed == count else
+                        f"{attributed} of {count} with a launch record"))
+    top = sorted(summary["kernels"].items(), key=lambda kv: kv[1]["us"],
+                 reverse=True)[:10]
+    log(f"  the trace's 10 kernels with the most device time (card "
+        f"{card_line()}), each with the operators that launched it:")
+    for kname, row in top:
+        ops = row["ops"].most_common(2)
+        log(f"    {row['us'] / 1e3:9.2f} ms x{row['count']:<4d} "
+            f"{kname[:70]} <- " + "; ".join(
+                f"{op[:150]} ({us / 1e3:.2f} ms)" for op, us in ops))
+
+
+def replica_checks(exp, peer: str) -> None:
+    """The first run's --replicate_to copy: its files match its manifest's
+    CRCs and its params_digest is the source's; a second (forced) best-val
+    save rotates it aside to .prev-*."""
+    replica = os.path.join(peer, exp.model_name)
+    manifest = ckpt_lib.load_manifest(replica)
+    files = ckpt_lib.verify_files(replica, manifest)
+    source = ckpt_lib.load_manifest(exp.ckpt_dir)
+    if manifest != source:
+        raise AssertionError(f"replica {replica}: manifest differs from the "
+                             f"checkpoint's (params_digest "
+                             f"{manifest.get('params_digest')} vs "
+                             f"{source.get('params_digest')})")
+    t0 = time.perf_counter()
+    exp._validate_and_maybe_save(exp.step - 1, exp.step, float("inf"), [],
+                                 JsonlLogger(None), 1, force_save=True)
+    save_s = time.perf_counter() - t0
+    prevs = ckpt_lib._prev_dirs(peer, exp.model_name)
+    again = ckpt_lib.load_manifest(replica)
+    if (len(prevs) != 1 or ckpt_lib.load_manifest(prevs[0]) != manifest
+            or again != ckpt_lib.load_manifest(exp.ckpt_dir)):
+        raise AssertionError(f"replica {replica}: after a second best-val "
+                             f"save, .prev dirs {prevs}")
+    ckpt_lib.verify_files(replica, again)
+    log(f"  replicate_to: {files['files']} files, {files['bytes']} bytes, "
+        f"CRCs and params_digest {manifest['params_digest'][:16]} equal to "
+        f"the checkpoint's; a forced best-val save (validation, save and "
+        f"replication {save_s:.2f} s) rotated the replica to "
+        f"{os.path.basename(prevs[0])}")
 
 
 def time_train_step(dev, ae, pc, mask, batches, label: str):
@@ -2220,38 +2338,6 @@ def check_against_a(run, ref, label: str) -> list:
     return streams
 
 
-def pinned_thread_run(seed: int, dev, traffic, ref) -> int:
-    """Run A1: run A's thread backend with this process's OpenBLAS pinned to
-    one thread, as the process backend's children pin theirs, so the gap
-    between A and B-D splits into the pin and the processes. Streams and
-    images must equal run A's; the thread count is restored after. Returns
-    K2's launches in the traffic."""
-    from dsin_tpu_torch.serve import CompressionService
-    label = "A1 (thread, parent OpenBLAS pinned to 1 thread)"
-    before = blas_threads()
-    svc = CompressionService(serve_config(seed, dev)).start()
-    futures = []
-    try:
-        blas_threads(pin=1)
-        warm = svc.warmup()
-        log(f"  {label}: OpenBLAS threads {before} -> {blas_threads()}, "
-            f"warmup {warm['seconds']:.2f} s, {warm['builds']} native builds")
-        run = drive(svc, traffic)
-        for r in run["records"]:
-            futures += r[4]
-        check_against_a(run, ref, label)
-        log(f"  {label}: {len(run['enc'])} streams byte-equal and "
-            f"{len(run['dec'])} images bit-equal to run A's; K2 "
-            f"{run['launches']['pearson_argmax_shared']} launches = "
-            f"{run['si_batches']} SI batches")
-        report_run(svc, run, label, warm["seconds"])
-    finally:
-        drain_checked(svc, futures, label)
-        if before:
-            blas_threads(pin=max(before))
-    return run["launches"]["pearson_argmax_shared"]
-
-
 def process_run(seed: int, dev, traffic, ref, label: str, transport: str,
                 depth: int, kill: bool = False) -> int:
     """One run of the process entropy backend (4 children) on the same
@@ -2337,7 +2423,6 @@ def service_phase(seed: int, dev) -> int:
     K2's launches summed over the runs' traffic."""
     traffic = serve_traffic(seed)
     k2, streams, images = thread_run(seed, dev, traffic)
-    k2 += pinned_thread_run(seed, dev, traffic, (streams, images))
     for label, transport, depth, kill in (
             ("B (process, pipe, depth 2)", "pipe", 2, False),
             ("C (process, shm, depth 2)", "shm", 2, True),
@@ -2757,6 +2842,253 @@ def lifecycle_phase(seed: int, dev) -> int:
     return k2
 
 
+# -- phase 12: the rate-distortion path at full width ----------------------
+
+RD_STEPS, RD_TEST_IMAGES = 12, 2          # a phase of the 3-phase run
+SWEEP_TARGETS, SWEEP_STEPS, SWEEP_TEST_IMAGES = (0.02, 0.08), 2, 1
+GATE_SHAPES = (("ae_synthetic_micro", (48, 96)),
+               ("ae_kitti_stereo", (160, 600)))
+
+
+def k1_k3_counts() -> dict:
+    return {"pearson_argmax": sk.launch_counts["pearson_argmax"],
+            "probclass_front_logits":
+                pk.launch_counts["probclass_front_logits"]}
+
+
+def reset_k1_k3() -> None:
+    sk.reset_launch_counts()
+    pk.reset_launch_counts()
+
+
+def fronts_of(ae, pc, h: int, w: int) -> int:
+    """Wavefronts of one (C, h/8, w/8) volume: K3's launches a pass."""
+    codec = make_codec(build_model(ae, pc, device="cpu"))
+    return len(codec._wavefronts(ae.num_chan_bn, h // 8, w // 8))
+
+
+def validations(cfg, steps: int) -> int:
+    """Validations of a run of `steps` from step 0 (`main.py`'s schedule:
+    every get_validate_every steps, and the last)."""
+    return sum(1 for j in range(steps)
+               if (j + 1) % main_lib.get_validate_every(
+                   j, steps, cfg.validate_every,
+                   cfg.get("decrease_val_steps", True)) == 0
+               or j + 1 == steps)
+
+
+def digest_equal(a, b) -> bool:
+    return ckpt_lib._tree_digest(a) == ckpt_lib._tree_digest(b)
+
+
+def rd_3phase(seed: int, dev, root: str, card: str) -> dict:
+    """(a): the 3-phase run through the synthetic_rd CLI's configuration,
+    then the same command again; -> K1 and K3 launches of the first run."""
+    out, data = os.path.join(root, "rd"), os.path.join(root, "data")
+    argv = ["-ae_config", config_path("ae_kitti_stereo"), "-pc_config",
+            config_path("pc_default"), "--out_root", out, "--data_dir", data,
+            "--phase1_steps", str(RD_STEPS), "--phase2_steps", str(RD_STEPS),
+            "--max_test_images", str(RD_TEST_IMAGES), "--seed", str(seed)]
+    args = synthetic_rd.parse_args(argv)
+    ae, pc, corpus_s = synthetic_rd.configs_from_args(args)
+    n_val = synthetic_rd.CORPUS_PAIRS[1]
+    if corpus_s <= 0 or ae.file_path_val != "synthetic_stereo_val.txt":
+        raise AssertionError(f"the CLI did not generate and wire a corpus "
+                             f"({corpus_s} s, {ae.file_path_val})")
+    h, w = ae.eval_crop_size
+    fronts = fronts_of(ae, pc, h, w)
+    marks, tests, codecs = {}, collections.defaultdict(list), {}
+
+    def on_restore(phase, exp):
+        marks[phase] = time.perf_counter()
+        if phase != 2:
+            return
+        # a fresh phase 2: phase 1's scored AE partitions, a seeded siNet
+        live = ckpt_lib.state_from_model(exp.model)
+        ckpt = ckpt_lib.restore_partitions(
+            os.path.join(exp.weights_root, exp.ae_config.load_model_name),
+            live, ckpt_lib.AE_PARTITIONS)
+        fresh = ckpt_lib.state_from_model(build_model(
+            exp.ae_config, pc, device=dev, seed=seed))
+        bad = [p for p in ckpt_lib.AE_PARTITIONS
+               if not digest_equal(ckpt.params[p], live.params[p])]
+        if (bad or not digest_equal(ckpt.batch_stats, live.batch_stats)
+                or not digest_equal(fresh.params["sinet"],
+                                    live.params["sinet"])
+                or exp.step != 0):
+            raise AssertionError(f"phase 2's warm start: partitions {bad} "
+                                 f"differ from phase 1's checkpoint, or "
+                                 f"siNet is not its seeded init, or step "
+                                 f"{exp.step}")
+
+    def on_image(exp, idx, rec):
+        phase = 1 if exp.model.ae_only else 2
+        tests[phase].append(rec)
+        if rec["stream"] is None:
+            return
+        # the real bpp is the mode-3 stream's, which decodes exactly
+        if id(exp) not in codecs:
+            codecs[id(exp)] = make_codec(exp.model)
+        vol = np.ascontiguousarray(np.transpose(rec["out"]["symbols"][0],
+                                                (2, 0, 1)))
+        real = len(rec["stream"]) * 8.0 / (h * w)
+        if (real != rec["scores"]["real_bpp"]
+                or not np.array_equal(codecs[id(exp)].decode(rec["stream"]),
+                                      vol)):
+            raise AssertionError(f"phase {phase} image {idx}: real bpp "
+                                 f"{rec['scores']['real_bpp']} vs its "
+                                 f"stream's {real}, or the stream does not "
+                                 f"decode to its symbols")
+
+    reset_k1_k3()
+    t0 = time.perf_counter()
+    r = synthetic_rd.run_3phase(
+        ae, pc, args.out_root, phase1_steps=RD_STEPS, phase2_steps=RD_STEPS,
+        max_test_images=RD_TEST_IMAGES, device=dev, seed=seed,
+        on_restore=on_restore, on_image=on_image)
+    run_s = time.perf_counter() - t0
+    launches = k1_k3_counts()
+    cfg2 = ae.replace(AE_only=False)
+    want = {"pearson_argmax": RD_STEPS + validations(cfg2, RD_STEPS) * n_val
+            + RD_TEST_IMAGES,
+            "probclass_front_logits": 2 * RD_TEST_IMAGES * fronts}
+    points = {k: r[k] for k in ("ae_only_test", "with_si_test")}
+    finite = all(np.isfinite(v[m]) for v in points.values()
+                 for m in ("bpp", "psnr", "ms_ssim"))
+    if (not finite or not np.isfinite(points["with_si_test"]["real_bpp"])
+            or [len(tests[1]), len(tests[2])] != [RD_TEST_IMAGES] * 2
+            or r["phase1"]["steps"] != RD_STEPS
+            or r["phase2"]["steps"] != RD_STEPS or launches != want):
+        raise AssertionError(f"3-phase run: points {points}, steps "
+                             f"{r['phase1']['steps']}/{r['phase2']['steps']},"
+                             f" {len(tests[1])}/{len(tests[2])} test images, "
+                             f"launches {launches}, expected {want}")
+    log(f"  corpus: {sum(synthetic_rd.CORPUS_PAIRS)} synthetic pairs at "
+        f"{h}x{w} ({'/'.join(map(str, synthetic_rd.CORPUS_PAIRS))}) "
+        f"written in {corpus_s:.1f} s (data/png.py); ae_kitti_stereo's "
+        f"KITTI manifests rewired to them")
+    log(f"  3-phase run {run_s:.1f} s: phase 1 {marks[2] - marks[1]:.1f} s "
+        f"(train {RD_STEPS} steps, validation, AE-only test), phase 2 "
+        f"{t0 + run_s - marks[2]:.1f} s (train {RD_STEPS} steps, "
+        f"validation, SI test with real bpp); launches {launches} (= "
+        f"{RD_STEPS} steps + {validations(cfg2, RD_STEPS)} x {n_val} "
+        f"validation batches + {RD_TEST_IMAGES} SI test images; "
+        f"{fronts} fronts an encode and a decode); card {card}")
+    for phase, key in ((1, "ae_only_test"), (2, "with_si_test")):
+        p = points[key]
+        ips = r[f"phase{phase}"]["images_per_sec"]
+        ms = {k: [rec["ms"][k] for rec in tests[phase]]
+              for k in tests[phase][0]["ms"]}
+        log(f"  phase {phase}: {1e3 / ips:.1f} ms per train step (StepTimer"
+            f", host clock, batch 1 at 320x960), best_val "
+            f"{r[f'phase{phase}']['best_val']:.4f}; point bpp {p['bpp']:.4f}"
+            + (f", real {p['real_bpp']:.4f}" if "real_bpp" in p else "")
+            + f", PSNR {p['psnr']:.2f} dB, MS-SSIM {p['ms_ssim']:.4f}; test "
+            f"ms per image " + ", ".join(
+                f"{k} " + "/".join(f"{v:.1f}" for v in vals)
+                for k, vals in ms.items()) + f"; card {card}")
+    log("  phase-2 warm start: the AE partitions and batch statistics of "
+        "phase 1's scored checkpoint bit-equal (digests), siNet at its "
+        "seeded init, step 0; each SI test image's real bpp its mode-3 "
+        "stream's, decoded exactly")
+
+    t0 = time.perf_counter()
+    r2 = synthetic_rd.main(argv)
+    if r2["phase1"] != r["phase1"] or r2["phase2"]["steps"] != 1:
+        raise AssertionError(f"the same command again: phase 1 "
+                             f"{r2['phase1']} (was {r['phase1']}), phase 2 "
+                             f"{r2['phase2']['steps']} steps")
+    log(f"  the same command again ({time.perf_counter() - t0:.1f} s): phase "
+        f"1 skipped by its marker, phase 2 resumed from step {RD_STEPS} for "
+        f"1 step; with-SI point bpp {r2['with_si_test']['bpp']:.4f}, PSNR "
+        f"{r2['with_si_test']['psnr']:.2f}; card {card}")
+    return launches
+
+
+def rd_sweep_phase(seed: int, dev, root: str, card: str) -> int:
+    """(b): the sweep at two targets; -> K1's launches."""
+    ae, pc = full_configs()
+    ae = ae.replace(test_model=True, root_data=os.path.join(root, "data"),
+                    **{f"file_path_{s}": f"synthetic_stereo_{s}.txt"
+                       for s in ("train", "val", "test")})
+    out = os.path.join(root, "sweep")
+    reset_k1_k3()
+    t0 = time.perf_counter()
+    points = rd_sweep.sweep(ae, pc, out_root=out, targets=SWEEP_TARGETS,
+                            max_steps=SWEEP_STEPS,
+                            max_test_images=SWEEP_TEST_IMAGES, device=dev,
+                            seed=seed)
+    secs = time.perf_counter() - t0
+    launches = k1_k3_counts()
+    per_point = (SWEEP_STEPS + validations(ae, SWEEP_STEPS)
+                 * synthetic_rd.CORPUS_PAIRS[1] + SWEEP_TEST_IMAGES)
+    with open(os.path.join(out, "rd_curve.json")) as f:
+        curve = json.load(f)
+    if ([p["target_bpp"] for p in curve] != list(SWEEP_TARGETS)
+            or any(p["H_target"] != p["target_bpp"] * 64.0 / ae.num_chan_bn
+                   for p in curve)
+            or curve != json.loads(json.dumps(points))
+            or launches != {"pearson_argmax": per_point * len(SWEEP_TARGETS),
+                            "probclass_front_logits": 0}):
+        raise AssertionError(f"sweep: rd_curve.json {curve}, launches "
+                             f"{launches}, expected {per_point} K1 a point")
+    log(f"  sweep {secs:.1f} s: rd_curve.json holds "
+        + "; ".join(f"target {p['target_bpp']} (H_target {p['H_target']}) "
+                    f"bpp {p['bpp']:.4f} PSNR {p['psnr']:.2f}"
+                    for p in curve)
+        + f"; K1 {launches['pearson_argmax']} = {per_point} a point; card "
+        f"{card}")
+    return launches["pearson_argmax"]
+
+
+def rd_delta_phase(seed: int, dev, card: str) -> int:
+    """(c): the precision RD-delta gate at its default and at full width;
+    -> K3's launches."""
+    total = 0
+    _, pc = full_configs()
+    for name, (h, w) in GATE_SHAPES:
+        ae = parse_config_file(config_path(name)).replace(AE_only=True)
+        fronts = fronts_of(ae, pc, h, w)
+        reset_k1_k3()
+        t0 = time.perf_counter()
+        res = rd_delta.run_rd_delta(config_path(name),
+                                    config_path("pc_default"), h, w,
+                                    device=dev, seed=seed)
+        secs = time.perf_counter() - t0
+        launches = k1_k3_counts()
+        want = fronts * 2 * len(precision_lib.RUNGS)
+        if (not res["pass"] or not res["streams_bit_identical"]
+                or launches != {"pearson_argmax": 0,
+                                "probclass_front_logits": want}):
+            raise AssertionError(f"rd-delta {name} {h}x{w}: "
+                                 f"{res['violations']}, launches {launches},"
+                                 f" expected {want} K3")
+        total += want
+        sha = res["per_rung"]["fp32"]["stream_sha256"]
+        log(f"  rd-delta gate, {name} at {h}x{w} ({secs:.1f} s): pass, "
+            + "; ".join(
+                f"{r} PSNR {e['psnr']:.4f}"
+                + (f" (delta {e['psnr_delta']}, MS-SSIM delta "
+                   f"{e['msssim_delta']})" if "psnr_delta" in e else "")
+                for r, e in res["per_rung"].items())
+            + f"; mode-2 / mode-3 streams byte-identical across the rungs "
+            f"({sha['wavefront_np'][:16]} / {sha['wavefront_pl'][:16]}); K3 "
+            f"{want} = {fronts} fronts x 2 x {len(precision_lib.RUNGS)} "
+            f"rungs; card {card}")
+    return total
+
+
+def rd_phase(seed: int, dev) -> dict:
+    """Phase 12: (a) the 3-phase run, (b) the sweep, (c) the RD-delta gate;
+    returns the K1 and K3 launches of the phase's runs."""
+    card = card_line()
+    with tempfile.TemporaryDirectory(prefix="dsin-rd-") as root:
+        launches = rd_3phase(seed, dev, root, card)
+        launches["pearson_argmax"] += rd_sweep_phase(seed, dev, root, card)
+    launches["probclass_front_logits"] += rd_delta_phase(seed, dev, card)
+    return launches
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2771,13 +3103,13 @@ def main() -> int:
     rows, launches, walls = {}, {}, []
 
     def phase(title, fn):
-        log(f"[{len(walls) + 2}/11] {title}")
+        log(f"[{len(walls) + 2}/12] {title}")
         t0 = time.perf_counter()
         out = fn()
         walls.append((len(walls) + 2, time.perf_counter() - t0))
         return out
 
-    log(f"[1/11] card: {card}; torch {torch.__version__}, CUDA "
+    log(f"[1/12] card: {card}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}")
     phase("build", build_phase)
     rows.update(phase(f"kernel vs plain at {H}x{W}, patches {PH}x{PW}, seed "
@@ -2809,6 +3141,11 @@ def main() -> int:
         "the model lifecycle at full width: publish, swap under load, "
         "rollback, canary refusal, watchdog, faults (process backend, "
         "pipe)", lambda: lifecycle_phase(args.seed, dev))
+    for name, n in phase(
+            "the rate-distortion path at full width (ae_kitti_stereo + "
+            "pc_default): the 3-phase run, the sweep, the RD-delta gate",
+            lambda: rd_phase(args.seed, dev)).items():
+        launches[name] += n
     log("phase wall s: " + ", ".join(f"[{i}] {t:.1f}" for i, t in walls))
     kernels = [dict(name=name, route="cuda", source=SOURCES[name],
                     replaces=REPLACES[name], launches=launches[name], **r)

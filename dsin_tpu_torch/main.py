@@ -26,17 +26,22 @@ the best validation loss from `meta.json`), then:
   probclass front kernel; on the CPU in mode 2, the JAX package's bytes)
   and the stream's bits per pixel are scored beside the estimate.
 
+`profile_dir` traces a window of 3 warm train steps with `torch.profiler`
+(`utils/profiling.py`); `replicate_to` copies each best-val checkpoint to
+`<replicate_to>/<model_name>`, CRC-checked on both sides
+(`train/checkpoint.replicate_checkpoint`).
+
 `spatial_shards = 1` trains any bundled config on one card, the Cityscapes
 geometry (`configs/ae_cityscapes_stereo`, 1024x2048) included; its tool is
 `tools/cityscapes_chip.py`. Multi-device training (`--distributed`,
-`spatial_shards > 1`), `--profile_dir`, `--replicate_to` and `save_plots`
-are not ported yet and raise NotImplementedError naming their ROADMAP item.
+`spatial_shards > 1`) and `save_plots` are not ported and raise
+NotImplementedError naming their ROADMAP item or reason.
 
 CLI:
     python -m dsin_tpu_torch.main -ae_config <path> -pc_config <path> \
         [--out_root DIR] [--data_root DIR] [--max_steps N] \
         [--max_val_batches N] [--max_test_images N] [--real_bpp] \
-        [--device cpu]
+        [--profile_dir DIR] [--replicate_to DIR] [--device cpu]
 """
 
 from __future__ import annotations
@@ -63,6 +68,7 @@ from dsin_tpu_torch.train import checkpoint as ckpt_lib
 from dsin_tpu_torch.train import optim as optim_lib
 from dsin_tpu_torch.train import step as step_lib
 from dsin_tpu_torch.utils.logging import JsonlLogger, StepTimer, color_print
+from dsin_tpu_torch.utils.profiling import StepProfiler
 from dsin_tpu_torch.utils.signals import install_interrupt_handlers
 
 #: train-split size when the manifest is missing (KITTI stereo's 1576 pairs)
@@ -95,11 +101,15 @@ class Experiment:
     only when the config trains (`train_model`)."""
 
     def __init__(self, ae_config: Config, pc_config: Config,
-                 out_root: str = ".", seed: int = 0, device="cuda"):
+                 out_root: str = ".", seed: int = 0, device="cuda",
+                 replicate_to: Optional[str] = None):
         self.ae_config = ae_config
         self.pc_config = pc_config
         self.out_root = out_root
         self.seed = seed
+        #: peer-visible root each best-val save is replicated to, as
+        #: <replicate_to>/<model_name> (None: off)
+        self.replicate_to = replicate_to
         shards = int(ae_config.get("spatial_shards", 1) or 1)
         if shards > 1:
             raise _not_ported(
@@ -263,16 +273,22 @@ class Experiment:
                 self.weights_root, self.model_name, cfg, self.pc_config,
                 iteration=i + 1, total_iterations=iterations,
                 best_val=best_val)
+            if self.replicate_to:
+                ckpt_lib.replicate_checkpoint(
+                    self.ckpt_dir,
+                    os.path.join(self.replicate_to, self.model_name))
         return best_val
 
     def train(self, max_steps: Optional[int] = None,
               max_val_batches: Optional[int] = None,
               log_path: Optional[str] = None,
+              profile_dir: Optional[str] = None,
               until_rate_target: bool = False,
               rate_window: int = 200) -> Dict[str, float]:
         """The fetch -> step -> validate loop; returns summary stats.
         `max_steps` counts the steps to run from the restored step (None:
         the config's iterations), `max_val_batches` bounds each validation.
+        `profile_dir` traces 3 warm steps there (`utils/profiling.py`).
 
         `until_rate_target=True` stops once the mean H_soft over the last
         `rate_window` steps is at most H_target (the rate hinge's whole
@@ -297,6 +313,13 @@ class Experiment:
         logger = JsonlLogger(log_path or os.path.join(
             self.out_root, "logs", f"{self.model_name}.jsonl"))
         timer = StepTimer()
+        # clamp the trace window into short or resumed runs, so that
+        # profile_dir always captures something (past the first steps'
+        # cuDNN plans and kernel builds where it can)
+        remaining = iterations - start
+        profiler = StepProfiler(
+            profile_dir, start_step=start + min(5, max(remaining - 3, 0)),
+            device=self.device)
         checkpoint_every = cfg.get("checkpoint_every", None)
         best_val = self.restored_best_val
         accum: Dict[str, float] = {}
@@ -381,7 +404,18 @@ class Experiment:
         try:
             for i in range(start, iterations):
                 x, y = next(train_it)
-                _, metrics = self.train_step(x, y)
+                # drain the in-flight step before the trace window would
+                # close: with the lag-1 loop the last traced step could
+                # otherwise still be running when the profiler stops
+                if (pending is not None and profiler.active
+                        and i >= profiler.stop_step):
+                    if process(*pending):
+                        pending = None
+                        break
+                    pending = None
+                profiler.step(i)
+                with profiler.annotation(i):
+                    _, metrics = self.train_step(x, y)
                 if pending is not None and process(*pending):
                     pending = None
                     break
@@ -409,6 +443,7 @@ class Experiment:
                                 bold=True)
             raise
         finally:
+            profiler.stop()
             logger.close()
             train_ds.close()
 
@@ -465,7 +500,8 @@ class Experiment:
         """Test-split inference: reconstruction PNGs + per-image score
         lists. `real_bpp=True` also encodes each bottleneck and scores the
         stream's bits per pixel. `on_image(exp, idx, record)` sees each
-        image's inputs, outputs, scores and stage times."""
+        image's inputs, outputs, scores, stream (None without `real_bpp`)
+        and stage times."""
         if save_plots:
             raise NotImplementedError(
                 "save_plots needs matplotlib, which the port does not use "
@@ -502,7 +538,7 @@ class Experiment:
             y_syn = (np.clip(out["y_syn"][0], 0, 255)
                      if out["y_syn"] is not None else None)
             bpp = float(out["bpp"])
-            measured = None
+            measured = stream = None
             if codec is not None:
                 coder, mode = codec
                 syms = np.transpose(out["symbols"][0], (2, 0, 1))
@@ -520,6 +556,7 @@ class Experiment:
             if on_image is not None:
                 on_image(self, idx, {
                     "x": x, "y": y, "out": out, "scores": scores,
+                    "stream": stream,
                     "ms": {"forward": 1e3 * (t1 - t0),
                            "codec_encode": 1e3 * (t2 - t1),
                            "scoring": 1e3 * (t3 - t2)}})
@@ -530,18 +567,20 @@ class Experiment:
 def run(ae_config: Config, pc_config: Config, out_root: str = ".",
         max_steps: Optional[int] = None,
         max_val_batches: Optional[int] = None,
-        max_test_images: Optional[int] = None, real_bpp: bool = False,
-        device="cuda", seed: int = 0,
+        max_test_images: Optional[int] = None,
+        profile_dir: Optional[str] = None, real_bpp: bool = False,
+        replicate_to: Optional[str] = None, device="cuda", seed: int = 0,
         on_image: Optional[Callable] = None) -> Dict[str, float]:
     """Config-driven orchestration: restore, train, then test the best-val
     checkpoint."""
     exp = Experiment(ae_config, pc_config, out_root=out_root, seed=seed,
-                     device=device)
+                     device=device, replicate_to=replicate_to)
     exp.maybe_restore()
     results: Dict[str, float] = {}
     if ae_config.train_model:
         results.update(exp.train(max_steps=max_steps,
-                                 max_val_batches=max_val_batches))
+                                 max_val_batches=max_val_batches,
+                                 profile_dir=profile_dir))
     if ae_config.test_model:
         if ae_config.train_model:
             # never score the in-memory training tail: test what the run
@@ -570,9 +609,12 @@ def parse_args(argv=None):
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a card) or cpu")
     p.add_argument("--profile_dir", default=None,
-                   help="not ported: traces a few train steps")
+                   help="write a torch.profiler trace of 3 warm train steps "
+                        "there")
     p.add_argument("--replicate_to", default=None,
-                   help="not ported: replicates best-val checkpoints")
+                   help="peer-visible root to replicate every best-val "
+                        "checkpoint to (CRC-checked on both sides); the "
+                        "copy lands at <replicate_to>/<model_name>")
     p.add_argument("--distributed", action="store_true",
                    help="not ported: multi-host training")
     return p.parse_args(argv)
@@ -582,10 +624,6 @@ def main(argv=None) -> None:
     args = parse_args(argv)
     if args.distributed:
         raise _not_ported("--distributed", "multi-device training")
-    if args.profile_dir:
-        raise _not_ported("--profile_dir", "--profile_dir")
-    if args.replicate_to:
-        raise _not_ported("--replicate_to", "checkpoint replication")
     ae_config = parse_config_file(args.ae_config)
     pc_config = parse_config_file(args.pc_config)
     if args.data_root:
@@ -594,7 +632,8 @@ def main(argv=None) -> None:
                   max_steps=args.max_steps,
                   max_val_batches=args.max_val_batches,
                   max_test_images=args.max_test_images,
-                  real_bpp=args.real_bpp, device=args.device)
+                  profile_dir=args.profile_dir, real_bpp=args.real_bpp,
+                  replicate_to=args.replicate_to, device=args.device)
     color_print(f"done: {results}", "green", bold=True)
 
 

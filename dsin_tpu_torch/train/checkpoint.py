@@ -17,9 +17,14 @@ Durability as in the JAX package: `save_checkpoint` stages everything into
 a fsynced `<dir>.tmp-<pid>` sibling, rotates the live dir aside to
 `<dir>.prev-NNNNNN` and renames the staged dir into place, so a kill at any
 point leaves a complete checkpoint that `latest_checkpoint` resolves; the
-manifest is written before `meta.json`, the completeness marker. Loaders
+manifest is written before `meta.json`, the completeness marker. The fault
+sites `ckpt.write` (each attempt of each staged file write) and `ckpt.swap`
+(between the two renames) are where the JAX package has them, so one
+`FaultPlan` kills a save of either package at the same point. Loaders
 verify what they restored against the manifest (`verify_manifest`) and
-refuse a mismatch with a typed `ManifestMismatch`.
+refuse a mismatch with a typed `ManifestMismatch`. `replicate_checkpoint`
+copies the resolved latest checkpoint to a peer-visible root, every byte
+CRC-checked against the manifest on both sides of the copy.
 """
 
 from __future__ import annotations
@@ -28,19 +33,22 @@ import hashlib
 import json
 import os
 import shutil
-import time
 from typing import Any, Dict, Iterable, List, NamedTuple, Optional
 
 from dsin_tpu_torch import bridge
 from dsin_tpu_torch.utils import faults, flax_msgpack
 from dsin_tpu_torch.utils.integrity import IntegrityError, frame_crc
+from dsin_tpu_torch.utils.retry import RetryPolicy, call_with_retry
 
 AE_PARTITIONS = ("encoder", "decoder", "centers", "probclass")
 
 MANIFEST_NAME = "manifest.json"
 #: loaders refuse a manifest from a future version
 MANIFEST_VERSION = 1
-WRITE_ATTEMPTS = 3          # bounded retry on transient OSError
+#: bounded retry for transient write failures (the JAX package's
+#: WRITE_RETRY); persistent failures propagate after the third attempt
+WRITE_RETRY = RetryPolicy(max_attempts=3, base_delay_s=0.05,
+                          max_delay_s=0.5)
 
 
 class ManifestMismatch(ValueError):
@@ -99,19 +107,17 @@ def _fsync_dir(path: str) -> None:
 
 
 def _write_bytes_durable(path: str, data: bytes) -> None:
-    """write + flush + fsync, with a bounded retry on transient OSError
-    (the JAX package's WRITE_RETRY: 3 attempts, 0.05 s doubling)."""
-    for attempt in range(WRITE_ATTEMPTS):
-        try:
-            with open(path, "wb") as f:
-                f.write(data)
-                f.flush()
-                os.fsync(f.fileno())
-            return
-        except OSError:
-            if attempt == WRITE_ATTEMPTS - 1:
-                raise
-            time.sleep(0.05 * 2 ** attempt)
+    """write + flush + fsync, with a bounded retry on transient OSError.
+    Each attempt revisits the `ckpt.write` fault site."""
+
+    def _attempt():
+        faults.inject("ckpt.write")
+        with open(path, "wb") as f:
+            f.write(data)
+            f.flush()
+            os.fsync(f.fileno())
+
+    call_with_retry(_attempt, WRITE_RETRY, retry_on=(OSError,))
 
 
 def _write_msgpack(path: str, tree) -> Dict[str, int]:
@@ -223,6 +229,35 @@ def _rescue_nested_dirs(src_dir: str, live_dir: str) -> None:
         _fsync_dir(live_dir)
 
 
+def _staging_dir(live_dir: str) -> str:
+    """A fresh `<live>.tmp-<pid>` sibling, after sweeping the stale ones
+    earlier killed writers left."""
+    parent, name = os.path.split(live_dir)
+    os.makedirs(parent or ".", exist_ok=True)
+    for entry in os.listdir(parent):
+        if entry.startswith(f"{name}.tmp-"):
+            shutil.rmtree(os.path.join(parent, entry), ignore_errors=True)
+    tmp = os.path.join(parent, f"{name}.tmp-{os.getpid()}")
+    os.makedirs(tmp)
+    return tmp
+
+
+def _swap_in(tmp: str, live_dir: str) -> None:
+    """Rotate the live dir (if any) aside to the next `.prev-NNNNNN`, then
+    rename the staged dir into its place: a kill between the two renames
+    (the `ckpt.swap` fault site) leaves the rotated copy complete."""
+    parent, name = os.path.split(live_dir)
+    if os.path.isdir(live_dir):
+        prevs = _prev_dirs(parent, name)
+        next_idx = (int(os.path.basename(prevs[-1]).rsplit("-", 1)[1]) + 1
+                    if prevs else 1)
+        os.rename(live_dir, os.path.join(parent,
+                                         f"{name}.prev-{next_idx:06d}"))
+        faults.inject("ckpt.swap")    # the kill window between renames
+    os.rename(tmp, live_dir)
+    _fsync_dir(parent)
+
+
 def save_checkpoint(ckpt_dir: str, state: ModelState, *,
                     best_val: Optional[float] = None,
                     extra_meta: Optional[Dict[str, Any]] = None,
@@ -235,13 +270,7 @@ def save_checkpoint(ckpt_dir: str, state: ModelState, *,
     newest `.prev-*` complete). `keep_last` bounds the rotated history."""
     ckpt_dir = os.path.abspath(ckpt_dir)
     parent, name = os.path.split(ckpt_dir)
-    os.makedirs(parent or ".", exist_ok=True)
-    for entry in os.listdir(parent):
-        if entry.startswith(f"{name}.tmp-"):
-            shutil.rmtree(os.path.join(parent, entry), ignore_errors=True)
-
-    tmp = os.path.join(parent, f"{name}.tmp-{os.getpid()}")
-    os.makedirs(tmp)
+    tmp = _staging_dir(ckpt_dir)
     files: Dict[str, Dict[str, int]] = {}
     for part, sub in state.params.items():
         fname = f"params_{part}.msgpack"
@@ -265,14 +294,7 @@ def save_checkpoint(ckpt_dir: str, state: ModelState, *,
                          json.dumps(meta, indent=2).encode())
     _fsync_dir(tmp)
 
-    if os.path.isdir(ckpt_dir):
-        prevs = _prev_dirs(parent, name)
-        next_idx = (int(os.path.basename(prevs[-1]).rsplit("-", 1)[1]) + 1
-                    if prevs else 1)
-        os.rename(ckpt_dir, os.path.join(parent,
-                                         f"{name}.prev-{next_idx:06d}"))
-    os.rename(tmp, ckpt_dir)
-    _fsync_dir(parent)
+    _swap_in(tmp, ckpt_dir)
     for prev in reversed(_prev_dirs(parent, name)):
         _rescue_nested_dirs(prev, ckpt_dir)
     for old in _prev_dirs(parent, name)[:-keep_last if keep_last else None]:
@@ -421,6 +443,64 @@ def verify_files(ckpt_dir: str, manifest: Dict[str, Any]) -> Dict[str, int]:
                 f"manifest says {want}) — rotted or torn; refusing it")
         total += len(data)
     return {"files": len(files), "bytes": total}
+
+
+def replicate_checkpoint(ckpt_dir: str, dest_dir: str, *,
+                         keep_last: int = 1) -> Dict[str, Any]:
+    """Copy the resolved latest checkpoint of `ckpt_dir` (the live dir, or
+    the newest complete `.prev-*` after a kill in the swap window) to
+    `dest_dir`, a path a second host adopts the same versioned model from.
+
+    Every payload byte is CRC-checked against the manifest on both sides:
+    the source read and a read-back of the staged copy (typed
+    `IntegrityError`). The manifest, then `meta.json`, are written last,
+    and the staged dir swaps in through the same rotate-and-rename as a
+    save (`ckpt.swap` between the renames), so a kill never leaves a torn
+    destination. A manifest-less source is refused with `ManifestMismatch`.
+    Returns {src, dest, files, bytes, params_digest}."""
+    src = latest_checkpoint(ckpt_dir)
+    if src is None:
+        raise FileNotFoundError(
+            f"no complete checkpoint to replicate at {ckpt_dir}")
+    manifest = load_manifest(src)
+    if manifest is None:
+        raise ManifestMismatch(
+            f"checkpoint {src} has no manifest — refusing to replicate "
+            f"an unversioned checkpoint (a peer host could never verify "
+            f"what it adopted)")
+    verify_files(src, manifest)
+
+    dest_dir = os.path.abspath(dest_dir)
+    parent, name = os.path.split(dest_dir)
+    tmp = _staging_dir(dest_dir)
+    total = 0
+    for fname, want in (manifest.get("files") or {}).items():
+        with open(os.path.join(src, fname), "rb") as f:
+            data = f.read()
+        if frame_crc(data) != want.get("crc32"):
+            raise IntegrityError(
+                f"source file {os.path.join(src, fname)} changed under "
+                f"the replication (crc mismatch vs manifest)")
+        dst_path = os.path.join(tmp, fname)
+        _write_bytes_durable(dst_path, data)
+        with open(dst_path, "rb") as f:
+            back = f.read()
+        if frame_crc(back) != want.get("crc32"):
+            raise IntegrityError(
+                f"replicated file {dst_path} failed its read-back CRC — "
+                f"the copy corrupted in transit")
+        total += len(data)
+    # manifest, then meta last: meta present => everything it names present
+    for fname in (MANIFEST_NAME, "meta.json"):
+        with open(os.path.join(src, fname), "rb") as f:
+            _write_bytes_durable(os.path.join(tmp, fname), f.read())
+    _fsync_dir(tmp)
+    _swap_in(tmp, dest_dir)
+    for old in _prev_dirs(parent, name)[:-keep_last if keep_last else None]:
+        shutil.rmtree(old, ignore_errors=True)
+    return {"src": src, "dest": dest_dir,
+            "files": len(manifest.get("files") or {}), "bytes": total,
+            "params_digest": manifest.get("params_digest")}
 
 
 def restore_partitions(ckpt_dir: str, state: ModelState,

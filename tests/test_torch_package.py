@@ -71,7 +71,8 @@ def test_importing_the_port_loads_no_jax():
             "tools.cityscapes_chip", "serve.service", "serve.batcher",
             "serve.buckets", "serve.metrics", "serve.trace",
             "serve.session", "serve.swap", "utils.retry",
-            "utils.faults")} <= loaded, \
+            "utils.faults", "utils.profiling", "eval.rd_sweep",
+            "eval.synthetic_rd", "tools.rd_delta")} <= loaded, \
         proc.stdout
 
 
@@ -118,7 +119,10 @@ def test_every_config_file_parses_equal(name):
 
 
 @pytest.mark.parametrize("name", ["ae_kitti_stereo", "pc_default",
-                                  "ae_cityscapes_stereo"])
+                                  "ae_cityscapes_stereo",
+                                  "ae_synthetic_stereo",
+                                  "ae_synthetic_micro",
+                                  "ae_synthetic_micro_long"])
 def test_bundled_configs_are_copies(name):
     with open(os.path.join(JAX_CONFIGS, name)) as f:
         expected = f.read()
