@@ -144,8 +144,10 @@ Phases; any failure raises, prints no result and exits non-zero:
      per-kind serve_device_ms / serve_entropy_ms histograms, the overlap
      ratio, requests per second and the peak device memory (run A, the
      thread backend). Then the same traffic (same seed, images and side images)
-     in turns on the process entropy backend, 4 children: B
-     pipe at depth 2, C shm at depth 2, D shm at depth 4. Each of B-D holds
+     on the process entropy backend, 4 children: C, shm at depth 4 (PR
+     12's runs B, pipe at depth 2, C, shm at depth 2 with the SIGKILL, and
+     D, shm at depth 4, became this one run in PR 15 to make room for
+     phase 13; phases 11 and 13 (a) run the pipe at depth 2). Run C holds
      every encode stream byte-equal and every decoded image bit-equal to run
      A's, K2 once per SI batch, no native build after warmup in the parent or
      any child (the children's pings, before and after the traffic), no CUDA
@@ -200,7 +202,34 @@ Phases; any failure raises, prints no result and exits non-zero:
      byte-identical across the rungs in both modes, K3 launched once per
      front of each mode-3 encode and decode at every rung. Prints both RD
      points (bpp, PSNR, MS-SSIM, real bpp), ms per step per phase, test ms
-     per image and the gates' deltas.
+     per image and the gates' deltas;
+ 13. the front door at full width (phase 10's buckets, batches of 4, one
+     worker, every service on phase 11's checkpoint A): (a) one service on
+     the process backend (pipe, depth 2) with
+     default_priority_classes(8) and the admission gate; 4 unloaded
+     interactive encodes at 320x1224 set the SLO at 3x their median, then
+     64 encodes open loop at 6/s, interactive 1 in 8, over phase 10's
+     images must shed bulk first and only bulk, complete interactive
+     within the SLO at p99 (however many cores the host's probe reads),
+     leave no untyped or hung future and build nothing (the serve bench's
+     front-door gate); it then records the
+     references below. (b) the FrontDoorRouter at 1 and 2 spawned replicas
+     sharing the card (thread backend, 4 entropy threads, pipe), 36
+     encodes at 3/s: every replica's probe streams equal each other's, the
+     1-replica run's and the in-process service's, no build after a ready
+     handshake; requests/s, scaling_vs_1 (the 1.3 floor printed, not
+     gated), routing, each replica's start. (d) on the 2-replica fleet
+     after its traffic (not a fresh one, to keep the script under 800 s):
+     swap_model(B) gives B's digest and equal streams on both,
+     rollback() A's streams; prepare s and commit round-trip ms per
+     replica. (c) then, on the same fleet: 2 sessions pinned to replicas 0
+     and 1, decode_si bit-equal to the in-process service's (K2 in each
+     child); replica 1 SIGKILLed with decode_si and an encode in flight:
+     typed SessionExpired, the encode rerouted and answered, replica 0's
+     session serving, a new session opened, serve_router_session_orphans
+     >= 1, 1 live replica. K2's launches, read from each replica's
+     registry, equal its SI micro-batches + its warmup's 2 (+ 2 in a
+     prepare).
 Each phase's wall time is printed after the last phase.
 Kernel times are CUDA events around back-to-back runs that the host
 enqueued while the device slept, so they are device time.
@@ -212,6 +241,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import hashlib
 import json
 import os
 import shutil
@@ -2418,24 +2448,19 @@ def process_run(seed: int, dev, traffic, ref, label: str, transport: str,
 
 
 def service_phase(seed: int, dev) -> int:
-    """Phase 10: run A (thread backend) with every check, then runs B-D of
-    the process backend on the same traffic, in turns on the card; returns
-    K2's launches summed over the runs' traffic."""
+    """Phase 10: run A (thread backend) with every check, then run C of the
+    process backend (shm at depth 4, the SIGKILL rebuild) on the same
+    traffic; returns K2's launches summed over the runs' traffic."""
     traffic = serve_traffic(seed)
     k2, streams, images = thread_run(seed, dev, traffic)
-    for label, transport, depth, kill in (
-            ("B (process, pipe, depth 2)", "pipe", 2, False),
-            ("C (process, shm, depth 2)", "shm", 2, True),
-            ("D (process, shm, depth 4)", "shm", 4, False)):
-        k2 += process_run(seed, dev, traffic, (streams, images), label,
-                          transport, depth, kill)
-    return k2
+    return k2 + process_run(seed, dev, traffic, (streams, images),
+                            "C (process, shm, depth 4)", "shm", 4, kill=True)
 
 
 # -- phase 11: the model lifecycle on one card -------------------------------
 
 LIFE_SEEDS = {"A": 101, "B": 102}     # added to --seed
-LIFE_LOAD_S = 8.0            # traffic before the prepare and after the commit
+LIFE_LOAD_S = 4.0            # traffic before the prepare and after the commit
 LIFE_CANARY_EVERY_S = 1.0
 LIFE_SESSIONS = 8
 LIFE_REOPENS = 3             # re-opens of a session a commit expired
@@ -2621,15 +2646,17 @@ def check_still_a(svc, digest_a: str, a_streams, imgs, label: str) -> None:
         raise AssertionError(f"{label}: A's bytes lost")
 
 
-def lifecycle_phase(seed: int, dev) -> int:
+def lifecycle_phase(seed: int, dev, ckpts=None) -> int:
     """Phase 11 (see the module docstring); returns K2's launches in the
-    swap-under-load traffic."""
+    swap-under-load traffic. `ckpts`: `life_checkpoints`' A and B, written
+    here when not given."""
     from dsin_tpu_torch.serve import CanaryFailed, CompressionService
     from dsin_tpu_torch.tools.chaos_bench import bitflip_params
     from dsin_tpu_torch.utils import faults
     card = card_line()
     root = tempfile.mkdtemp(prefix="chip_smoke_life_")
-    ckpts = life_checkpoints(seed, root)
+    if ckpts is None:
+        ckpts = life_checkpoints(seed, root)
     path_a, _, _ = ckpts["A"]
     path_b, state_b, extra_b = ckpts["B"]
     children0, shm0 = child_pids(), shm_segments()
@@ -2794,9 +2821,17 @@ def lifecycle_phase(seed: int, dev) -> int:
                 raise AssertionError("the watchdog did not roll B'' back")
             time.sleep(0.01)
         t_back = time.perf_counter()
-        if svc.metrics.counter("serve_watchdog_rollbacks").value != wd0 + 1 \
-                or svc.metrics.counter("serve_canary_failures").value < 1:
-            raise AssertionError("the rollback was not the watchdog's")
+        # the watchdog counts its rollback once rollback() has returned,
+        # just after the pointer swap this loop sees: wait for that count
+        while (svc.metrics.counter("serve_watchdog_rollbacks").value == wd0
+               and time.perf_counter() - t_back < 10.0):
+            time.sleep(0.01)
+        rollbacks = svc.metrics.counter("serve_watchdog_rollbacks").value
+        failures = svc.metrics.counter("serve_canary_failures").value
+        if rollbacks != wd0 + 1 or failures < 1:
+            raise AssertionError(f"the rollback was not the watchdog's: "
+                                 f"watchdog rollbacks {wd0} -> {rollbacks}, "
+                                 f"canary failures {failures}")
         check_still_a(svc, digest_a, a_streams, imgs, "watchdog rollback")
         log(f"  5 swap_model(B'', canary=False) {t_forced - t0:.2f} s, its "
             f"commit {forced['commit_ms']:.2f} ms (B' displaced, its "
@@ -3089,6 +3124,332 @@ def rd_phase(seed: int, dev) -> dict:
     return launches
 
 
+# -- phase 13: the front door at full width ---------------------------------
+
+FD_QUEUE = 8                   # the overload service's class queues
+FD_OVERLOAD = (64, 6.0)        # encodes, a second: ~3x the pipe backend
+FD_REPLICAS = (36, 3.0)        # above one thread-backend service's rate
+FD_MIX = "interactive:0.125 bulk:0.875"
+FD_UNLOADED, FD_SLO_FACTOR = 4, 3.0
+FD_SI_JOBS = (0, 1, 2, 3)      # phase 10's 320x1224 images, 2 per side
+FD_PROBES = (0, 12)            # a 320x1224 and a 150x590 image
+FD_WARM_SI = len(SERVE_BUCKETS)    # K2 launches of a replica's warmup
+
+
+def fd_args(seed: int, dev, requests: int, rate: float):
+    """The serve bench's front-door flags for this phase."""
+    return argparse.Namespace(
+        ae_config=config_path("ae_kitti_stereo"),
+        pc_config=config_path("pc_default"), seed=seed,
+        buckets=" ".join(f"{h},{w}" for h, w in SERVE_BUCKETS),
+        shapes=f"{H},{W}", max_wait_ms=5.0, entropy_workers=4,
+        device=str(dev), replicas=2, priority_mix=FD_MIX,
+        interactive_slo_ms=None, bulk_deadline_ms=30000.0,
+        frontdoor_rate=rate, frontdoor_requests=requests,
+        frontdoor_queue=FD_QUEUE)
+
+
+def replica_snapshot(router, idx: int) -> dict:
+    """One replica's own /metrics JSON (its endpoint, not the merge)."""
+    from urllib.request import urlopen
+    port = router._replicas[idx].info["healthz_port"]
+    with urlopen(f"http://127.0.0.1:{port}/metrics?format=json",
+                 timeout=30) as r:
+        return json.loads(r.read())
+
+
+def replica_k2(router, idx: int) -> tuple:
+    """-> (K2 launches, SI micro-batches) of one replica, from its own
+    registry: the launch gauge and the SI device stage's histogram."""
+    snap = replica_snapshot(router, idx)
+    return (int(snap["gauges"].get(
+                "serve_kernel_launches_pearson_argmax_shared", 0)),
+            int(snap["histograms"].get("serve_si_search_ms",
+                                       {"count": 0})["count"]))
+
+
+def check_replica_k2(router, idx: int, extra: int, label: str) -> int:
+    """K2 launches of replica idx = its SI micro-batches + its warmup's SI
+    warms + `extra`; -> the launches. A batch's futures resolve before its
+    worker publishes the launch gauge, so the reading is retried for up
+    to 10 s."""
+    deadline = time.monotonic() + 10.0
+    while True:
+        k2, batches = replica_k2(router, idx)
+        if k2 == batches + FD_WARM_SI + extra:
+            return k2
+        if time.monotonic() > deadline:
+            raise AssertionError(f"{label}: replica {idx} K2 {k2} != "
+                                 f"{batches} SI batches + {FD_WARM_SI} "
+                                 f"warms + {extra}")
+        time.sleep(0.1)
+
+
+def fd_overload(seed: int, dev, traffic, card: str, ckpt: str) -> dict:
+    """(a): the overload through one in-process service (process backend,
+    pipe, depth 2, default_priority_classes(8), admission) on checkpoint
+    `ckpt`, its SLO 3x the median of 4 unloaded interactive encodes; then
+    the references (b)-(c) hold the fleet to: the probe images' streams,
+    and each SI job's stream and decode_si image, one request at a time."""
+    from dsin_tpu_torch.serve import BULK, INTERACTIVE
+    sides, imgs, owner = traffic
+    args = fd_args(seed, dev, *FD_OVERLOAD)
+    svc = leg_lib.overload_service(args, enable_si=True, ckpt=ckpt,
+                                   entropy_backend="process")
+    try:
+        warm = svc.warmup()
+        sec = leg_lib.run_frontdoor_overload(
+            args, images=imgs, svc=svc, unloaded=FD_UNLOADED,
+            slo_factor=FD_SLO_FACTOR)
+        violations, notes = leg_lib.gate_frontdoor({"overload": sec})
+        # the gate's one note on an overload section, a p99 over the SLO
+        # while the host's cores read below 1.3, fails here too: the SLO
+        # holds whatever the cores read
+        violations += notes
+        if violations:
+            raise AssertionError(f"(a) overload: {violations}; "
+                                 f"{json.dumps(sec)[:3000]}")
+        futs = {i: svc.submit_encode(imgs[i])
+                for i in FD_PROBES + FD_SI_JOBS}
+        streams = {i: f.result(SERVE_TIMEOUT_S).stream
+                   for i, f in futs.items()}
+        probes = [streams[i] for i in FD_PROBES]
+        si_streams = {i: streams[i] for i in FD_SI_JOBS}
+        sids = [svc.open_session(side) for side in sides]
+        si_images = {i: svc.decode_si(si_streams[i], sids[owner[i]],
+                                      timeout=SERVE_TIMEOUT_S)
+                     for i in FD_SI_JOBS}
+    finally:
+        drain_checked(svc, [], "(a)")
+    unl = sec["unloaded_ms"]
+    log(f"  (a) one service (process backend, pipe, depth 2, "
+        f"default_priority_classes({FD_QUEUE}), admission): warmup "
+        f"{warm['seconds']:.2f} s; {FD_UNLOADED} unloaded interactive "
+        f"encodes at {H}x{W}: {', '.join(f'{v:.1f}' for v in unl)} ms, "
+        f"median {float(np.median(unl)):.1f} ms -> SLO "
+        f"{sec['interactive_slo_ms']:.1f} ms ({FD_SLO_FACTOR:g}x)")
+    for cls in (INTERACTIVE, BULK):
+        c = sec["per_class"][cls]
+        lat = c["latency_ms"]
+        log(f"  (a) {cls}: submitted {c['submitted']}, admitted "
+            f"{c['admitted']}, shed at the door {c['shed_at_door']} "
+            f"(admission {c['shed_admission']}), victims "
+            f"{c['shed_victims']}, expired {c['expired']}, completed "
+            f"{c['completed']}, p50 {lat['p50']:.1f} ms, p99 "
+            f"{lat['p99']:.1f} ms (serve_latency_ms_{cls}, n "
+            f"{int(lat['count'])})")
+    log(f"  (a) {FD_OVERLOAD[0]} encodes open loop at {FD_OVERLOAD[1]:g}/s, "
+        f"mix {FD_MIX}: {sec['duration_s']:.2f} s; sheds bulk first and only "
+        f"bulk {sec['shed_total']}; interactive p99 "
+        f"{sec['interactive_p99_ms']:.1f} ms within the "
+        f"{sec['interactive_slo_ms']:.1f} ms SLO; effective cores {sec['effective_cores']}; no untyped or hung "
+        f"future; {sec['steady_builds']} native builds after warmup; "
+        f"{host_cores()}, card {card}")
+    return dict(probes=probes, si_streams=si_streams, si_images=si_images)
+
+
+def fd_sessions_and_death(router, ref, traffic, card: str) -> int:
+    """(c) on the 2-replica fleet, after (d): sessions pinned to each
+    replica, their decode_si bit-equal to the in-process service's;
+    replica 1 SIGKILLed with SI work and an encode in flight; -> K2's
+    launches read from the replicas (warms, (d)'s prepare and the SI
+    micro-batches)."""
+    import signal
+    from dsin_tpu_torch.serve import SessionExpired
+    sides, imgs, owner = traffic
+    sids = [router.open_session(side, timeout=SERVE_TIMEOUT_S)
+            for side in sides]
+    pins = [router._sessions[sid] for sid in sids]
+    if pins != [0, 1]:
+        raise AssertionError(f"(c) sessions pinned to {pins}, not [0, 1]")
+
+    def si_equal(i, sid, label):
+        got = router.decode_si(ref["si_streams"][i], sid,
+                               timeout=SERVE_TIMEOUT_S)
+        if not np.array_equal(got, ref["si_images"][i]):
+            raise AssertionError(f"(c) {label}: decode_si of image {i} "
+                                 f"differs from the in-process service's")
+
+    for i in FD_SI_JOBS:
+        si_equal(i, sids[owner[i]], f"replica {owner[i]}")
+    k2_1 = check_replica_k2(router, 1, FD_WARM_SI, "(c)")
+    check_replica_k2(router, 0, FD_WARM_SI, "(c)")
+    reroutes0 = router.metrics.counter("serve_router_reroutes").value
+    job1 = [i for i in FD_SI_JOBS if owner[i] == 1][0]
+    si_futs = [router.submit_decode_si(ref["si_streams"][job1], sids[1])
+               for _ in range(4)]
+    enc_futs = [router.submit_encode(imgs[FD_PROBES[0]]) for _ in range(2)]
+    victim = router._replicas[1].proc
+    t_kill = time.perf_counter()
+    os.kill(victim.pid, signal.SIGKILL)
+    si_exc = [f.exception(SERVE_TIMEOUT_S) for f in si_futs]
+    enc = [f.result(SERVE_TIMEOUT_S) for f in enc_futs]
+    resolved_s = time.perf_counter() - t_kill
+    expired = sum(isinstance(e, SessionExpired) for e in si_exc)
+    if expired < 1 or any(e is not None and not isinstance(e, SessionExpired)
+                          for e in si_exc):
+        raise AssertionError(f"(c) SI futures on the killed replica: "
+                             f"{si_exc}")
+    reroutes = router.metrics.counter("serve_router_reroutes").value \
+        - reroutes0
+    if reroutes < 1 or any(r.stream != ref["probes"][0] for r in enc):
+        raise AssertionError(f"(c) encodes in flight: {reroutes} reroutes, "
+                             f"streams equal "
+                             f"{[r.stream == ref['probes'][0] for r in enc]}")
+    try:
+        router.submit_decode_si(ref["si_streams"][job1], sids[1])
+        raise AssertionError("(c) the dead replica's session still pinned")
+    except SessionExpired:
+        pass
+    job0 = [i for i in FD_SI_JOBS if owner[i] == 0][0]
+    si_equal(job0, sids[0], "replica 0 after the kill")
+    sid_c = router.open_session(sides[1], timeout=SERVE_TIMEOUT_S)
+    si_equal(job1, sid_c, "a session opened after the kill")
+    orphans = router.metrics.counter("serve_router_session_orphans").value
+    health = router.health()
+    if orphans < 1 or health["live"] != 1:
+        raise AssertionError(f"(c) orphans {orphans}, health {health}")
+    k2_0 = check_replica_k2(router, 0, FD_WARM_SI, "(c) after the kill")
+    log(f"  (c) 2 sessions pinned to replicas {pins}; "
+        f"{len(FD_SI_JOBS)} decode_si bit-equal to the in-process service's "
+        f"(K2 in each child: replica 1 {k2_1} launches before the kill = "
+        f"SI micro-batches + {FD_WARM_SI} warms + {FD_WARM_SI} in (d)'s "
+        f"prepare); SIGKILL of replica 1 "
+        f"(pid {victim.pid}) with {len(si_futs)} decode_si and an encode in "
+        f"flight: {expired} SessionExpired, "
+        f"{len(si_futs) - expired} answered before the kill, {reroutes} "
+        f"encode rerouted and answered with the in-process stream, all "
+        f"resolved {resolved_s:.2f} s after the kill; replica 0's session "
+        f"serves, a new session opened on it; serve_router_session_orphans "
+        f"{orphans}; health {health['status']}, live {health['live']}; "
+        f"replica 0 K2 {k2_0} = its SI micro-batches + {FD_WARM_SI} warms + "
+        f"{FD_WARM_SI} in (d)'s prepare; card {card}")
+    return k2_0 + k2_1
+
+
+def fd_replicas(seed: int, dev, traffic, ref, card: str, ckpts) -> int:
+    """(b) the replica axis at 1 and 2 spawned replicas (thread backend,
+    4 entropy threads, pipe) on checkpoint A, then on the 2-replica fleet
+    (d) the swap to B and back and (c) sessions and a death; -> K2's
+    launches read from the replicas."""
+    sides, imgs, owner = traffic
+    args = fd_args(seed, dev, *FD_REPLICAS)
+    k2 = {}
+
+    def on_fleet(n, router):
+        if n == 2:
+            fd_swap(router, traffic, card, ckpts)
+            k2["c"] = fd_sessions_and_death(router, ref, traffic, card)
+
+    sec = leg_lib.run_frontdoor_replicas(
+        args, images=imgs, probes=[imgs[i] for i in FD_PROBES],
+        config_over={"enable_si": True, "ckpt": ckpts["A"][0]},
+        on_fleet=on_fleet)
+    violations, notes = leg_lib.gate_frontdoor({"replicas": sec})
+    if violations:
+        raise AssertionError(f"(b) replicas: {violations}; "
+                             f"{json.dumps(sec)[:3000]}")
+    probe_sha = [hashlib.sha256(p).hexdigest() for p in ref["probes"]]
+    if sec["probe_streams"] != probe_sha:
+        raise AssertionError("(b) the fleet's probe streams differ from the "
+                             "in-process service's")
+    run1 = sec["runs"]["1"]
+    k2["b"] = sum(v["pearson_argmax_shared"]
+                  for v in run1["kernel_launches"].values())
+    if k2["b"] != FD_WARM_SI:
+        raise AssertionError(f"(b) N=1 replica K2 {k2['b']} != "
+                             f"{FD_WARM_SI} warms")
+    for n, run in sec["runs"].items():
+        log(f"  (b) N={n}: {run['throughput_rps']:.3f} requests/s "
+            f"({run['completed']} of {FD_REPLICAS[0]} at "
+            f"{FD_REPLICAS[1]:g}/s in {run['duration_s']:.2f} s), "
+            f"scaling_vs_1 {run['scaling_vs_1']}, routed per replica "
+            f"{run['per_replica_routed']}, reroutes {run['reroutes']}, shed "
+            f"at the door {run['shed_at_door']}; router start "
+            f"{run['router_start_s']:.2f} s, replica warmups "
+            f"{run['replica_warmup_s']} s, builds_at_ready "
+            f"{run['builds_at_ready']}, builds after ready "
+            f"{run['builds_after_ready']}")
+    log(f"  (b) bit-identical: every replica's probe streams equal each "
+        f"other's, N=1's and the in-process service's; scaling floor 1.3 "
+        f"{'met' if not notes else 'not met (' + '; '.join(notes) + ')'}; "
+        f"host cores {sec['host_cores']} (affinity "
+        f"{sec['affinity_cores']}); card {card}")
+    return k2["b"] + k2["c"]
+
+
+def fd_swap(router, traffic, card: str, ckpts) -> None:
+    """(d) on (b)'s 2-replica fleet, on checkpoint A since its start:
+    swap_model(B) then rollback(); each replica's K2 then = its 2 warms +
+    the prepare's 2."""
+    from dsin_tpu_torch.coding import loader as loader_lib
+    img = traffic[1][FD_PROBES[0]]
+    state_b = ckpts["B"][1]
+    # B's served digest at fp32: its JAX-layout trees, all float32
+    digest_b = loader_lib.params_digest((state_b.params,
+                                         state_b.batch_stats))
+
+    def pair():
+        out = [router.encode(img, timeout=SERVE_TIMEOUT_S)
+               for _ in range(2)]
+        if out[0].stream != out[1].stream:
+            raise AssertionError("(d) the replicas' streams differ")
+        return out[0]
+
+    a = pair()
+    digest_a = router.params_digest
+    out = router.swap_model(ckpts["B"][0])
+    b = pair()
+    if (out["digest"] != digest_b or router.params_digest != digest_b
+            or b.model_digest != digest_b or b.stream == a.stream):
+        raise AssertionError(f"(d) after the commit: digest "
+                             f"{out['digest']} / {router.params_digest} / "
+                             f"{b.model_digest}, B's {digest_b}")
+    back = router.rollback()
+    again = pair()
+    if back["digest"] != digest_a or again.stream != a.stream:
+        raise AssertionError(f"(d) rollback: {back}")
+    counts = leg_lib.replica_counts(router)
+    if set(counts["builds_after_ready"].values()) != {0}:
+        raise AssertionError(f"(d) builds after ready "
+                             f"{counts['builds_after_ready']}")
+    for i in (0, 1):
+        check_replica_k2(router, i, FD_WARM_SI, "(d)")
+    prep = out["prepare"]
+    log(f"  (d) the 2-replica fleet on A ({digest_a}): swap_model(B) -> "
+        f"{out['digest']} (B's digest, both replicas' streams B's and "
+        f"equal), rollback() -> {back['digest']} with A's streams; "
+        + "; ".join(
+            f"replica {i}: prepare {prep[i]['seconds']:.2f} s (load "
+            f"{prep[i]['split']['load_s']:.2f}, warm "
+            f"{prep[i]['split']['warm_s']:.2f}), commit "
+            f"{out['commit_ms'][i]:.2f} ms round trip"
+            for i in sorted(prep))
+        + f"; K2 per replica {FD_WARM_SI} warms + {FD_WARM_SI} in the "
+        f"prepare's warm; no build after ready; card {card}")
+
+
+def frontdoor_phase(seed: int, dev, ckpts=None) -> int:
+    """Phase 13 (see the module docstring); returns K2's launches counted
+    in the replicas. `ckpts`: phase 11's checkpoints A and B, written here
+    when not given."""
+    card = card_line()
+    traffic = serve_traffic(seed)
+    children0, shm0 = child_pids(), shm_segments()
+    root = tempfile.mkdtemp(prefix="chip_smoke_fd_")
+    try:
+        if ckpts is None:
+            ckpts = life_checkpoints(seed, root)
+        ref = fd_overload(seed, dev, traffic, card, ckpts["A"][0])
+        k2 = fd_replicas(seed, dev, traffic, ref, card, ckpts)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if child_pids() != children0 or shm_segments() != shm0:
+        raise AssertionError(f"phase 13 left children {child_pids()} or "
+                             f"segments {shm_segments()}")
+    return k2
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3103,13 +3464,13 @@ def main() -> int:
     rows, launches, walls = {}, {}, []
 
     def phase(title, fn):
-        log(f"[{len(walls) + 2}/12] {title}")
+        log(f"[{len(walls) + 2}/13] {title}")
         t0 = time.perf_counter()
         out = fn()
         walls.append((len(walls) + 2, time.perf_counter() - t0))
         return out
 
-    log(f"[1/12] card: {card}; torch {torch.__version__}, CUDA "
+    log(f"[1/13] card: {card}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}")
     phase("build", build_phase)
     rows.update(phase(f"kernel vs plain at {H}x{W}, patches {PH}x{PW}, seed "
@@ -3137,15 +3498,29 @@ def main() -> int:
         "the compression service at full width (ae_kitti_stereo + "
         "pc_default, buckets 160x600 and 320x1224, batches of 4)",
         lambda: service_phase(args.seed, dev))
+    # checkpoints A and B, written once for phases 11 and 13
+    life_root = tempfile.mkdtemp(prefix="chip_smoke_ckpts_")
+    life = {}
+
+    def lifecycle():
+        life.update(life_checkpoints(args.seed, life_root))
+        return lifecycle_phase(args.seed, dev, life)
+
     launches["pearson_argmax_shared"] += phase(
         "the model lifecycle at full width: publish, swap under load, "
         "rollback, canary refusal, watchdog, faults (process backend, "
-        "pipe)", lambda: lifecycle_phase(args.seed, dev))
+        "pipe)", lifecycle)
     for name, n in phase(
             "the rate-distortion path at full width (ae_kitti_stereo + "
             "pc_default): the 3-phase run, the sweep, the RD-delta gate",
             lambda: rd_phase(args.seed, dev)).items():
         launches[name] += n
+    launches["pearson_argmax_shared"] += phase(
+        "the front door at full width: priority classes and admission "
+        "under overload, the FrontDoorRouter over 1 and 2 spawned replicas "
+        "on this card, session pinning and a replica's death, the fleet "
+        "swap and rollback", lambda: frontdoor_phase(args.seed, dev, life))
+    shutil.rmtree(life_root, ignore_errors=True)
     log("phase wall s: " + ", ".join(f"[{i}] {t:.1f}" for i, t in walls))
     kernels = [dict(name=name, route="cuda", source=SOURCES[name],
                     replaces=REPLACES[name], launches=launches[name], **r)

@@ -9,10 +9,13 @@ pool, or with `entropy_backend="process"` in spawned children that hold
 their own codec, their payloads on the pipe or in shared-memory lanes
 (`shmlane.py`); `device.py` `DeviceServer` holds its device functions.
 The model lifecycle (`swap.py`: hot swap, instant rollback, the
-post-commit watchdog) and model-health telemetry (`quality.py`: coding
-gap, SI-match alarm, golden canary) are ported; what the JAX package's
-serve stack has beyond that (router, federation, autoscale, protocol,
-placement, priority classes) is not: see ROADMAP Queue 1 item 11.
+post-commit watchdog), model-health telemetry (`quality.py`: coding gap,
+SI-match alarm, golden canary), priority classes with the admission gate,
+and the front door (`router.py`: `FrontDoorRouter` over spawned replica
+services, session pinning, the fleet's two-phase swap, elastic add/drain,
+the fleet's metrics and traces; `protocol.py`, its wire tuples) are
+ported; what the JAX package's serve stack has beyond that (federation,
+autoscale, placement and devices > 1) is not: see ROADMAP Queue 1 item 11.
 """
 
 from dsin_tpu_torch.serve.batcher import (BULK, INTERACTIVE,
@@ -28,6 +31,10 @@ from dsin_tpu_torch.serve.device import DeviceServer
 from dsin_tpu_torch.serve.metrics import MetricsRegistry, MetricsServer
 from dsin_tpu_torch.serve.quality import (CanaryFailed, CanaryState,
                                           QualityMonitor)
+from dsin_tpu_torch.serve.router import (AdmissionController,
+                                         AggregatedMetrics, AggregatedTraces,
+                                         FleetScaleError, FleetSwapError,
+                                         FrontDoorRouter)
 from dsin_tpu_torch.serve.service import (CompressionService, EncodeResult,
                                           ServiceConfig, StreamCorrupt,
                                           frame_stream, parse_stream)
@@ -43,9 +50,11 @@ from dsin_tpu_torch.utils.integrity import IntegrityError
 
 __all__ = [
     "BULK", "INTERACTIVE",
+    "AdmissionController", "AggregatedMetrics", "AggregatedTraces",
     "BucketPolicy", "CanaryFailed", "CanaryState", "CompressionService",
     "ConditionalRollbackRefused", "DeadlineExceeded",
-    "DeviceServer", "EncodeResult", "FlightRecorder", "Future",
+    "DeviceServer", "EncodeResult", "FleetScaleError", "FleetSwapError",
+    "FlightRecorder", "FrontDoorRouter", "Future",
     "IntegrityError", "ManifestMismatch", "MetricsRegistry",
     "MetricsServer", "MicroBatcher", "ModelBundle", "NoBucketFits",
     "PriorityClass", "QualityMonitor", "Request", "RollbackWatchdog",

@@ -1,6 +1,6 @@
 """Lock-guarded service metrics + stdlib health/metrics HTTP endpoint (a
-copy of the JAX package's `serve/metrics.py`, without the fleet merge
-helpers of its router and federation, which the port does not have).
+copy of the JAX package's `serve/metrics.py`, with the fleet merge helpers
+its router's `AggregatedMetrics` folds replica snapshots through).
 
 Everything an operator needs to answer "is the service keeping up":
 queue depth, batch occupancy (how full the micro-batches actually run —
@@ -227,6 +227,63 @@ def render_snapshot_text(snap: dict) -> str:
             if stat in s:
                 lines.append(f"{k}_{stat} {s[stat]:g}")
     return "\n".join(lines) + "\n"
+
+
+# -- fleet merge helpers -------------------------------------------------------
+#
+# The router's AggregatedMetrics (serve/router.py) folds replica scrapes
+# through these: counters, gauges and accumulators SUM; histograms fold as
+# total count, count-weighted mean, worst-source p50/p99, and min/min-max/
+# max tails.
+
+def hist_partials(histograms: Dict[str, dict]) -> Dict[str, list]:
+    """Seed the running merge state from one snapshot's histogram
+    summaries: name -> [count, weighted_sum, p50s, p99s, mins, maxs]
+    (min/max guarded with `in` for sources predating them)."""
+    return {k: [s["count"], s["mean"] * s["count"], [s["p50"]],
+                [s["p99"]],
+                [s["min"]] if "min" in s else [],
+                [s["max"]] if "max" in s else []]
+            for k, s in histograms.items()}
+
+
+def merge_numeric_sections(counters: Dict[str, float],
+                           gauges: Dict[str, float],
+                           accumulators: Dict[str, float],
+                           hist: Dict[str, list], snap: dict) -> None:
+    """Fold one source snapshot's numeric sections into the running
+    merge state in place (histograms into `hist_partials` shape)."""
+    for k, v in snap.get("counters", {}).items():
+        counters[k] = counters.get(k, 0) + v
+    for k, v in snap.get("gauges", {}).items():
+        gauges[k] = gauges.get(k, 0.0) + v
+    for k, v in snap.get("accumulators", {}).items():
+        accumulators[k] = accumulators.get(k, 0.0) + v
+    for k, s in snap.get("histograms", {}).items():
+        part = hist.setdefault(k, [0, 0.0, [], [], [], []])
+        part[0] += s["count"]
+        part[1] += s["mean"] * s["count"]
+        part[2].append(s["p50"])
+        part[3].append(s["p99"])
+        if "min" in s:
+            part[4].append(s["min"])
+        if "max" in s:
+            part[5].append(s["max"])
+
+
+def fold_hist_partials(hist: Dict[str, list]) -> Dict[str, dict]:
+    """Running merge state -> final histogram summaries: quantiles do
+    not compose exactly from summaries, so the aggregate reports the
+    WORST source p50/p99 (the honest SLO view) while the alarm tails
+    (min/max) survive the merge exactly."""
+    return {
+        k: {"count": c,
+            "mean": (wsum / c) if c else 0.0,
+            "p50": max(p50s) if p50s else 0.0,
+            "p99": max(p99s) if p99s else 0.0,
+            **({"min": min(mins)} if mins else {}),
+            **({"max": max(maxs)} if maxs else {})}
+        for k, (c, wsum, p50s, p99s, mins, maxs) in sorted(hist.items())}
 
 
 class MetricsServer:

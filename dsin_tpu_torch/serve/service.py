@@ -119,10 +119,30 @@ lifecycle events (`swap_prepared`, `swap_commit`, `swap_abort`,
 `swap_rollback`, `watchdog_verdict`, `quality_alarm`, `canary_failure`,
 `canary_refused_swap`).
 
+Priority classes and admission: with `priority_classes` (e.g.
+`batcher.default_priority_classes(max_queue)`) the batcher keeps a bounded
+queue per class with its default deadline and sheds the lowest class first
+(`serve_shed_<cls>` counts the victims), and the router's
+`AdmissionController` (`serve/router.py`) gates the door BEFORE enqueue:
+per-class outstanding (queued + in-flight) caps from `admission_limits` or
+`router.default_admission_limits`, a typed `ServiceOverloaded` at the cap
+(`serve_admitted_<cls>`, `serve_shed_admission_<cls>`), the slot released
+when the request's future resolves. `serve_latency_ms_<cls>` holds each
+class's latency. The worker keeps an express lane for the first class
+(`_oldest_first`, which the JAX worker has not): its batches finish before
+any lower class's in flight, and while the worker waits on a lower-class
+batch's entropy (several times one request's on the card) a first-class
+submit wakes it to start that batch at once, one over `pipeline_depth` at
+most. A front door's `trace` context, passed to a submit,
+replaces the one the service would mint, so one trace id indexes the
+router hop and the replica's spans. The card's kernel launches
+(`ops/sifinder_kernel.launch_counts`) are published as
+`serve_kernel_launches_<name>` gauges and the `serve_kernel_launches` info
+entry, so a replica's counts are readable from its endpoint.
+
 Not ported, and refused with NotImplementedError naming the ROADMAP item:
-more than one device and placement, priority classes.
-`persistent_cache` (the XLA compile cache) has no meaning here and is not
-a field.
+more than one device and placement. `persistent_cache` (the XLA compile
+cache) has no meaning here and is not a field.
 """
 
 from __future__ import annotations
@@ -135,11 +155,14 @@ import tempfile
 import threading
 import time
 from collections import deque
+from concurrent.futures import FIRST_COMPLETED
+from concurrent.futures import Future as PoolFuture
 from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 from concurrent.futures import TimeoutError as FutureTimeout
+from concurrent.futures import wait as futures_wait
 from concurrent.futures.process import BrokenProcessPool
 from dataclasses import dataclass
-from typing import List, Optional, Sequence, Tuple
+from typing import List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -150,9 +173,11 @@ from dsin_tpu_torch.coding.codec import MODE_WAVEFRONT_NP
 from dsin_tpu_torch.config import parse_config_file
 from dsin_tpu_torch.runtime import resolve_device
 from dsin_tpu_torch.ops import sifinder as sifinder_lib
+from dsin_tpu_torch.ops import sifinder_kernel as sk
 from dsin_tpu_torch.serve import buckets as buckets_lib
 from dsin_tpu_torch.serve import metrics as metrics_lib
 from dsin_tpu_torch.serve import quality as quality_lib
+from dsin_tpu_torch.serve import router as router_lib
 from dsin_tpu_torch.serve import session as session_lib
 from dsin_tpu_torch.serve import shmlane as shmlane_lib
 from dsin_tpu_torch.serve import swap as swap_lib
@@ -176,9 +201,8 @@ ENCODE = "encode"
 DECODE = "decode"
 DECODE_SI = "decode_si"   # session-affine SI decode
 
-#: ROADMAP Queue 1 items naming what the port's service does not have yet
+#: the ROADMAP Queue 1 item naming what the port's service does not have yet
 ROADMAP_DEVICES = "ROADMAP Queue 1 item 11c (devices > 1 and placement)"
-ROADMAP_PRIORITY = "ROADMAP Queue 1 item 11d (priority classes and admission)"
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -227,8 +251,17 @@ class ServiceConfig:
     #: pending) before finishing the oldest; >= 2 overlaps batch N's
     #: entropy with batch N+1's device stage
     pipeline_depth: int = 2
-    #: not None raises (ROADMAP_PRIORITY)
+    #: traffic classes, most latency-sensitive first (e.g.
+    #: batcher.default_priority_classes(max_queue)): per-class bounded
+    #: queues, default deadlines, the bulk-sheds-first overload order, and
+    #: the AdmissionController gate at the door. None = one "default"
+    #: class, no gate
     priority_classes: Optional[Sequence] = None
+    #: per-class outstanding (queued + in-flight) caps for the admission
+    #: gate; None = router.default_admission_limits (the class queue bound
+    #: + the worker pipelines' in-flight capacity). Only read with
+    #: priority_classes
+    admission_limits: Optional[Mapping[str, int]] = None
     #: load the full DSIN (siNet included) and open the session API
     #: (open_session/submit_decode_si); every bucket edge must divide by
     #: the config's y_patch_size
@@ -290,8 +323,6 @@ def _refused(config: ServiceConfig) -> Optional[NotImplementedError]:
     if (config.placement_weights is not None
             or config.rebalance_check_every_s is not None):
         return _not_ported("placement and rebalance", ROADMAP_DEVICES)
-    if config.priority_classes is not None:
-        return _not_ported("priority_classes", ROADMAP_PRIORITY)
     return None
 
 
@@ -573,7 +604,20 @@ class CompressionService:
         self._pc_cfg = None
         self._batcher = MicroBatcher(
             config.max_batch, config.max_wait_ms, config.max_queue,
-            on_expired=self._note_expired)
+            classes=config.priority_classes,
+            on_expired=self._note_expired, on_shed=self._note_shed)
+        self._priority_enabled = config.priority_classes is not None
+        self._admission: Optional[router_lib.AdmissionController] = None
+        if self._priority_enabled:
+            limits = config.admission_limits
+            if limits is None:
+                limits = router_lib.default_admission_limits(config)
+            self._admission = router_lib.AdmissionController(
+                limits, metrics=self.metrics)
+        # the express lane: futures a first-class submit resolves, one per
+        # worker waiting on a lower class's batch (`_oldest_first`)
+        self._express_lock = threading.Lock()
+        self._express_waiters = set()      # guarded-by: self._express_lock
         self._workers = []                 # guarded-by: self._workers_lock
         self._workers_lock = threading.Lock()
         # slot -> last fatal exit / consecutive restarts / restart time
@@ -811,6 +855,7 @@ class CompressionService:
         self._warmup_done = True
         self.metrics.gauge("serve_warmup_builds").set(builds)
         self.metrics.gauge("serve_buckets").set(len(self.policy.buckets))
+        self._publish_launches()
         return {"builds": builds, "seconds": time.monotonic() - t0}
 
     def _ping_children(self, bundle, timeout_s: float = 300.0) -> list:
@@ -1357,9 +1402,17 @@ class CompressionService:
         for cls, k in by_class.items():
             self.metrics.counter(f"serve_expired_{cls}").inc(k)
 
+    def _note_shed(self, cls: str, n: int) -> None:
+        """Batcher on_shed hook: per-class overload-victim counter (the
+        bulk-sheds-first evidence the front-door leg reads)."""
+        self.metrics.counter(f"serve_shed_{cls}").inc(n)
+
     def _submit(self, request: Request) -> Future:
-        # admission is where a request's TraceContext is minted
-        request.trace = request.future.trace = self.tracer.mint()
+        # admission is where a request's TraceContext is minted, unless a
+        # front door passed its own (its sampling decision rides along)
+        if request.trace is None:
+            request.trace = self.tracer.mint()
+        request.future.trace = request.trace
         # the drain flag flips before the queue actually closes (the
         # close runs on the serve-drain thread) — refuse here too so no
         # request slips into that window
@@ -1375,21 +1428,45 @@ class CompressionService:
             self.flight.record("shed", reason="no_workers")
             raise ServiceUnavailable(
                 "no live workers (pool is restarting); retry shortly")
+        cls = None
+        if self._admission is not None:
+            # the gate BEFORE enqueue: a shed here costs one counter read,
+            # nothing was queued
+            cls = request.priority or self._batcher.default_class
+            request.priority = cls
+            try:
+                self._admission.admit(cls)
+            except Exception:
+                self.metrics.counter("serve_rejected_overload").inc()
+                self.flight.record("shed", reason="admission", cls=cls)
+                raise
         try:
             self._batcher.submit(request)
         except ServiceDraining:
+            if cls is not None:
+                self._admission.release(cls)
             self.metrics.counter("serve_rejected_drain").inc()
             self.flight.record("shed", reason="draining")
             raise
         except Exception:
+            if cls is not None:
+                self._admission.release(cls)
             self.metrics.counter("serve_rejected_overload").inc()
-            self.flight.record("shed", reason="queue_full")
+            self.flight.record("shed", reason="queue_full",
+                               cls=request.priority)
             raise
+        if cls is not None:
+            # attached AFTER a successful enqueue: any resolution (result,
+            # shed as a victim, expiry, drain, crash) frees the slot
+            self._admission.attach(cls, request.future)
+            if cls == self._batcher.default_class:
+                self._wake_express()
         # typed-error visibility: ANY typed resolution counts, tags the
         # trace and triggers a flight dump (an already-resolved future
         # fires the callback immediately)
         request.future.add_done_callback(self._note_resolution)
-        self.flight.record("admit", key=str(request.key))
+        self.flight.record("admit", cls=request.priority,
+                           key=str(request.key))
         # counted only once ACCEPTED: submitted - completed bounds the
         # queued+in-flight backlog
         self.metrics.counter("serve_submitted").inc()
@@ -1414,9 +1491,15 @@ class CompressionService:
             exc, trace_id=ctx.trace_id if ctx is not None else None)
 
     def submit_encode(self, img: np.ndarray,
-                      deadline_ms: Optional[float] = None) -> Future:
+                      deadline_ms: Optional[float] = None,
+                      priority: Optional[str] = None,
+                      trace=None) -> Future:
         """(h, w, 3) uint8/float image -> Future[EncodeResult]. Raises
-        ServiceOverloaded/ServiceDraining/NoBucketFits at the door."""
+        ServiceOverloaded/ServiceDraining/NoBucketFits at the door.
+        `priority` names a configured traffic class (None = the most
+        latency-sensitive one; its default deadline applies when
+        `deadline_ms` is None). `trace` is a front door's TraceContext
+        whose sampling decision this service honours; None = mint one."""
         img = np.asarray(img)
         if img.ndim != 3 or img.shape[-1] != 3:
             raise ValueError(f"expected (h, w, 3) image, got {img.shape}")
@@ -1426,7 +1509,8 @@ class CompressionService:
             img.astype(np.float32, copy=False), bucket)
         return self._submit(Request(
             key=(ENCODE, bucket), payload=(padded, (h, w)),
-            deadline=self._deadline(deadline_ms)))
+            deadline=self._deadline(deadline_ms), priority=priority,
+            trace=trace))
 
     def _stream_bucket(self, blob: bytes):
         payload, shape, bucket = parse_stream(blob)
@@ -1438,7 +1522,9 @@ class CompressionService:
         return payload, shape, bucket
 
     def submit_decode(self, blob: bytes,
-                      deadline_ms: Optional[float] = None) -> Future:
+                      deadline_ms: Optional[float] = None,
+                      priority: Optional[str] = None,
+                      trace=None) -> Future:
         """Framed DSRV stream -> Future[(h, w, 3) uint8 image]. A v2
         frame failing its CRC raises IntegrityError here, at the door."""
         payload, shape, bucket = self._stream_bucket(blob)
@@ -1448,7 +1534,8 @@ class CompressionService:
         return self._submit(Request(
             key=(DECODE, bucket), payload=(payload, shape,
                                            frame_crc(payload)),
-            deadline=self._deadline(deadline_ms)))
+            deadline=self._deadline(deadline_ms), priority=priority,
+            trace=trace))
 
     # -- side-information sessions --------------------------------------------
 
@@ -1511,7 +1598,9 @@ class CompressionService:
         return self._require_si().evict(session_id, "closed")
 
     def submit_decode_si(self, blob: bytes, session_id: str,
-                         deadline_ms: Optional[float] = None) -> Future:
+                         deadline_ms: Optional[float] = None,
+                         priority: Optional[str] = None,
+                         trace=None) -> Future:
         """Framed DSRV stream + open session -> Future[(h, w, 3) uint8
         SI-fused reconstruction]. A gone session raises typed
         `SessionExpired` here; one that expires between admission and
@@ -1529,13 +1618,15 @@ class CompressionService:
         return self._submit(Request(
             key=(DECODE_SI, bucket), payload=(payload, shape,
                                               frame_crc(payload)),
-            deadline=self._deadline(deadline_ms), session=session_id))
+            deadline=self._deadline(deadline_ms), priority=priority,
+            session=session_id, trace=trace))
 
     def decode_si(self, blob: bytes, session_id: str,
                   deadline_ms: Optional[float] = None,
-                  timeout: Optional[float] = 60.0) -> np.ndarray:
-        return self.submit_decode_si(blob, session_id,
-                                     deadline_ms).result(timeout)
+                  timeout: Optional[float] = 60.0,
+                  priority: Optional[str] = None) -> np.ndarray:
+        return self.submit_decode_si(blob, session_id, deadline_ms,
+                                     priority=priority).result(timeout)
 
     def _resolve_session(self, batch, bundle) -> session_lib.SessionEntry:
         """Batch-start session lookup (worker side): the entry captured
@@ -1557,12 +1648,16 @@ class CompressionService:
         return entry
 
     def encode(self, img: np.ndarray, deadline_ms: Optional[float] = None,
-               timeout: Optional[float] = 60.0) -> EncodeResult:
-        return self.submit_encode(img, deadline_ms).result(timeout)
+               timeout: Optional[float] = 60.0,
+               priority: Optional[str] = None) -> EncodeResult:
+        return self.submit_encode(img, deadline_ms,
+                                  priority=priority).result(timeout)
 
     def decode(self, blob: bytes, deadline_ms: Optional[float] = None,
-               timeout: Optional[float] = 60.0) -> np.ndarray:
-        return self.submit_decode(blob, deadline_ms).result(timeout)
+               timeout: Optional[float] = 60.0,
+               priority: Optional[str] = None) -> np.ndarray:
+        return self.submit_decode(blob, deadline_ms,
+                                  priority=priority).result(timeout)
 
     # -- worker side --------------------------------------------------------
 
@@ -1602,27 +1697,31 @@ class CompressionService:
                     timeout=0.0 if inflight else 0.25)
                 if batch is None:
                     return        # closed and empty: finally flushes
-                if not batch:
-                    if inflight:
-                        self._finish_oldest(inflight, gauge)
+                if batch:
+                    t_start = time.monotonic()
+                    try:
+                        rec = self._start_batch(batch)
+                    except BaseException as e:  # noqa: BLE001 — answer callers
+                        for r in batch:
+                            if not r.future.done():
+                                r.future.set_exception(e)
+                        if not isinstance(e, Exception):
+                            # InjectedCrash-class conditions kill this
+                            # thread so the supervisor sees the death
+                            raise
+                        continue
+                    if rec is not None:
+                        self._busy_ms.add((time.monotonic() - t_start) * 1e3)
+                        self._track(inflight, rec)
+                        gauge.set(len(inflight))
+                elif not inflight:
                     continue
-                t_start = time.monotonic()
-                try:
-                    rec = self._start_batch(batch)
-                except BaseException as e:  # noqa: BLE001 — answer callers
-                    for r in batch:
-                        if not r.future.done():
-                            r.future.set_exception(e)
-                    if not isinstance(e, Exception):
-                        # InjectedCrash-class conditions kill this thread
-                        # so the supervisor sees the death
-                        raise
-                    continue
-                if rec is not None:
-                    self._busy_ms.add((time.monotonic() - t_start) * 1e3)
-                    inflight.append(rec)
-                    gauge.set(len(inflight))
-                while len(inflight) >= depth:
+                # finish the oldest while the pipeline is full (one batch
+                # when the queue is empty), unless the first class's work
+                # is queued before that batch's entropy is done
+                limit = depth if batch else len(inflight)
+                while (len(inflight) >= limit
+                       and self._oldest_first(inflight, depth)):
                     self._finish_oldest(inflight, gauge)
         finally:
             # no hung futures: whether this thread exits a drain or dies
@@ -1631,6 +1730,57 @@ class CompressionService:
             while inflight:
                 self._finish_oldest(inflight, gauge, swallow=True)
             gauge.set(0)
+
+    def _track(self, inflight: deque, rec: _Inflight) -> None:
+        """Queue a started batch for finishing: in start order, except that
+        with priority classes a first-class batch goes ahead of every
+        lower-class batch in flight (a decode's device stage runs at its
+        finish)."""
+        top = self._batcher.default_class
+        if not self._priority_enabled or rec.batch[0].priority != top:
+            inflight.append(rec)
+            return
+        k = 0
+        while k < len(inflight) and inflight[k].batch[0].priority == top:
+            k += 1
+        inflight.insert(k, rec)
+
+    def _oldest_first(self, inflight: deque, depth: int) -> bool:
+        """The worker's one wait point before it finishes the oldest batch:
+        True once that batch's entropy tasks are done. The express lane
+        (priority classes only; the JAX worker has none): when the oldest
+        batch is of a lower class and at most `depth` batches are in
+        flight, False as soon as the first class has queued work, which the
+        worker then starts at once (one batch over the depth at most),
+        rather than wait behind that batch's entropy. The wait wakes on the
+        tasks or on a first-class submit (`_wake_express`); the queue is
+        read once a wake."""
+        rec = inflight[0]
+        top = self._batcher.default_class
+        if (not self._priority_enabled or len(inflight) > depth
+                or rec.batch[0].priority == top):
+            return True
+        while not all(t.done() for t in rec.tasks):
+            arrival = PoolFuture()
+            with self._express_lock:
+                self._express_waiters.add(arrival)
+            try:
+                if self._batcher.class_depths().get(top, 0):
+                    return False
+                futures_wait([*rec.tasks, arrival],
+                             return_when=FIRST_COMPLETED)
+            finally:
+                with self._express_lock:
+                    self._express_waiters.discard(arrival)
+        return True
+
+    def _wake_express(self) -> None:
+        """A first-class request was queued: wake every worker waiting in
+        `_oldest_first`."""
+        with self._express_lock:
+            waiters, self._express_waiters = self._express_waiters, set()
+        for w in waiters:
+            w.set_result(None)
 
     def _finish_oldest(self, inflight: deque, gauge,
                        swallow: bool = False) -> None:
@@ -1802,7 +1952,7 @@ class CompressionService:
                 ctx = r.trace
                 if ctx is not None and ctx.sampled:
                     self.tracer.record(trace_lib.SPAN_QUEUE, r.arrival,
-                                       t0, [ctx.trace_id])
+                                       t0, [ctx.trace_id], cls=r.priority)
         self.flight.record("batch_seal", op=kind, bucket=list(bucket),
                            size=len(batch))
         self.metrics.gauge("serve_queue_depth").set(self._batcher.depth)
@@ -2241,9 +2391,13 @@ class CompressionService:
 
     def _observe_latency(self, req) -> None:
         """Arrival -> future-RESOLUTION latency, recorded the moment the
-        request's future is set."""
-        self.metrics.histogram("serve_latency_ms").observe(
-            (time.monotonic() - req.arrival) * 1e3)
+        request's future is set; with priority classes also per class
+        (`serve_latency_ms_<cls>`, the p99 the front-door leg gates)."""
+        ms = (time.monotonic() - req.arrival) * 1e3
+        self.metrics.histogram("serve_latency_ms").observe(ms)
+        if self._priority_enabled and req.priority is not None:
+            self.metrics.histogram(
+                f"serve_latency_ms_{req.priority}").observe(ms)
 
     def _note_batch_done(self, batch, t0, device_ms, entropy_ms,
                          observe_latency: bool = False) -> None:
@@ -2266,7 +2420,20 @@ class CompressionService:
             self.metrics.accumulator(f"{name}_total").add(ms)
         self.metrics.gauge("serve_native_builds").set(
             native_build.build_count())
+        self._publish_launches()
         self._update_overlap_gauge()
+
+    def _publish_launches(self) -> None:
+        """This process's kernel launches (`sk.launch_counts`, counted by
+        each wrapper where it launches) as `serve_kernel_launches_<name>`
+        gauges, and the launches and native builds as info entries, which
+        a front door's AggregatedMetrics carries per replica."""
+        counts = dict(sk.launch_counts)
+        for name, n in counts.items():
+            self.metrics.gauge(f"serve_kernel_launches_{name}").set(n)
+        self.metrics.set_info("serve_kernel_launches", counts)
+        self.metrics.set_info("serve_native_builds",
+                              native_build.build_count())
 
     def _update_overlap_gauge(self) -> None:
         """serve_overlap_ratio = 1 - busy/(device+entropy): 0 when the

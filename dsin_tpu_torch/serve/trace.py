@@ -1,7 +1,10 @@
 """Request tracing + crash flight recorder (a copy of the JAX package's
-`serve/trace.py`, for one service: no router or federation here; the
-process entropy backend's tasks carry the sampled contexts to the child
-and back, `sampled_tuple`, and its coding span is `SPAN_ENTROPY_PROC`).
+`serve/trace.py`, less its federation span: the process entropy backend's
+tasks carry the sampled contexts to the child and back, `sampled_tuple`,
+and its coding span is `SPAN_ENTROPY_PROC`; the front door
+(`serve/router.py`) mints the context a replica honours, records
+`SPAN_ROUTER`, and stitches the fleet's rings with
+`merge_trace_snapshots`).
 
 * **Tracer** — span-based request tracing. A `TraceContext` (trace id +
   head sampling decision) is minted at admission (`service._submit`) and
@@ -51,6 +54,7 @@ SPAN_ENTROPY = "batch.entropy"      # batch rANS work (bridge-side span)
 SPAN_ENTROPY_PROC = "batch.entropy.proc"  # child-side coding (process backend)
 SPAN_SI_SEARCH = "batch.si_search"  # fused decode->siFinder->siNet executable
 SPAN_SESSION = "session.lookup"     # SI session store lookup at batch start
+SPAN_ROUTER = "router.dispatch"     # front-door send -> future resolution
 SPAN_ERROR = "error"                # typed-error resolution (always recorded)
 
 
@@ -196,6 +200,12 @@ class Tracer:
             # is how an operator sizes trace_capacity
             self.metrics.counter("serve_trace_spans").inc()
 
+    def span_for(self, ctx: Optional[TraceContext], name: str,
+                 t0: float, t1: float, **args) -> None:
+        """Single-context convenience (the router's dispatch span)."""
+        if ctx is not None and ctx.sampled:
+            self.record(name, t0, t1, [ctx.trace_id], **args)
+
     def span_batch(self, requests: Iterable[Any], name: str,
                    t0: float, t1: float, **args) -> None:
         """Record one span for the SAMPLED subset of a batch's requests
@@ -314,6 +324,18 @@ def chrome_trace(spans: Sequence[dict]) -> dict:
             "args": {"trace_ids": s["tids"], **s.get("args", {})},
         })
     return {"traceEvents": events, "displayTimeUnit": "ms"}
+
+
+def merge_trace_snapshots(parts: Sequence[dict]) -> List[dict]:
+    """Fleet stitch: concatenate per-process span lists onto one
+    timeline, ordered by their wall-clock anchors (the router's
+    AggregatedTraces feeds this its own snapshot plus every replica
+    scrape)."""
+    spans: List[dict] = []
+    for part in parts:
+        spans.extend(part.get("spans", ()))
+    spans.sort(key=lambda s: s["ts"])
+    return spans
 
 
 class FlightRecorder:
@@ -494,3 +516,11 @@ class FlightRecorder:
                     "last_dump_path": self._last_dump_path,
                     "dump_dir": self._dump_dir,
                     "pending": max(0, self._want - self._done)}
+
+
+def echo_context(ctx: TraceContext) -> TraceContext:
+    """Process-pool propagation probe: returns the context exactly as
+    received. Submitted to a real spawn executor, equality after the
+    round trip is the serialization contract the entropy backend and the
+    replica pipe rely on."""
+    return ctx

@@ -1,12 +1,15 @@
-"""Two batteries of the chaos bench (counterparts of the JAX package's
-`tools/chaos_bench.py` `run_hotswap` :407 and `run_degraded` :1158): the
-live model operations and the degraded model, each against one running
-`CompressionService`.
+"""Three batteries of the chaos bench (counterparts of the JAX package's
+`tools/chaos_bench.py` `run_hotswap` :407, `run_sessions` :867 and
+`run_degraded` :1158): the live model operations and the degraded model,
+each against one running `CompressionService`, and the side-information
+sessions, against services and a session-pinning `FrontDoorRouter`.
 
     python -m dsin_tpu_torch.tools.chaos_bench --smoke --hotswap_only \\
         --device cpu --out /tmp/h.json
     python -m dsin_tpu_torch.tools.chaos_bench --smoke --degraded_only \\
         --device cpu --out /tmp/d.json
+    python -m dsin_tpu_torch.tools.chaos_bench --smoke --sessions_only \\
+        --device cpu --out /tmp/s.json [--spawn_replicas]
 
 Hot-swap battery (`--hotswap_only`): a second model (another seed) is
 saved with a full manifest, then adopted by the running service through
@@ -32,6 +35,24 @@ is caught by the background prober, which arms the watchdog: the service
 rolls back to the good model by itself. Invariants: no hung future, every
 failure typed, a non-empty flight dump, no native build.
 
+Session battery (`--sessions_only`, SI buckets 16x24 and 32x48, which the
+smoke configs' 8x12 patches tile): service A opens sessions past
+`session_max` while `decode_si` work is in flight against older ones
+(evictions under load) and takes `serve.session` faults at the door and
+mid-batch; service B's session TTL expires between admission and batch
+start; then a 2-replica router pins two sessions, one per replica, and
+replica 0 dies with 8 SI requests in flight: they resolve typed, the
+dead pin answers `SessionExpired` at the door, the survivor's session
+serves, a new session opens, `serve_router_session_orphans` counts it;
+and one `decode_si` through the door is traced end to end (the router's
+`router.dispatch` span and the replica's queue, device, entropy, session
+and search spans under one trace id, through the fleet's `/trace`). The
+replicas are real services on threads of this process (`ThreadReplicas`,
+a hard kill closes the pipe with work in flight), or with
+`--spawn_replicas` spawned processes (the kill is a SIGKILL).
+Invariants: no hung future, every error typed, no native build after
+warmup.
+
 Every other battery of the JAX bench is refused with an error that names
 ROADMAP Queue 1 item 11g. `--smoke` serves the tiny configuration (the
 JAX bench's smoke configs) at seconds of CPU; without it the AE and PC
@@ -44,11 +65,14 @@ from __future__ import annotations
 
 import argparse
 import json
+import multiprocessing
 import os
+import queue
 import sys
 import tempfile
 import threading
 import time
+from dataclasses import replace
 
 import numpy as np
 
@@ -57,14 +81,17 @@ from dsin_tpu_torch.coding.loader import tree_leaves
 from dsin_tpu_torch.config import parse_config_file
 from dsin_tpu_torch.models.dsin import build_model
 from dsin_tpu_torch.runtime import config_path, resolve_device
+from dsin_tpu_torch.serve import protocol
+from dsin_tpu_torch.serve import router as router_lib
 from dsin_tpu_torch.serve import (CanaryFailed, CompressionService,
-                                  ServeError, ServiceConfig)
+                                  FrontDoorRouter, ServeError, ServiceConfig,
+                                  SessionExpired)
 from dsin_tpu_torch.train import checkpoint as ckpt_lib
 from dsin_tpu_torch.utils import faults
 
 ROADMAP_CHAOS = ("ROADMAP Queue 1 item 11g (the rest of the chaos bench: "
-                 "the main soak, sessions, autoscale, transport and "
-                 "federation batteries)")
+                 "the main soak, autoscale, transport and federation "
+                 "batteries)")
 
 #: the JAX bench's smoke configuration (its tools/serve_bench.py)
 SMOKE_AE_CFG = """
@@ -385,6 +412,363 @@ def run_hotswap(args) -> dict:
             "violations": violations}
 
 
+class ThreadReplicas:
+    """FrontDoorRouter launcher whose replicas are threads of this process
+    running REAL CompressionServices and speaking the pipe protocol (the
+    JAX bench's `_ThreadReplicas`). `kill(idx)` makes the replica close
+    its own pipe end on its own thread WITHOUT draining its in-flight SI
+    work: the router's reader sees the EOF a process crash produces while
+    requests are still outstanding."""
+
+    def __init__(self, make_config):
+        self._make_config = make_config
+        self.dead = {}
+        self.threads = {}
+        self.services = {}
+        self.warmups = {}
+
+    def launcher(self, config, idx, ctx):
+        parent, child = multiprocessing.Pipe(duplex=True)
+        self.dead[idx] = threading.Event()
+        t = threading.Thread(target=self._run, args=(idx, child),
+                             name=f"chaos-si-replica-{idx}", daemon=True)
+        self.threads[idx] = t
+        t.start()
+        return None, parent
+
+    def _run(self, idx, conn):
+        try:
+            # a real metrics endpoint per replica: the router's /trace
+            # aggregation scrapes it as it scrapes a spawned replica's
+            service = CompressionService(
+                replace(self._make_config(), metrics_port=0)).start()
+            self.warmups[idx] = service.warmup()
+        except BaseException as e:  # noqa: BLE001 — the router needs it
+            conn.send(("failed", idx, router_lib._picklable_exc(e)))
+            conn.close()
+            return
+        self.services[idx] = service
+        outq = queue.Queue()
+
+        def _sender():
+            while True:
+                item = outq.get()
+                if item is None:
+                    return
+                try:
+                    conn.send(item)
+                except (OSError, ValueError, BrokenPipeError):
+                    return
+
+        sender = threading.Thread(target=_sender, daemon=True,
+                                  name=f"chaos-si-send-{idx}")
+        sender.start()
+        outq.put(("ready", idx, {
+            "replica": idx, "pid": os.getpid(),
+            "healthz_port": service.metrics_port,
+            "builds_at_ready": native_build.build_count(),
+            "params_digest": service.model_digest}))
+        dead = self.dead[idx]
+
+        def _complete(rid_, fut_):
+            exc = fut_.exception(timeout=0)
+            if exc is None:
+                outq.put(("ok", rid_, fut_.result(timeout=0)))
+            else:
+                outq.put(("err", rid_, router_lib._picklable_exc(exc)))
+
+        while not dead.is_set():
+            try:
+                if not conn.poll(0.02):
+                    continue
+                msg = conn.recv()
+            except (EOFError, OSError):
+                break
+            if msg[0] == protocol.STOP:
+                break
+            op, rid, payload, priority, deadline_ms, trace = \
+                protocol.parse_request(msg)
+            try:
+                if op in protocol.CONTROL_OPS:
+                    if op == "swap_prepare":
+                        res = service.prepare_swap(payload)
+                    elif op == "swap_commit":
+                        res = service.commit_swap(expect_digest=payload)
+                    elif op == "swap_abort":
+                        res = service.abort_swap()
+                    else:
+                        res = service.rollback(expect_current=payload)
+                    outq.put(("ok", rid, res))
+                    continue
+                if op == "session_open":
+                    outq.put(("ok", rid, service.open_session(payload)))
+                    continue
+                if op == "session_close":
+                    outq.put(("ok", rid, service.close_session(payload)))
+                    continue
+                if op == "encode":
+                    fut = service.submit_encode(
+                        payload, deadline_ms=deadline_ms, priority=priority,
+                        trace=trace)
+                elif op == "decode_si":
+                    fut = service.submit_decode_si(
+                        payload[0], payload[1], deadline_ms=deadline_ms,
+                        priority=priority, trace=trace)
+                else:
+                    fut = service.submit_decode(
+                        payload, deadline_ms=deadline_ms, priority=priority,
+                        trace=trace)
+            except BaseException as e:  # noqa: BLE001 — typed rejects
+                outq.put(("err", rid, router_lib._picklable_exc(e)))
+                continue
+            fut.add_done_callback(lambda f, rid_=rid: _complete(rid_, f))
+        # a HARD death (kill) closes the pipe with work still in flight:
+        # the router must type those futures, not this replica. A
+        # graceful stop drains first.
+        if not dead.is_set():
+            service.drain()
+        outq.put(None)
+        sender.join(timeout=10)
+        try:
+            conn.close()
+        except OSError:
+            pass
+        if dead.is_set():
+            service.drain()
+
+    def kill(self, router, idx):
+        self.dead[idx].set()
+        self.threads[idx].join(timeout=60)
+
+
+class SpawnKiller:
+    """The spawned-replica counterpart of ThreadReplicas.kill: SIGKILL the
+    replica's process."""
+
+    launcher = None
+
+    @staticmethod
+    def kill(router, idx):
+        import signal
+        proc = router._replicas[idx].proc
+        os.kill(proc.pid, signal.SIGKILL)
+        proc.join(timeout=60)
+
+
+def run_sessions(args) -> dict:
+    """The side-information session battery (see the module docstring)."""
+    from dsin_tpu_torch.serve.session import SessionError
+
+    buckets = [(16, 24), (32, 48)]
+    base = dict(
+        ae_config=args.ae_config, pc_config=args.pc_config, seed=args.seed,
+        buckets=buckets, max_batch=args.max_batch,
+        max_wait_ms=args.max_wait_ms, max_queue=args.max_queue,
+        workers=args.workers, entropy_workers=args.entropy_workers,
+        entropy_backend=args.entropy_backend,
+        pipeline_depth=args.pipeline_depth, enable_si=True,
+        trace_sample_rate=1.0, device=args.device)
+    rng = np.random.default_rng(args.seed + 11)
+    sides = {tuple(b): rng.integers(0, 255, (b[0], b[1], 3), dtype=np.uint8)
+             for b in buckets}
+    violations, scenarios = [], {}
+    t0 = time.monotonic()
+    bucket = tuple(buckets[0])
+
+    # -- service A: evict-under-load + serve.session faults ------------------
+    svc = CompressionService(ServiceConfig(**base, session_max=2)).start()
+    warm = svc.warmup()
+    builds = native_build.build_count()
+    try:
+        stream = svc.encode(sides[bucket], timeout=args.timeout_s).stream
+        # (1) open past session_max while decode_si load is IN FLIGHT
+        # against older sessions
+        futures, door_expired, sids = [], 0, []
+        for _ in range(6):
+            sids.append(svc.open_session(sides[bucket]))
+            for sid in sids:
+                try:
+                    futures.append(svc.submit_decode_si(stream, sid))
+                except (SessionExpired, SessionError):
+                    door_expired += 1
+        counts, hung = await_all(futures, args.timeout_s)
+        evictions = svc.metrics.counter("serve_session_evictions").value
+        if hung:
+            violations.append(f"evict_under_load: {hung} hung futures")
+        if counts["untyped"]:
+            violations.append(f"evict_under_load: {counts['untyped']} "
+                              f"untyped errors")
+        if evictions == 0:
+            violations.append("evict_under_load: no eviction fired "
+                              "(vacuous: session_max never engaged)")
+        scenarios["evict_under_load"] = {
+            "opened": len(sids), "submitted": len(futures),
+            "door_expired": door_expired, "completed_ok": counts["ok"],
+            "typed_errors": counts["typed"], "hung_futures": hung,
+            "untyped_errors": counts["untyped"], "evictions": evictions}
+        # (2) a serve.session fault at the DOOR (visit 1: submit's get)
+        plan = faults.FaultPlan([faults.FaultSpec(
+            site="serve.session", action="raise", times=1)], seed=args.seed)
+        door_typed = False
+        with faults.installed(plan):
+            try:
+                svc.submit_decode_si(stream, sids[-1])
+            except faults.InjectedFault:
+                door_typed = True
+        # (3) the fault MID-BATCH (the door passes, the worker's
+        # batch-start lookup fires): the future fails typed
+        plan2 = faults.FaultPlan([faults.FaultSpec(
+            site="serve.session", action="raise", after=1, times=1)],
+            seed=args.seed)
+        with faults.installed(plan2):
+            f = svc.submit_decode_si(stream, sids[-1])
+            mid_typed = isinstance(f.exception(timeout=args.timeout_s),
+                                   faults.InjectedFault)
+        if not (door_typed and mid_typed):
+            violations.append(f"session_fault: injected serve.session "
+                              f"faults not answered typed (door="
+                              f"{door_typed}, mid={mid_typed})")
+        clean = svc.decode_si(stream, sids[-1], timeout=args.timeout_s)
+        scenarios["session_fault"] = {
+            "door_typed": door_typed, "mid_batch_typed": mid_typed,
+            "clean_after": bool(clean.ndim == 3),
+            "fired": plan.activations["serve.session"]
+            + plan2.activations["serve.session"]}
+    finally:
+        svc.drain()
+
+    # -- service B: TTL expiry mid-batch -------------------------------------
+    svc_b = CompressionService(ServiceConfig(
+        **{**base, "max_wait_ms": 400.0, "max_batch": 4},
+        session_max=4, session_ttl_s=0.15)).start()
+    svc_b.warmup()
+    try:
+        stream_b = svc_b.encode(sides[bucket], timeout=args.timeout_s).stream
+        sid = svc_b.open_session(sides[bucket])
+        futs = [svc_b.submit_decode_si(stream_b, sid) for _ in range(2)]
+        expired_typed = hung_b = untyped_b = 0
+        for f in futs:
+            try:
+                exc = f.exception(timeout=args.timeout_s)
+            except TimeoutError:
+                hung_b += 1
+                continue
+            if isinstance(exc, SessionExpired):
+                expired_typed += 1
+            elif exc is not None:
+                untyped_b += 1
+        if expired_typed != len(futs) or hung_b or untyped_b:
+            violations.append(
+                f"expire_mid_batch: {expired_typed}/{len(futs)} typed "
+                f"SessionExpired, {hung_b} hung, {untyped_b} other")
+        # a fresh session serves after the expiry: a FULL batch pops at
+        # once, inside the TTL (the 400 ms coalesce window exceeds it)
+        sid2 = svc_b.open_session(sides[bucket])
+        futs_after = [svc_b.submit_decode_si(stream_b, sid2)
+                      for _ in range(4)]
+        ok_after = all(f.exception(timeout=args.timeout_s) is None
+                       for f in futs_after)
+    finally:
+        svc_b.drain()
+    scenarios["expire_mid_batch"] = {
+        "submitted": len(futs), "expired_typed": expired_typed,
+        "hung_futures": hung_b, "untyped_errors": untyped_b,
+        "fresh_session_after": ok_after}
+
+    # -- a replica's death with live sessions (the session-pinning router) --
+    reps = (SpawnKiller() if args.spawn_replicas
+            else ThreadReplicas(lambda: ServiceConfig(**base, session_max=4)))
+    router = FrontDoorRouter(ServiceConfig(**base, session_max=4),
+                             replicas=2, launcher=reps.launcher,
+                             poll_every_s=30.0,
+                             trace_sample_rate=1.0).start()
+    try:
+        stream_r = router.encode(sides[bucket], timeout=args.timeout_s).stream
+        sid_a = router.open_session(sides[bucket])   # rr -> replica 0
+        sid_b = router.open_session(sides[bucket])   # rr -> replica 1
+        pin_a = router._sessions[sid_a]
+        in_flight = [router.submit_decode_si(stream_r, sid_a)
+                     for _ in range(8)]
+        reps.kill(router, pin_a)
+        counts_r, hung_r = await_all(in_flight, args.timeout_s)
+        deadline = time.monotonic() + args.timeout_s
+        while router.health()["replicas"][str(pin_a)] != "dead" \
+                and time.monotonic() < deadline:
+            time.sleep(0.02)
+        door_after = False
+        try:
+            router.submit_decode_si(stream_r, sid_a)
+        except SessionExpired:
+            door_after = True
+        survivor_ok = router.decode_si(
+            stream_r, sid_b, timeout=args.timeout_s).ndim == 3
+        sid_c = router.open_session(sides[bucket])
+        new_open_ok = router.decode_si(
+            stream_r, sid_c, timeout=args.timeout_s).ndim == 3
+        orphans = router.metrics.counter(
+            "serve_router_session_orphans").value
+        if hung_r:
+            violations.append(f"replica_death: {hung_r} hung SI futures")
+        if counts_r["untyped"]:
+            violations.append(f"replica_death: {counts_r['untyped']} "
+                              f"untyped errors")
+        if not door_after:
+            violations.append("replica_death: the dead replica's session "
+                              "is still pinned (the door did not expire "
+                              "it typed)")
+        if not (survivor_ok and new_open_ok):
+            violations.append("replica_death: the surviving replica "
+                              "stopped serving sessions")
+        if orphans < 1:
+            violations.append("replica_death: no session orphan was "
+                              "recorded (pin table not cleaned)")
+        scenarios["replica_death"] = {
+            "replicas": "spawned" if args.spawn_replicas else "threads",
+            "in_flight": len(in_flight), "completed_ok": counts_r["ok"],
+            "typed_errors": counts_r["typed"],
+            "untyped_errors": counts_r["untyped"], "hung_futures": hung_r,
+            "door_expired_after_death": door_after,
+            "survivor_serves": survivor_ok,
+            "new_session_after_death": new_open_ok,
+            "session_orphans": orphans}
+
+        # -- one decode_si through the door, traced end to end ----------------
+        fut = router.submit_decode_si(stream_r, sid_c)
+        fut.result(args.timeout_s)
+        tid = fut.trace.trace_id
+        need = {"router.dispatch", "queue.wait", "batch.device",
+                "batch.entropy", "batch.si_search", "session.lookup"}
+        names, merged = set(), {"replicas_scraped": 0}
+        deadline = time.monotonic() + 10.0
+        # the replica publishes its batch spans when the batch finishes,
+        # moments after the future resolves
+        while time.monotonic() < deadline:
+            merged = router.traces.snapshot(trace_id=tid)
+            names = {sp["name"] for sp in merged["spans"]}
+            if need <= names:
+                break
+            time.sleep(0.05)
+        missing = sorted(need - names)
+        if missing:
+            violations.append(f"trace_stitch: front-door decode_si trace "
+                              f"{tid} is missing spans {missing} (got "
+                              f"{sorted(names)})")
+        scenarios["trace_stitch"] = {
+            "trace_id": tid, "span_names": sorted(names),
+            "stitched": not missing,
+            "replicas_scraped": merged["replicas_scraped"]}
+    finally:
+        router.drain()
+    steady_builds = native_build.build_count() - builds
+    if steady_builds:
+        violations.append(f"session battery: {steady_builds} native builds "
+                          f"after warmup")
+    return {"warmup": warm, "scenarios": scenarios,
+            "steady_builds": steady_builds,
+            "duration_s": round(time.monotonic() - t0, 3),
+            "violations": violations}
+
+
 def run_degraded(args) -> dict:
     """The degraded-model battery (see the module docstring)."""
     buckets = [(16, 24), (32, 48)] if args.smoke else \
@@ -568,7 +952,8 @@ def run_degraded(args) -> dict:
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description="the port's chaos bench: the "
-                                "hot-swap and degraded-model batteries")
+                                "hot-swap, session and degraded-model "
+                                "batteries")
     p.add_argument("--ae_config", default=config_path("ae_kitti_stereo"))
     p.add_argument("--pc_config", default=config_path("pc_default"))
     p.add_argument("--seed", type=int, default=0)
@@ -592,19 +977,23 @@ def main(argv=None) -> int:
                    help="the live-model-operations battery")
     p.add_argument("--degraded_only", action="store_true",
                    help="the degraded-model battery")
-    for name in ("sessions_only", "autoscale_only", "transport_only",
-                 "federation_only"):
+    p.add_argument("--sessions_only", action="store_true",
+                   help="the side-information session battery")
+    p.add_argument("--spawn_replicas", action="store_true",
+                   help="session battery: spawned replica processes "
+                        "behind the router (default: replicas on threads)")
+    for name in ("autoscale_only", "transport_only", "federation_only"):
         p.add_argument(f"--{name}", action="store_true",
                        help=f"not ported: {ROADMAP_CHAOS}")
     args = p.parse_args(argv)
-    for name in ("sessions_only", "autoscale_only", "transport_only",
-                 "federation_only"):
+    for name in ("autoscale_only", "transport_only", "federation_only"):
         if getattr(args, name):
             p.error(f"--{name} is not ported to dsin_tpu_torch yet: "
                     f"{ROADMAP_CHAOS}")
-    if not (args.hotswap_only or args.degraded_only):
-        p.error(f"choose --hotswap_only or --degraded_only; the main soak "
-                f"is not ported to dsin_tpu_torch yet: {ROADMAP_CHAOS}")
+    if not (args.hotswap_only or args.degraded_only or args.sessions_only):
+        p.error(f"choose --hotswap_only, --sessions_only or "
+                f"--degraded_only; the main soak is not ported to "
+                f"dsin_tpu_torch yet: {ROADMAP_CHAOS}")
     resolve_device(args.device)
     if args.smoke:
         args.ae_config, args.pc_config = write_smoke_cfgs(tempfile.mkdtemp())
@@ -613,6 +1002,9 @@ def main(argv=None) -> int:
     if args.hotswap_only:
         report["hotswap"] = run_hotswap(args)
         report["violations"] += report["hotswap"]["violations"]
+    if args.sessions_only:
+        report["sessions"] = run_sessions(args)
+        report["violations"] += report["sessions"]["violations"]
     if args.degraded_only:
         report["degraded_model"] = run_degraded(args)
         report["violations"] += report["degraded_model"]["violations"]

@@ -1,10 +1,12 @@
-"""Four legs of the serve bench (counterparts of the JAX package's
+"""Five legs of the serve bench (counterparts of the JAX package's
 `tools/serve_bench.py`): the precision leg (`_run_precision_section`,
 `_gate_precision`, :2334-2515), the entropy-backend leg
 (`_run_backend_axis`, `_gate_backend_axis`, :484-575), the entropy half
 of the transport leg (`_run_transport_section`, `_gate_transport`,
-:2160-2233; its router half is not ported) and the model-health leg
-(`_run_quality_section`, :1062).
+:2160-2233; its router half is not ported), the model-health leg
+(`_run_quality_section`, :1062) and the front-door legs
+(`_run_frontdoor_overload`, `_run_frontdoor_replicas`, `_gate_frontdoor`,
+:1268-1560).
 
     python -m dsin_tpu_torch.tools.serve_bench --out F.json [--precision]
         [--entropy_backend both] [--transport both] [--quality]
@@ -12,12 +14,15 @@ of the transport leg (`_run_transport_section`, `_gate_transport`,
         [--reps N] [--bucket H,W] [--ae_config P] [--pc_config P]
         [--buckets "H,W H,W"] [--shapes "H,W ..."] [--requests N]
         [--rate R] [--entropy_workers N] [--max_wait_ms MS]
+        [--frontdoor_only] [--replicas N] [--priority_mix "C:S C:S"]
+        [--interactive_slo_ms MS] [--bulk_deadline_ms MS]
+        [--frontdoor_rate R] [--frontdoor_requests N] [--frontdoor_queue N]
 
 The entropy-backend leg serves one open-loop stream of encodes (`--requests`
 at `--rate` a second over `--shapes`, then `--decode_samples` decodes; by
-default the JAX leg's 200 at 20/s, which outruns the card's service, so the
-queue (256 deep, none rejected) holds the service at saturation for most of
-the run and `throughput_rps` reads its steady rate) through one warm
+default 100 at 20/s, which outruns the card's service, so the queue (256
+deep, none rejected) holds the service at saturation for most of the run and
+`throughput_rps` reads its steady rate; the JAX leg sends 200) through one warm
 `CompressionService` per backend, "thread" then "process", and records
 throughput, the stage histograms, the overlap ratio, the warmup (child spawn
 included), the children's pids and a two-thread probe of the host's free
@@ -31,6 +36,28 @@ byte-equal streams, no native build in the stream window (the JAX leg's
 compile sentinel), no failed request, no lane integrity error, lane sends on
 shm. The output names the card (`nvidia-smi`) and the host's cores
 (`os.cpu_count()` and the affinity mask): a served request is host-bound.
+
+The front-door legs (`--frontdoor_only`): (1) overload through ONE
+in-process service wearing priority classes and the admission gate
+(`default_priority_classes(--frontdoor_queue)`, bulk's default deadline
+`--bulk_deadline_ms`): `--frontdoor_requests` encodes open loop at
+`--frontdoor_rate` a second, interactive and bulk interleaved by
+`--priority_mix`; per class it records submissions, sheds at the door,
+victims shed in the queue, expiries, completions, the gate's counters and
+the latency quantiles (`serve_latency_ms_<cls>`), and the native builds in
+the window. (2) the replica axis: the same mix at the same rate through a
+`FrontDoorRouter` at 1 and `--replicas` spawned replica services on the
+thread backend (on the card: all sharing it), requests/s, `scaling_vs_1`,
+routing per replica, reroutes, each replica's start s and
+`builds_at_ready`, and the probe images' streams from every replica, which
+must be equal to each other's and across the runs (`bit_identical`).
+`gate_frontdoor` holds: bulk shed first and only bulk, an interactive
+request completed, no untyped or hung future, interactive p99 within
+`--interactive_slo_ms` (the JAX gate's 1500 ms was set for its tiny
+configuration: pass a value measured at full width, as `chip_smoke.py`
+phase 13 does), no native build in the window or in a replica after its
+ready handshake, bit-identity; the scaling floor (1.3) is a note on a host
+without the cores, as in the JAX gate.
 
 The model-health leg (`--quality`) serves a mixed encode / decode /
 decode_si stream (`--quality_requests` a pass, round-robin over the
@@ -93,7 +120,10 @@ from dsin_tpu_torch.models.quantizer import centers_lookup
 from dsin_tpu_torch.ops import epilogue as epi_lib
 from dsin_tpu_torch.ops import sifinder as sifinder_lib
 from dsin_tpu_torch.runtime import config_path, resolve_device
-from dsin_tpu_torch.serve import CompressionService, ServeError, ServiceConfig
+from dsin_tpu_torch.serve import (BULK, INTERACTIVE, CompressionService,
+                                  DeadlineExceeded, FrontDoorRouter,
+                                  ServeError, ServiceConfig,
+                                  ServiceOverloaded, default_priority_classes)
 
 BATCH = 2
 FRONT_BLOCKS = 64
@@ -685,6 +715,363 @@ def gate_quality(section) -> list:
     return violations
 
 
+# -- the front-door legs ------------------------------------------------------
+
+def _parse_mix(spec: str) -> dict:
+    """'interactive:0.3 bulk:0.7' -> {class: share} (normalized)."""
+    mix = {}
+    for part in spec.split():
+        name, share = part.split(":")
+        mix[name] = float(share)
+    total = sum(mix.values())
+    if total <= 0 or any(v < 0 for v in mix.values()):
+        raise ValueError(f"bad --priority_mix {spec!r}")
+    return {k: v / total for k, v in mix.items()}
+
+
+def _mixed_class(i: int, int_share: float) -> str:
+    """Deterministic interactive/bulk interleave at the configured share
+    (the same stream every run, no RNG)."""
+    return (INTERACTIVE if int((i + 1) * int_share) > int(i * int_share)
+            else BULK)
+
+
+def _frontdoor_classes(args, max_queue):
+    return default_priority_classes(max_queue,
+                                    bulk_deadline_ms=args.bulk_deadline_ms)
+
+
+def frontdoor_config(args, classes, **over) -> ServiceConfig:
+    """The front-door legs' service: the legs' batching, `classes`, the
+    given overrides."""
+    kw = dict(ae_config=args.ae_config, pc_config=args.pc_config,
+              seed=args.seed, buckets=_parse_shapes(args.buckets),
+              max_batch=LEG_MAX_BATCH, max_wait_ms=args.max_wait_ms,
+              max_queue=LEG_MAX_QUEUE, entropy_workers=args.entropy_workers,
+              pipeline_depth=LEG_PIPELINE_DEPTH, priority_classes=classes,
+              device=args.device)
+    kw.update(over)
+    return ServiceConfig(**kw)
+
+
+def _frontdoor_images(args, seed_off: int):
+    rng = np.random.default_rng(args.seed + seed_off)
+    return [rng.integers(0, 255, (h, w, 3), dtype=np.uint8)
+            for h, w in _parse_shapes(args.shapes)]
+
+
+def overload_service(args, **over) -> CompressionService:
+    """The overload leg's started service: priority classes over a queue
+    of --frontdoor_queue, the thread entropy backend unless `over` names
+    another."""
+    return CompressionService(frontdoor_config(
+        args, _frontdoor_classes(args, args.frontdoor_queue),
+        max_queue=args.frontdoor_queue, **over)).start()
+
+
+def run_frontdoor_overload(args, images=None, svc=None, unloaded: int = 0,
+                           slo_factor: float = 3.0) -> dict:
+    """Open-loop OVERLOAD with a priority mix through ONE in-process service
+    wearing the full front door (priority classes + admission gate):
+    arrivals above capacity against a small queue, interactive and bulk
+    interleaved by --priority_mix. Per class: sheds at the door (gate and
+    queue bounds, both typed with the class), victims shed in the queue,
+    expiries, completions, and the latency quantiles the gate holds
+    interactive's p99 to. `images` (default: noise at --shapes) cycle.
+    `svc`: a started, warm `overload_service` the caller drains (default:
+    one built and drained here). With `unloaded` > 0 the SLO is measured
+    first: that many interactive encodes of images[0], one at a time,
+    and `slo_factor` times their median replaces --interactive_slo_ms
+    (they are served requests of the class: its histogram holds them)."""
+    own = svc is None
+    warm = None
+    if own:
+        svc = overload_service(args)
+    mix = _parse_mix(args.priority_mix)
+    int_share = mix.get(INTERACTIVE, 0.0)
+    if images is None:
+        images = _frontdoor_images(args, 0)
+    cores = round(_effective_cores(), 2)
+    per = {cls: {"submitted": 0, "shed_at_door": 0, "completed": 0,
+                 "shed_inflight": 0, "expired": 0, "failed": 0}
+           for cls in (INTERACTIVE, BULK)}
+    futures, unloaded_ms = [], []
+    slo = args.interactive_slo_ms
+    period = 1.0 / args.frontdoor_rate
+    try:
+        if own:
+            warm = svc.warmup()
+        builds = native_build.build_count()
+        for _ in range(unloaded):
+            t0 = time.monotonic()
+            svc.encode(images[0], timeout=600.0, priority=INTERACTIVE)
+            unloaded_ms.append((time.monotonic() - t0) * 1e3)
+        if unloaded:
+            slo = slo_factor * statistics.median(unloaded_ms)
+        t_start = time.monotonic()
+        for i in range(args.frontdoor_requests):
+            _pace(i, t_start, period)
+            cls = _mixed_class(i, int_share)
+            per[cls]["submitted"] += 1
+            try:
+                futures.append((cls, svc.submit_encode(
+                    images[i % len(images)], priority=cls)))
+            except ServeError:
+                per[cls]["shed_at_door"] += 1
+        for cls, f in futures:
+            try:
+                exc = f.exception(timeout=600.0)
+            except TimeoutError:
+                per[cls]["failed"] += 1     # a hung future
+                continue
+            if exc is None:
+                per[cls]["completed"] += 1
+            elif isinstance(exc, ServiceOverloaded):
+                per[cls]["shed_inflight"] += 1   # evicted as a victim
+            elif isinstance(exc, DeadlineExceeded):
+                per[cls]["expired"] += 1
+            else:
+                per[cls]["failed"] += 1
+        duration = time.monotonic() - t_start
+        steady_builds = native_build.build_count() - builds
+        snap = svc.metrics.snapshot()
+    finally:
+        if own:
+            svc.drain(timeout=600.0)
+    for cls in per:
+        lat = snap["histograms"].get(
+            f"serve_latency_ms_{cls}",
+            {"count": 0, "mean": 0.0, "p50": 0.0, "p99": 0.0})
+        per[cls]["latency_ms"] = {k: round(float(v), 3)
+                                  for k, v in lat.items()}
+        for key, name in (("shed_victims", "serve_shed_"),
+                          ("admitted", "serve_admitted_"),
+                          ("shed_admission", "serve_shed_admission_"),
+                          ("expired_counted", "serve_expired_")):
+            per[cls][key] = snap["counters"].get(f"{name}{cls}", 0)
+    shed_total = {cls: per[cls]["shed_at_door"] + per[cls]["shed_inflight"]
+                  for cls in per}
+    return {
+        "rate_rps": args.frontdoor_rate,
+        "requests": args.frontdoor_requests,
+        "queue": args.frontdoor_queue,
+        "backend": svc.config.entropy_backend,
+        "mix": mix,
+        "duration_s": round(duration, 3),
+        "per_class": per,
+        "interactive_slo_ms": round(slo, 3),
+        "unloaded_ms": [round(v, 3) for v in unloaded_ms],
+        "interactive_p99_ms": per[INTERACTIVE]["latency_ms"]["p99"],
+        "bulk_p99_ms": per[BULK]["latency_ms"]["p99"],
+        "sheds_bulk_first": (shed_total[BULK] > 0
+                             and shed_total[INTERACTIVE] == 0),
+        "shed_total": shed_total,
+        "effective_cores": cores,
+        "steady_builds": steady_builds,
+        "warmup": (None if warm is None else
+                   {k: (round(v, 4) if isinstance(v, float) else v)
+                    for k, v in warm.items()}),
+    }
+
+
+def replica_counts(router) -> dict:
+    """Per replica, from the info entries of its scrape (AggregatedMetrics):
+    native builds since its ready handshake (`serve_native_builds` less
+    the handshake's `builds_at_ready`) and its kernel launches
+    (`serve_kernel_launches`); None where the scrape failed."""
+    per = router.aggregate.snapshot()["info"]["per_replica"]
+    builds, launches = {}, {}
+    for rep in router._all_replicas():
+        info = per.get(str(rep.idx), {})
+        now = info.get("serve_native_builds")
+        ready = (rep.info or {}).get("builds_at_ready")
+        builds[str(rep.idx)] = (None if now is None or ready is None
+                                else now - ready)
+        launches[str(rep.idx)] = info.get("serve_kernel_launches")
+    return {"builds_after_ready": builds, "kernel_launches": launches}
+
+
+def run_frontdoor_replicas(args, images=None, probes=None, config_over=None,
+                           on_fleet=None) -> dict:
+    """The shared-nothing scale-out axis: the same saturating mixed-class
+    stream through the FrontDoorRouter at 1 and --replicas service
+    processes (thread backend; on the card they share it). Records
+    requests/s, routing per replica, reroutes, each replica's start s and
+    `builds_at_ready`, the builds after it and its kernel launches, and
+    the probe images' streams from every replica (each probe n times in a
+    row, so round robin puts one copy on each replica; the JAX leg's
+    order, the probes n times over, puts each probe on one replica when n
+    equals their number): equal within a fleet and across the runs,
+    `bit_identical`. `images` and `probes` default to noise at
+    --shapes; `config_over` overrides the replicas' ServiceConfig;
+    `on_fleet(n, router)`, when given, runs on each fleet after its
+    numbers are read and before its drain."""
+    classes = _frontdoor_classes(args, LEG_MAX_QUEUE)
+    cfg = frontdoor_config(args, classes, entropy_backend="thread",
+                           **(config_over or {}))
+    mix = _parse_mix(args.priority_mix)
+    int_share = mix.get(INTERACTIVE, 0.0)
+    if images is None:
+        images = _frontdoor_images(args, 2)
+    if probes is None:
+        probes = images[:2]
+    axis = sorted({1, max(1, int(args.replicas))})
+    out = {"axis": axis, "runs": {}, "bit_identical": None,
+           "host_cores": os.cpu_count(),
+           "affinity_cores": len(os.sched_getaffinity(0))}
+    frames = {}
+    for n in axis:
+        cores = round(_effective_cores(), 2)
+        t_start = time.monotonic()
+        router = FrontDoorRouter(cfg, replicas=n).start()
+        start_s = time.monotonic() - t_start
+        try:
+            futures, shed = [], 0
+            period = 1.0 / args.frontdoor_rate
+            t0 = time.monotonic()
+            for i in range(args.frontdoor_requests):
+                _pace(i, t0, period)
+                try:
+                    futures.append(router.submit_encode(
+                        images[i % len(images)],
+                        priority=_mixed_class(i, int_share)))
+                except ServeError:
+                    shed += 1
+            completed = failed = rejected_inflight = 0
+            for f in futures:
+                try:
+                    exc = f.exception(timeout=600.0)
+                except TimeoutError:
+                    failed += 1
+                    continue
+                if exc is None:
+                    completed += 1
+                elif isinstance(exc, ServeError):
+                    rejected_inflight += 1
+                else:
+                    failed += 1
+            duration = time.monotonic() - t0
+            # each probe n times in a row: round robin puts one copy on
+            # every replica
+            frames[n] = [[router.encode(im, timeout=600.0).stream
+                          for _ in range(n)] for im in probes]
+            counts = replica_counts(router)
+            snap = router.metrics.snapshot()["counters"]
+            infos = [dict(rep.info or {}) for rep in router._all_replicas()]
+            digest = router.params_digest
+            if on_fleet is not None:
+                on_fleet(n, router)
+        finally:
+            router.drain(timeout_s=600.0)
+        out["runs"][str(n)] = {
+            "throughput_rps": round(completed / duration, 3)
+            if duration > 0 else 0.0,
+            "duration_s": round(duration, 3),
+            "completed": completed,
+            "failed": failed,
+            "shed_at_door": shed,
+            "rejected_inflight": rejected_inflight,
+            "per_replica_routed": {
+                str(i): snap.get(f"serve_router_routed_r{i}", 0)
+                for i in range(n)},
+            "reroutes": snap.get("serve_router_reroutes", 0),
+            "replica_deaths": snap.get("serve_router_replica_deaths", 0),
+            "router_start_s": round(start_s, 3),
+            "replica_warmup_s": [round(i.get("warmup_s", 0.0), 3)
+                                 for i in infos],
+            "builds_at_ready": [i.get("builds_at_ready") for i in infos],
+            **counts,
+            "params_digest": digest,
+            "effective_cores": cores,
+        }
+    first = [per_probe[0] for per_probe in frames[axis[0]]]
+    same_within = all(len(set(per_probe)) == 1
+                      for fleet in frames.values() for per_probe in fleet)
+    same_across = all([per_probe[0] for per_probe in fleet] == first
+                      for fleet in frames.values())
+    out["bit_identical"] = bool(same_within and same_across)
+    out["probe_streams"] = [hashlib.sha256(f).hexdigest() for f in first]
+    base = out["runs"].get("1", {}).get("throughput_rps") or None
+    for entry in out["runs"].values():
+        entry["scaling_vs_1"] = (round(entry["throughput_rps"] / base, 3)
+                                 if base else None)
+    return out
+
+
+def gate_frontdoor(section, scaling_floor: float = 1.3) -> tuple:
+    """Violations of the front-door legs, and notes: the overload must shed
+    bulk FIRST and only bulk, complete an interactive request, leave no
+    untyped or hung future, hold interactive's p99 within its SLO and
+    build nothing in the window; the replica axis must be bit-identical,
+    fail no request and build nothing in a replica after its ready
+    handshake. As in the JAX gate, a p99 over the SLO is a note when the
+    host's effective cores read below 1.3 (a serial window), and a missed
+    scaling floor is a note. -> (violations, notes)."""
+    violations, notes = [], []
+    ov = section.get("overload")
+    if ov is not None:
+        if not ov["sheds_bulk_first"]:
+            violations.append(f"overload did not shed bulk first: shed "
+                              f"totals {ov['shed_total']} (bulk must shed, "
+                              f"interactive must not)")
+        if ov["per_class"][INTERACTIVE]["completed"] == 0:
+            violations.append("no interactive request completed under "
+                              "overload")
+        for cls, stats in ov["per_class"].items():
+            if stats["failed"]:
+                violations.append(f"overload: {stats['failed']} untyped/"
+                                  f"hung {cls} requests")
+        if ov["steady_builds"]:
+            violations.append(f"overload: {ov['steady_builds']} native "
+                              f"builds in the window")
+        p99, slo = ov["interactive_p99_ms"], ov["interactive_slo_ms"]
+        if not p99 or p99 > slo:
+            cores = ov.get("effective_cores")
+            msg = (f"interactive p99 {p99} ms exceeds its {slo} ms SLO "
+                   f"while bulk was shedding (effective cores {cores})")
+            if isinstance(cores, float) and cores < 1.3:
+                # the JAX gate's host-weather escape: in a serial window
+                # the classes share one core's worth of host, and the
+                # latency class's coding waits on bulk's for the CPU
+                notes.append(msg + ": a serial window, the SLO gate not "
+                             "applied")
+            else:
+                violations.append(msg)
+    reps = section.get("replicas")
+    if reps is not None:
+        if reps["bit_identical"] is not True:
+            violations.append("replica fleet emitted non-identical streams "
+                              "for the same probe images")
+        for n, entry in reps["runs"].items():
+            if entry["failed"]:
+                violations.append(f"replicas={n}: {entry['failed']} "
+                                  f"untyped/hung requests")
+            bad = {i: b for i, b in entry["builds_after_ready"].items()
+                   if b != 0}
+            if bad:
+                violations.append(f"replicas={n}: native builds after the "
+                                  f"ready handshake {bad}")
+        top = str(max(int(k) for k in reps["runs"]))
+        if top != "1":
+            entry = reps["runs"][top]
+            scaling = entry.get("scaling_vs_1")
+            if scaling is None or scaling < scaling_floor:
+                cores = entry.get("effective_cores")
+                host = reps.get("host_cores") or 0
+                needed = 2 * int(top)
+                msg = (f"{top}-replica scaling {scaling} below the "
+                       f"{scaling_floor} floor (host cores {host}, "
+                       f"effective cores {cores})")
+                if host < needed or (isinstance(cores, float)
+                                     and cores < 1.6):
+                    notes.append(msg + " on a host without ~"
+                                 f"{needed} cores of headroom")
+                else:
+                    notes.append(msg + ": each replica is a pipeline of "
+                                 "several threads sharing one card")
+    return violations, notes
+
+
 def host_line(device: str) -> dict:
     """The card (`nvidia-smi` name and power limit; None on the CPU) and the
     host's cores."""
@@ -727,17 +1114,36 @@ def main(argv=None) -> int:
                    help="service legs: the service's buckets")
     p.add_argument("--shapes", default="320,1224 300,1200 150,590",
                    help="service legs: request image shapes, cycled")
-    p.add_argument("--requests", type=int, default=200)
+    p.add_argument("--requests", type=int, default=100)
     p.add_argument("--rate", type=float, default=20.0,
                    help="service legs: encode submits a second")
     p.add_argument("--decode_samples", type=int, default=4)
     p.add_argument("--max_wait_ms", type=float, default=5.0)
     p.add_argument("--entropy_workers", type=int, default=4)
+    p.add_argument("--frontdoor_only", action="store_true",
+                   help="run the front-door legs (priority-mix overload "
+                        "and the replica axis)")
+    p.add_argument("--replicas", type=int, default=2,
+                   help="replica count of the front-door scale-out axis "
+                        "(spawned replicas behind FrontDoorRouter; the axis "
+                        "always includes 1)")
+    p.add_argument("--priority_mix", default="interactive:0.125 bulk:0.875",
+                   help="class shares of the front-door legs")
+    p.add_argument("--interactive_slo_ms", type=float, default=1500.0,
+                   help="p99 bound the overload gate holds interactive to")
+    p.add_argument("--bulk_deadline_ms", type=float, default=30000.0,
+                   help="bulk's default deadline in the front-door legs")
+    p.add_argument("--frontdoor_rate", type=float, default=120.0,
+                   help="the front-door legs' open-loop arrival rate")
+    p.add_argument("--frontdoor_requests", type=int, default=240)
+    p.add_argument("--frontdoor_queue", type=int, default=24,
+                   help="the overload leg's queue bound (small: the shed "
+                        "order needs a full queue)")
     args = p.parse_args(argv)
     if not (args.precision or args.entropy_backend or args.transport
-            or args.quality):
+            or args.quality or args.frontdoor_only):
         p.error("choose a leg: --precision, --entropy_backend both, "
-                "--transport both or --quality")
+                "--transport both, --quality or --frontdoor_only")
     resolve_device(args.device)
     report = {"config": {"ae_config": args.ae_config,
                          "pc_config": args.pc_config, "seed": args.seed},
@@ -775,6 +1181,21 @@ def main(argv=None) -> int:
             quality_repeats=args.quality_repeats)
         report["quality"] = run_quality_section(args)
         violations += gate_quality(report["quality"])
+    if args.frontdoor_only:
+        report["config"].update(
+            buckets=args.buckets, shapes=args.shapes,
+            frontdoor_rate_rps=args.frontdoor_rate,
+            frontdoor_requests=args.frontdoor_requests,
+            frontdoor_queue=args.frontdoor_queue,
+            priority_mix=args.priority_mix, replicas=args.replicas)
+        report["frontdoor"] = {
+            "overload": run_frontdoor_overload(args),
+            "replicas": run_frontdoor_replicas(args)}
+        fd_violations, notes = gate_frontdoor(report["frontdoor"])
+        report["frontdoor"]["notes"] = notes
+        for note in notes:
+            print(f"SERVE_BENCH_NOTE: {note}", file=sys.stderr)
+        violations += fd_violations
     tmp = args.out + ".tmp"
     with open(tmp, "w") as f:
         json.dump(report, f, indent=1)

@@ -72,7 +72,8 @@ def test_importing_the_port_loads_no_jax():
             "serve.buckets", "serve.metrics", "serve.trace",
             "serve.session", "serve.swap", "utils.retry",
             "utils.faults", "utils.profiling", "eval.rd_sweep",
-            "eval.synthetic_rd", "tools.rd_delta")} <= loaded, \
+            "eval.synthetic_rd", "tools.rd_delta", "serve.router",
+            "serve.protocol")} <= loaded, \
         proc.stdout
 
 

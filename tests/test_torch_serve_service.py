@@ -285,14 +285,34 @@ def test_drain_leaves_no_hung_future(world, streams):
 @pytest.mark.parametrize("over,item", [
     ({"devices": 2}, "11c"),
     ({"placement_weights": {BUCKET: 1.0}}, "11c"),
-    ({"rebalance_check_every_s": 1.0}, "11c"),
-    ({"priority_classes": ()}, "11d")])
+    ({"rebalance_check_every_s": 1.0}, "11c")])
 def test_refused_configurations_name_their_item(world, over, item):
     kw = dict(world["common"], device="cpu")
     kw.update(over)
     with pytest.raises(NotImplementedError,
                        match=f"ROADMAP Queue 1 item {item} "):
         CompressionService(ServiceConfig(**kw))
+
+
+def test_priority_classes_configuration_now_serves(world, streams):
+    """The configuration that named item 11d is no longer refused: an empty
+    class tuple meets the batcher's own ValueError, as in the JAX service,
+    and the shipped two classes serve the same streams as no classes."""
+    from dsin_tpu_torch.serve import BULK, default_priority_classes
+    kw = dict(world["common"], device="cpu")
+    with pytest.raises(ValueError, match="at least one priority class"):
+        CompressionService(ServiceConfig(priority_classes=(), **kw))
+    with pytest.raises(ValueError, match="at least one priority class"):
+        JaxService(JaxConfig(priority_classes=(), persistent_cache=False,
+                             **world["common"]))
+    svc = _service(world, priority_classes=default_priority_classes(8))
+    try:
+        got = [svc.encode(img, priority=BULK).stream
+               for img in world["images"]]
+        assert got == [r.stream for r in streams[0]]
+        assert svc.metrics.counter(f"serve_admitted_{BULK}").value == 3
+    finally:
+        assert svc.drain()
 
 
 @pytest.mark.parametrize("over,match", [

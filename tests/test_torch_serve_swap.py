@@ -502,7 +502,7 @@ def test_chaos_bench_batteries_smoke(tmp_path, battery, section):
     assert report[section]["steady_builds"] == 0
 
 
-@pytest.mark.parametrize("battery", ["--sessions_only", "--autoscale_only",
+@pytest.mark.parametrize("battery", ["--autoscale_only",
                                      "--transport_only", "--federation_only",
                                      None])
 def test_chaos_bench_refuses_unported_batteries(battery, capsys):
