@@ -203,8 +203,9 @@ Phases; any failure raises, prints no result and exits non-zero:
      front of each mode-3 encode and decode at every rung. Prints both RD
      points (bpp, PSNR, MS-SSIM, real bpp), ms per step per phase, test ms
      per image and the gates' deltas;
- 13. the front door at full width (phase 10's buckets, batches of 4, one
-     worker, every service on phase 11's checkpoint A): (a) one service on
+ 13. the front door, the fleet's control loop and the router of routers at
+     full width (phase 10's buckets, batches of 4, one worker, every
+     service on phase 11's checkpoint A): (a) one service on
      the process backend (pipe, depth 2) with
      default_priority_classes(8) and the admission gate; 4 unloaded
      interactive encodes at 320x1224 set the SLO at 3x their median, then
@@ -214,22 +215,42 @@ Phases; any failure raises, prints no result and exits non-zero:
      leave no untyped or hung future and build nothing (the serve bench's
      front-door gate); it then records the
      references below. (b) the FrontDoorRouter at 1 and 2 spawned replicas
-     sharing the card (thread backend, 4 entropy threads, pipe), 36
+     sharing the card (thread backend, 4 entropy threads, pipe, quality on,
+     the golden-canary prober every 600 s and at once after a commit or a
+     rollback), 36
      encodes at 3/s: every replica's probe streams equal each other's, the
      1-replica run's and the in-process service's, no build after a ready
      handshake; requests/s, scaling_vs_1 (the 1.3 floor printed, not
-     gated), routing, each replica's start. (d) on the 2-replica fleet
-     after its traffic (not a fresh one, to keep the script under 800 s):
-     swap_model(B) gives B's digest and equal streams on both,
-     rollback() A's streams; prepare s and commit round-trip ms per
-     replica. (c) then, on the same fleet: 2 sessions pinned to replicas 0
-     and 1, decode_si bit-equal to the in-process service's (K2 in each
-     child); replica 1 SIGKILLed with decode_si and an encode in flight:
-     typed SessionExpired, the encode rerouted and answered, replica 0's
+     gated), routing, each replica's start. Then on the 2-replica fleet
+     (never a fresh one): (d) swap_model(B) gives B's digest and equal
+     streams on both, rollback() A's streams; prepare s and commit
+     round-trip ms per replica. (e) the Autoscaler (min 1, max 2): idleness
+     drains one replica and its pinned session answers SessionExpired; a
+     burst of phase 13's mix scales the fleet back to two (a cold add:
+     decision -> admitted -> first answer s, builds_at_ready 0, no build
+     after ready); swap_model(B'', canary=False) (phase 11's bit-flipped
+     B, promising B's goldens) on both replicas, and the fleet-health
+     driver, seeing every replica's canary fail, rolls the fleet back to A
+     conditionally (s from the forced commit; A's streams after). (f) a
+     FederatedRouter over that fleet (m0) and a new 1-replica router (m1,
+     started beside (e)): one trace id holds the federation, router and
+     replica spans; a session pinned through the federation's door on each
+     member decodes (K2) bit-equal to the in-process service; a RolloutPlan
+     of two waves (m0, then m1) moves A -> B with the checkpoint replicated
+     into each member's root (per wave: distribute, swap, canary-gate and
+     soak s), a sweep of every version slot finds no torn version and B's
+     streams, and FederatedRouter.rollback() returns to A's streams. (g)
+     the ckpt_gc CLI (`tools/ckpt_gc.main`) against the federation's
+     aggregated /metrics (served on an ephemeral port) on a root holding A,
+     B, B'' and a directory without a manifest retires B'' alone. (c) then
+     a session pinned to each live replica, decode_si bit-equal to the
+     in-process service's (K2 in each child); the replica holding side 1's
+     session SIGKILLed with decode_si and an encode in flight: typed
+     SessionExpired, the encode rerouted and answered, the survivor's
      session serving, a new session opened, serve_router_session_orphans
-     >= 1, 1 live replica. K2's launches, read from each replica's
-     registry, equal its SI micro-batches + its warmup's 2 (+ 2 in a
-     prepare).
+     >= 2, 1 live replica. K2's launches, read from each replica's
+     registry (m1's too), equal its SI micro-batches (the prober's
+     included) + its warmup's 2 + 2 per prepare.
 Each phase's wall time is printed after the last phase.
 Kernel times are CUDA events around back-to-back runs that the host
 enqueued while the device slept, so they are device time.
@@ -2534,9 +2555,10 @@ class LifeLoad:
     """Phase 10's traffic on a loop from SERVE_CLIENTS client threads: each
     client encodes its images in turn and decodes each stream (decode_si
     against its owner's session at the large bucket, decode at the small
-    one). A session that a commit or rollback expired answers typed
-    SessionExpired: the client re-opens it and retries. Every request
-    is recorded as (kind, image, submit s, resolve s, result, error)."""
+    one), and stops after the image in hand once `finish` is called. A
+    session that a commit or rollback expired answers typed
+    SessionExpired: the client re-opens it and retries. Every request is
+    recorded as (kind, image, submit s, resolve s, result, error)."""
 
     def __init__(self, svc, traffic):
         import threading
@@ -2588,6 +2610,8 @@ class LifeLoad:
         big = SERVE_BUCKETS[-1]
         while not self.stop.is_set():
             for i in range(c, len(imgs), SERVE_CLIENTS):
+                if self.stop.is_set():
+                    break
                 for kind in ("encode", "decode"):
                     t0 = time.perf_counter()
                     try:
@@ -2611,6 +2635,10 @@ class LifeLoad:
         for t in self.threads:
             t.start()
         return self
+
+    def has(self, pred) -> bool:
+        with self._lock:
+            return any(pred(r) for r in self.records)
 
     def finish(self) -> list:
         self.stop.set()
@@ -2723,6 +2751,11 @@ def lifecycle_phase(seed: int, dev, ckpts=None) -> int:
         t_done = time.perf_counter()
         digest_b = snap["digest"]
         time.sleep(LIFE_LOAD_S)
+        # and on until an encode has answered with B' (checked below)
+        wait_for(lambda: load.has(
+            lambda r: r[0] == "encode" and r[4] is not None
+            and r[4].model_digest == digest_b), SERVE_TIMEOUT_S,
+            "an encode answered by B'")
         done = load.finish()
         t_end = time.perf_counter()
         hold_canary(svc)
@@ -2795,9 +2828,12 @@ def lifecycle_phase(seed: int, dev, ckpts=None) -> int:
             f"({probe['baseline']}); card {card}")
 
         # 4: the bit-flipped twin refused by the canary
-        path_b2 = os.path.join(root, "B2")
+        # beside A and B: phase 13 (e) force-commits it on a fleet
+        path_b2 = os.path.join(os.path.dirname(path_a), "B2")
+        extra_b2 = {**extra_b, "canary": goldens}
         ckpt_lib.save_checkpoint(path_b2, bitflip_params(state_b),
-                                 manifest_extra={**extra_b, "canary": goldens})
+                                 manifest_extra=extra_b2)
+        ckpts["B2"] = (path_b2, None, extra_b2)
         try:
             svc.prepare_swap(path_b2)
             raise AssertionError("B'' was staged")
@@ -3134,6 +3170,11 @@ FD_UNLOADED, FD_SLO_FACTOR = 4, 3.0
 FD_SI_JOBS = (0, 1, 2, 3)      # phase 10's 320x1224 images, 2 per side
 FD_PROBES = (0, 12)            # a 320x1224 and a 150x590 image
 FD_WARM_SI = len(SERVE_BUCKETS)    # K2 launches of a replica's warmup
+FD_CANARY_EVERY_S = 600.0      # the canary prober's period: longer than the
+#                                phase, so every probe is the one a commit or
+#                                a rollback wakes at once
+FD_BURST = 8                   # (e)'s burst: encodes kept outstanding
+FD_SOAK_S = 1.0                # (f)'s soak window per wave
 
 
 def fd_args(seed: int, dev, requests: int, rate: float):
@@ -3185,16 +3226,19 @@ def check_replica_k2(router, idx: int, extra: int, label: str) -> int:
         time.sleep(0.1)
 
 
-def fd_overload(seed: int, dev, traffic, card: str, ckpt: str) -> dict:
+def fd_overload(seed: int, dev, traffic, card: str, ckpts) -> dict:
     """(a): the overload through one in-process service (process backend,
     pipe, depth 2, default_priority_classes(8), admission) on checkpoint
-    `ckpt`, its SLO 3x the median of 4 unloaded interactive encodes; then
-    the references (b)-(c) hold the fleet to: the probe images' streams,
-    and each SI job's stream and decode_si image, one request at a time."""
+    A, its SLO 3x the median of 4 unloaded interactive encodes; then the
+    references (b)-(g) hold the fleet to: the probe images' streams, and
+    each SI job's stream and decode_si image, one request at a time. When
+    phase 11 did not run, B'' (B bit-flipped, promising B's goldens) is
+    published here for (e)."""
     from dsin_tpu_torch.serve import BULK, INTERACTIVE
+    from dsin_tpu_torch.tools.chaos_bench import bitflip_params
     sides, imgs, owner = traffic
     args = fd_args(seed, dev, *FD_OVERLOAD)
-    svc = leg_lib.overload_service(args, enable_si=True, ckpt=ckpt,
+    svc = leg_lib.overload_service(args, enable_si=True, ckpt=ckpts["A"][0],
                                    entropy_backend="process")
     try:
         warm = svc.warmup()
@@ -3219,6 +3263,16 @@ def fd_overload(seed: int, dev, traffic, card: str, ckpt: str) -> dict:
         si_images = {i: svc.decode_si(si_streams[i], sids[owner[i]],
                                       timeout=SERVE_TIMEOUT_S)
                      for i in FD_SI_JOBS}
+        if "B2" not in ckpts:
+            path_b, state_b, extra_b = ckpts["B"]
+            svc.prepare_swap(path_b, canary=False)
+            extra_b2 = {**extra_b,
+                        "canary": svc.canary_goldens(staged=True)}
+            svc.abort_swap()
+            path_b2 = os.path.join(os.path.dirname(path_b), "B2")
+            ckpt_lib.save_checkpoint(path_b2, bitflip_params(state_b),
+                                     manifest_extra=extra_b2)
+            ckpts["B2"] = (path_b2, None, extra_b2)
     finally:
         drain_checked(svc, [], "(a)")
     unl = sec["unloaded_ms"]
@@ -3248,20 +3302,21 @@ def fd_overload(seed: int, dev, traffic, card: str, ckpt: str) -> dict:
     return dict(probes=probes, si_streams=si_streams, si_images=si_images)
 
 
-def fd_sessions_and_death(router, ref, traffic, card: str) -> int:
-    """(c) on the 2-replica fleet, after (d): sessions pinned to each
-    replica, their decode_si bit-equal to the in-process service's;
-    replica 1 SIGKILLed with SI work and an encode in flight; -> K2's
-    launches read from the replicas (warms, (d)'s prepare and the SI
-    micro-batches)."""
+def fd_sessions_and_death(router, ref, traffic, card: str, k2s) -> None:
+    """(c) on the 2-replica fleet, after (d)-(g): a session pinned to each
+    live replica, their decode_si bit-equal to the in-process service's;
+    the replica holding side 1's session SIGKILLed with SI work and an
+    encode in flight; K2 read from the replicas before and after."""
     import signal
     from dsin_tpu_torch.serve import SessionExpired
     sides, imgs, owner = traffic
+    live = leg_lib.live_replicas(router)
     sids = [router.open_session(side, timeout=SERVE_TIMEOUT_S)
             for side in sides]
     pins = [router._sessions[sid] for sid in sids]
-    if pins != [0, 1]:
-        raise AssertionError(f"(c) sessions pinned to {pins}, not [0, 1]")
+    if sorted(pins) != live:
+        raise AssertionError(f"(c) sessions pinned to {pins}, live {live}")
+    keep, victim_idx = pins
 
     def si_equal(i, sid, label):
         got = router.decode_si(ref["si_streams"][i], sid,
@@ -3271,15 +3326,15 @@ def fd_sessions_and_death(router, ref, traffic, card: str) -> int:
                                  f"differs from the in-process service's")
 
     for i in FD_SI_JOBS:
-        si_equal(i, sids[owner[i]], f"replica {owner[i]}")
-    k2_1 = check_replica_k2(router, 1, FD_WARM_SI, "(c)")
-    check_replica_k2(router, 0, FD_WARM_SI, "(c)")
+        si_equal(i, sids[owner[i]], f"replica {pins[owner[i]]}")
+    k2_victim = k2s.check(router, "m0", victim_idx, "(c)")
+    k2s.check(router, "m0", keep, "(c)")
     reroutes0 = router.metrics.counter("serve_router_reroutes").value
-    job1 = [i for i in FD_SI_JOBS if owner[i] == 1][0]
+    job1 = si_job(owner, 1)
     si_futs = [router.submit_decode_si(ref["si_streams"][job1], sids[1])
                for _ in range(4)]
     enc_futs = [router.submit_encode(imgs[FD_PROBES[0]]) for _ in range(2)]
-    victim = router._replicas[1].proc
+    victim = router._replicas[victim_idx].proc
     t_kill = time.perf_counter()
     os.kill(victim.pid, signal.SIGKILL)
     si_exc = [f.exception(SERVE_TIMEOUT_S) for f in si_futs]
@@ -3301,49 +3356,76 @@ def fd_sessions_and_death(router, ref, traffic, card: str) -> int:
         raise AssertionError("(c) the dead replica's session still pinned")
     except SessionExpired:
         pass
-    job0 = [i for i in FD_SI_JOBS if owner[i] == 0][0]
-    si_equal(job0, sids[0], "replica 0 after the kill")
+    si_equal(si_job(owner, 0), sids[0], f"replica {keep} after the kill")
     sid_c = router.open_session(sides[1], timeout=SERVE_TIMEOUT_S)
     si_equal(job1, sid_c, "a session opened after the kill")
     orphans = router.metrics.counter("serve_router_session_orphans").value
     health = router.health()
-    if orphans < 1 or health["live"] != 1:
+    if orphans < 2 or health["live"] != 1:
         raise AssertionError(f"(c) orphans {orphans}, health {health}")
-    k2_0 = check_replica_k2(router, 0, FD_WARM_SI, "(c) after the kill")
+    k2_keep = k2s.check(router, "m0", keep, "(c) after the kill")
+    n_prep = {i: k2s.prepares[("m0", i)] for i in pins}
     log(f"  (c) 2 sessions pinned to replicas {pins}; "
         f"{len(FD_SI_JOBS)} decode_si bit-equal to the in-process service's "
-        f"(K2 in each child: replica 1 {k2_1} launches before the kill = "
-        f"SI micro-batches + {FD_WARM_SI} warms + {FD_WARM_SI} in (d)'s "
-        f"prepare); SIGKILL of replica 1 "
+        f"(K2 in each child: replica {victim_idx} {k2_victim} launches "
+        f"before the kill = SI micro-batches + {FD_WARM_SI} warms + "
+        f"{FD_WARM_SI} x {n_prep[victim_idx]} prepares); SIGKILL of replica "
+        f"{victim_idx} "
         f"(pid {victim.pid}) with {len(si_futs)} decode_si and an encode in "
         f"flight: {expired} SessionExpired, "
         f"{len(si_futs) - expired} answered before the kill, {reroutes} "
         f"encode rerouted and answered with the in-process stream, all "
-        f"resolved {resolved_s:.2f} s after the kill; replica 0's session "
-        f"serves, a new session opened on it; serve_router_session_orphans "
-        f"{orphans}; health {health['status']}, live {health['live']}; "
-        f"replica 0 K2 {k2_0} = its SI micro-batches + {FD_WARM_SI} warms + "
-        f"{FD_WARM_SI} in (d)'s prepare; card {card}")
-    return k2_0 + k2_1
+        f"resolved {resolved_s:.2f} s after the kill; replica {keep}'s "
+        f"session serves, a new session opened on it; "
+        f"serve_router_session_orphans {orphans} ((e)'s and this one); "
+        f"health {health['status']}, live {health['live']}; replica {keep} "
+        f"K2 {k2_keep} = its SI micro-batches + {FD_WARM_SI} warms + "
+        f"{FD_WARM_SI} x {n_prep[keep]} prepares; card {card}")
 
 
-def fd_replicas(seed: int, dev, traffic, ref, card: str, ckpts) -> int:
+def fd_replicas(seed: int, dev, traffic, ref, card: str, ckpts,
+                root: str) -> int:
     """(b) the replica axis at 1 and 2 spawned replicas (thread backend,
-    4 entropy threads, pipe) on checkpoint A, then on the 2-replica fleet
-    (d) the swap to B and back and (c) sessions and a death; -> K2's
-    launches read from the replicas."""
+    4 entropy threads, pipe, the canary prober every FD_CANARY_EVERY_S) on
+    checkpoint A, then on the 2-replica fleet (d) the swap to B and back,
+    (e) the Autoscaler, (f) the federation with m1 (started beside (e)),
+    (g) ckpt_gc and (c) sessions and a death; -> K2's launches read from
+    the replicas."""
+    from concurrent.futures import ThreadPoolExecutor as Pool
+    from dsin_tpu_torch.serve import FrontDoorRouter
     sides, imgs, owner = traffic
     args = fd_args(seed, dev, *FD_REPLICAS)
     k2 = {}
+    k2s = FleetK2()
 
     def on_fleet(n, router):
-        if n == 2:
-            fd_swap(router, traffic, card, ckpts)
-            k2["c"] = fd_sessions_and_death(router, ref, traffic, card)
+        if n == 1:
+            k2["b"] = check_replica_k2(router, 0, 0, "(b) N=1")
+            return
+        streams = fd_swap(router, traffic, card, ckpts, k2s)
+        with Pool(1) as pool:
+            # m1, the federation's second member, starts beside (e)
+            m1_start = pool.submit(lambda: FrontDoorRouter(
+                router.config, replicas=1).start())
+            try:
+                fd_autoscale(router, traffic, ref, card, ckpts, k2s)
+            finally:
+                m1 = m1_start.result()
+        try:
+            fed = fd_federation(router, m1, traffic, ref, card, ckpts, k2s,
+                                root, streams)
+            try:
+                fd_ckpt_gc(fed, ckpts, root, card)
+            finally:
+                fed.drain()
+        finally:
+            m1.drain(timeout_s=SERVE_TIMEOUT_S)
+        fd_sessions_and_death(router, ref, traffic, card, k2s)
 
     sec = leg_lib.run_frontdoor_replicas(
         args, images=imgs, probes=[imgs[i] for i in FD_PROBES],
-        config_over={"enable_si": True, "ckpt": ckpts["A"][0]},
+        config_over={"enable_si": True, "ckpt": ckpts["A"][0],
+                     "canary_every_s": FD_CANARY_EVERY_S},
         on_fleet=on_fleet)
     violations, notes = leg_lib.gate_frontdoor({"replicas": sec})
     if violations:
@@ -3353,16 +3435,11 @@ def fd_replicas(seed: int, dev, traffic, ref, card: str, ckpts) -> int:
     if sec["probe_streams"] != probe_sha:
         raise AssertionError("(b) the fleet's probe streams differ from the "
                              "in-process service's")
-    run1 = sec["runs"]["1"]
-    k2["b"] = sum(v["pearson_argmax_shared"]
-                  for v in run1["kernel_launches"].values())
-    if k2["b"] != FD_WARM_SI:
-        raise AssertionError(f"(b) N=1 replica K2 {k2['b']} != "
-                             f"{FD_WARM_SI} warms")
     for n, run in sec["runs"].items():
         log(f"  (b) N={n}: {run['throughput_rps']:.3f} requests/s "
             f"({run['completed']} of {FD_REPLICAS[0]} at "
-            f"{FD_REPLICAS[1]:g}/s in {run['duration_s']:.2f} s), "
+            f"{FD_REPLICAS[1]:g}/s in {run['duration_s']:.2f} s, the canary "
+            f"prober every {FD_CANARY_EVERY_S:g} s in each replica), "
             f"scaling_vs_1 {run['scaling_vs_1']}, routed per replica "
             f"{run['per_replica_routed']}, reroutes {run['reroutes']}, shed "
             f"at the door {run['shed_at_door']}; router start "
@@ -3371,17 +3448,20 @@ def fd_replicas(seed: int, dev, traffic, ref, card: str, ckpts) -> int:
             f"{run['builds_at_ready']}, builds after ready "
             f"{run['builds_after_ready']}")
     log(f"  (b) bit-identical: every replica's probe streams equal each "
-        f"other's, N=1's and the in-process service's; scaling floor 1.3 "
+        f"other's, N=1's and the in-process service's; N=1's K2 {k2['b']} = "
+        f"its SI micro-batches (the prober's) + {FD_WARM_SI} warms; scaling "
+        f"floor 1.3 "
         f"{'met' if not notes else 'not met (' + '; '.join(notes) + ')'}; "
         f"host cores {sec['host_cores']} (affinity "
         f"{sec['affinity_cores']}); card {card}")
-    return k2["b"] + k2["c"]
+    return k2["b"] + k2s.total()
 
 
-def fd_swap(router, traffic, card: str, ckpts) -> None:
+def fd_swap(router, traffic, card: str, ckpts, k2s) -> dict:
     """(d) on (b)'s 2-replica fleet, on checkpoint A since its start:
-    swap_model(B) then rollback(); each replica's K2 then = its 2 warms +
-    the prepare's 2."""
+    swap_model(B) then rollback(); each replica's K2 then = its SI
+    micro-batches + its 2 warms + the prepare's 2. -> B's digest and B's
+    and A's streams of the first probe image."""
     from dsin_tpu_torch.coding import loader as loader_lib
     img = traffic[1][FD_PROBES[0]]
     state_b = ckpts["B"][1]
@@ -3413,8 +3493,9 @@ def fd_swap(router, traffic, card: str, ckpts) -> None:
     if set(counts["builds_after_ready"].values()) != {0}:
         raise AssertionError(f"(d) builds after ready "
                              f"{counts['builds_after_ready']}")
+    k2s.prepared("m0", (0, 1))
     for i in (0, 1):
-        check_replica_k2(router, i, FD_WARM_SI, "(d)")
+        k2s.check(router, "m0", i, "(d)")
     prep = out["prepare"]
     log(f"  (d) the 2-replica fleet on A ({digest_a}): swap_model(B) -> "
         f"{out['digest']} (B's digest, both replicas' streams B's and "
@@ -3425,8 +3506,375 @@ def fd_swap(router, traffic, card: str, ckpts) -> None:
             f"{prep[i]['split']['warm_s']:.2f}), commit "
             f"{out['commit_ms'][i]:.2f} ms round trip"
             for i in sorted(prep))
-        + f"; K2 per replica {FD_WARM_SI} warms + {FD_WARM_SI} in the "
-        f"prepare's warm; no build after ready; card {card}")
+        + f"; K2 per replica its SI micro-batches + {FD_WARM_SI} warms + "
+        f"{FD_WARM_SI} in the prepare's warm; no build after ready; card "
+        f"{card}")
+    return {"digest_b": digest_b, "b": b.stream, "a": a.stream}
+
+
+def wait_for(pred, timeout_s: float, what: str) -> float:
+    """Poll `pred` every 10 ms; -> the seconds it took. Raises after
+    `timeout_s`."""
+    t0 = time.perf_counter()
+    while not pred():
+        if time.perf_counter() - t0 > timeout_s:
+            raise AssertionError(f"{what} did not happen within "
+                                 f"{timeout_s:g} s")
+        time.sleep(0.01)
+    return time.perf_counter() - t0
+
+
+class FleetK2:
+    """K2 launches read from each replica's own registry (`check_replica_k2`):
+    its SI micro-batches (the canary prober's included) + its warmup's
+    FD_WARM_SI + FD_WARM_SI for each prepare it ran (a staged bundle's warm;
+    no prepare here runs the prepare-time canary: B has no goldens and B''
+    is forced). The last reading of each replica is what it launched in
+    the run."""
+
+    def __init__(self):
+        self.prepares = collections.Counter()
+        self.last = {}
+
+    def prepared(self, fleet: str, idxs) -> None:
+        for i in idxs:
+            self.prepares[(fleet, i)] += 1
+
+    def check(self, router, fleet: str, idx: int, label: str) -> int:
+        k2 = check_replica_k2(router, idx,
+                              FD_WARM_SI * self.prepares[(fleet, idx)],
+                              label)
+        self.last[(fleet, idx)] = k2
+        return k2
+
+    def total(self) -> int:
+        return sum(self.last.values())
+
+
+def si_job(owner, k: int) -> int:
+    """The first of FD_SI_JOBS whose side image is side k."""
+    return [i for i in FD_SI_JOBS if owner[i] == k][0]
+
+
+def fd_autoscale(router, traffic, ref, card: str, ckpts, k2s) -> None:
+    """(e) the Autoscaler on (b)'s 2-replica fleet (min 1, max 2): idleness
+    drains it to one replica and orphans that replica's pinned session
+    typed; a burst of phase 13's mix scales it back to two (a cold add:
+    no template is stocked on this fleet); swap_model(B'', canary=False)
+    is forced on both replicas and the fleet-health driver, seeing every
+    replica's canary failing, rolls the fleet back to A conditionally."""
+    from dsin_tpu_torch.serve import INTERACTIVE, SessionExpired
+    from dsin_tpu_torch.serve.autoscale import (Autoscaler, AutoscaleConfig,
+                                                FleetHealthPolicy)
+    sides, imgs, owner = traffic
+    t_leg = time.perf_counter()
+    digest_a = router.params_digest
+    live = leg_lib.live_replicas(router)
+    sids = [router.open_session(side, timeout=SERVE_TIMEOUT_S)
+            for side in sides]
+    pins = [router._sessions[sid] for sid in sids]
+    if sorted(pins) != live:
+        raise AssertionError(f"(e) sessions pinned to {pins}, live {live}")
+    for i in live:
+        k2s.check(router, "m0", i, "(e) before the drain")
+    orphans0 = router.metrics.counter("serve_router_session_orphans").value
+    drainer = Autoscaler(router, AutoscaleConfig(
+        min_replicas=1, max_replicas=2, check_every_s=0.2,
+        outstanding_high=1e9, outstanding_low=2.0, idle_checks=3,
+        up_cooldown_s=0.0, down_cooldown_s=0.0)).start()
+    try:
+        drain_s = wait_for(lambda: router.health()["live"] == 1, 120.0,
+                           "(e) the idle drain")
+    finally:
+        drainer.stop()
+    drained = [i for i in live
+               if router.health()["replicas"][str(i)] == "drained"]
+    if len(drained) != 1:
+        raise AssertionError(f"(e) drained {drained}: {router.health()}")
+    k_lost = pins.index(drained[0])
+    try:
+        router.decode_si(ref["si_streams"][si_job(owner, k_lost)],
+                         sids[k_lost], timeout=SERVE_TIMEOUT_S)
+        raise AssertionError("(e) the drained replica's session served")
+    except SessionExpired:
+        pass
+    k_kept = 1 - k_lost
+    j = si_job(owner, k_kept)
+    got = router.decode_si(ref["si_streams"][j], sids[k_kept],
+                           timeout=SERVE_TIMEOUT_S)
+    if not np.array_equal(got, ref["si_images"][j]):
+        raise AssertionError("(e) the survivor's session lost its bytes")
+    router.close_session(sids[k_kept])
+    orphans = router.metrics.counter(
+        "serve_router_session_orphans").value - orphans0
+    if orphans != 1:
+        raise AssertionError(f"(e) {orphans} session orphans, not 1")
+
+    # 2: a burst scales the fleet back to two
+    int_share = leg_lib._parse_mix(FD_MIX).get(INTERACTIVE, 0.0)
+    scaler = Autoscaler(router, AutoscaleConfig(
+        min_replicas=1, max_replicas=2, check_every_s=0.2,
+        outstanding_high=4.0, outstanding_low=0.5, hysteresis_checks=2,
+        idle_checks=10**6, up_cooldown_s=0.0, down_cooldown_s=3600.0))
+    burst = []
+
+    def topped_up():
+        """Keep FD_BURST encodes outstanding until the scaler decides."""
+        if router._scaling:
+            return True
+        while sum(router.admission.outstanding().values()) < FD_BURST:
+            i = len(burst)
+            burst.append(router.submit_encode(
+                imgs[i % len(imgs)],
+                priority=leg_lib._mixed_class(i, int_share)))
+        return False
+
+    topped_up()
+    scaler.start()
+    try:
+        t0 = time.perf_counter()
+        wait_for(topped_up, 60.0, "(e) the scale-up decision")
+        t_decision = time.perf_counter()
+        wait_for(lambda: router.health()["live"] == 2, 300.0,
+                 "(e) the scale-up")
+        t_admitted = time.perf_counter()
+    finally:
+        scaler.stop()
+    new = [i for i in leg_lib.live_replicas(router) if i not in live][0]
+    # one interactive request per live replica: round robin (nothing else
+    # submits now) puts the k-th on at[(rr + k) % n]; the clock stops at
+    # the newcomer's first answer
+    with router._lock:     # the live replicas in `_pick`'s order
+        at = [rep.idx for rep in router._replicas
+              if router._state[rep.idx] == "live"]
+        rr0 = router._rr.get(INTERACTIVE, 0)
+    routed0 = router.metrics.counter(f"serve_router_routed_r{new}").value
+    firsts = [router.submit_encode(imgs[FD_PROBES[1]], priority=INTERACTIVE)
+              for _ in at]
+    k = [at[(rr0 + j) % len(at)] for j in range(len(at))].index(new)
+    served = {}
+    firsts[k].add_done_callback(
+        lambda f: served.setdefault("t", time.perf_counter()))
+    if [f.result(SERVE_TIMEOUT_S).stream for f in firsts] \
+            != [ref["probes"][1]] * len(at) or router.metrics.counter(
+                f"serve_router_routed_r{new}").value != routed0 + 1:
+        raise AssertionError("(e) the first answers after the admit")
+    t_served = served["t"]
+    counts = leg_lib.resolve_futures(burst)
+    if counts["failed"]:
+        raise AssertionError(f"(e) burst futures {counts}")
+    info = router._replicas[new].info
+    after = leg_lib.replica_counts(router)["builds_after_ready"]
+    if info.get("builds_at_ready") != 0 or any(
+            after[str(i)] != 0 for i in leg_lib.live_replicas(router)):
+        raise AssertionError(f"(e) builds_at_ready "
+                             f"{info.get('builds_at_ready')}, after {after}")
+    for i in leg_lib.live_replicas(router):
+        k2s.check(router, "m0", i, "(e) after the scale-up")
+    log(f"  (e) Autoscaler (min 1, max 2) on the 2-replica fleet: idle -> "
+        f"drained replica {drained[0]} {drain_s:.2f} s after arming; its "
+        f"pinned session answered SessionExpired, the survivor's decode_si "
+        f"bit-equal, serve_router_session_orphans +1; a burst keeping "
+        f"{FD_BURST} encodes outstanding ({len(burst)} sent, mix {FD_MIX}) "
+        f"-> decision "
+        f"{t_decision - t0:.2f} s after arming, replica {new} admitted "
+        f"{t_admitted - t_decision:.2f} s after the decision (cold: "
+        f"spawn + warmup {info.get('warmup_s', 0.0):.2f} s; no template "
+        f"on this fleet), its first answer {t_served - t_decision:.2f} s "
+        f"after the decision, A's stream; builds_at_ready "
+        f"{info.get('builds_at_ready')}, builds after ready {after}; burst "
+        f"{counts}; card {card}")
+
+    # 3-4: B'' forced on both replicas, the fleet-health driver rolls back
+    out = router.swap_model(ckpts["B2"][0], canary=False)
+    t_commit = time.perf_counter()
+    digest_bad = out["digest"]
+    k2s.prepared("m0", leg_lib.live_replicas(router))
+    health = Autoscaler(router, AutoscaleConfig(
+        min_replicas=2, max_replicas=2, check_every_s=0.25),
+        health_policy=FleetHealthPolicy(hysteresis_checks=2,
+                                        cooldown_s=60.0)).start()
+    try:
+        wait_for(lambda: router.params_digest == digest_a, 180.0,
+                 "(e) the fleet-health rollback")
+    finally:
+        health.stop()
+    rolled_s = time.perf_counter() - t_commit
+    fired = router.metrics.counter("serve_autoscale_fleet_rollbacks").value
+    digests = router.aggregate.snapshot()["info"]["replica_digests"]
+    pair = [router.encode(imgs[FD_PROBES[0]], timeout=SERVE_TIMEOUT_S).stream
+            for _ in range(2)]
+    if (fired != 1 or digest_bad == digest_a
+            or any(digests[str(i)] != digest_a
+                   for i in leg_lib.live_replicas(router))
+            or pair != [ref["probes"][0]] * 2):
+        raise AssertionError(f"(e) fleet rollback: {fired} fired, digests "
+                             f"{digests}, A's streams "
+                             f"{[p == ref['probes'][0] for p in pair]}")
+    for i in leg_lib.live_replicas(router):
+        k2s.check(router, "m0", i, "(e) after the fleet rollback")
+    log(f"  (e) swap_model(B'', canary=False) on replicas "
+        f"{leg_lib.live_replicas(router)}: {digest_bad}; the fleet-health "
+        f"driver (FleetHealthPolicy, 2 checks at 0.25 s; the prober probes "
+        f"at once after a commit) rolled the fleet back to A "
+        f"({digest_a}) conditionally {rolled_s:.2f} s after the forced "
+        f"commit (serve_autoscale_fleet_rollbacks {fired}); both replicas "
+        f"serve A's streams; (e) {time.perf_counter() - t_leg:.1f} s; "
+        f"card {card}")
+
+
+FED_SPANS = {"federation.dispatch", "router.dispatch", "queue.wait",
+             "batch.device", "batch.entropy"}
+
+
+def fd_federation(router, m1, traffic, ref, card: str, ckpts, k2s, root,
+                  streams):
+    """(f) a FederatedRouter over m0 (the phase's fleet) and m1 (a new
+    1-replica router): one trace id across the three tiers, an SI session
+    pinned through the federation's door on each member (decode_si bit-equal
+    to the in-process service), a two-wave rollout A -> B (m0, then m1;
+    checkpoints replicated into each member's root under the phase's temp
+    dir, the canary gate, a soak), the torn-version sweep, then
+    rollback() to A. -> the started federation ((g) reads its metrics)."""
+    from dsin_tpu_torch.serve.federation import (FederatedRouter, Member,
+                                                 RolloutPlan)
+    sides, imgs, owner = traffic
+    t_leg = time.perf_counter()
+    members = {"m0": router, "m1": m1}
+    fed = FederatedRouter(
+        [Member(n, r, ckpt_root=os.path.join(root, f"root_{n}"))
+         for n, r in members.items()],
+        poll_every_s=0.5, trace_sample_rate=1.0).start()
+    digest_a = router.params_digest
+    if fed.params_digest != digest_a or m1.params_digest != digest_a:
+        raise AssertionError(f"(f) digests {fed.params_digest} / "
+                             f"{m1.params_digest}, A {digest_a}")
+    fut = fed.submit_encode(imgs[FD_PROBES[1]])
+    if fut.result(SERVE_TIMEOUT_S).stream != ref["probes"][1]:
+        raise AssertionError("(f) the federation's stream is not A's")
+    tid = fut.trace.trace_id
+    seen = set()
+
+    def stitched():
+        seen.update(s["name"] for s in
+                    fed.traces.snapshot(trace_id=tid)["spans"])
+        return FED_SPANS <= seen
+
+    wait_for(stitched, 30.0, f"(f) trace {tid} across the three tiers")
+    pinned = {}
+    for k, side in enumerate(sides):
+        sid = fed.open_session(side, timeout=SERVE_TIMEOUT_S)
+        pinned[k] = fed._sessions[sid]
+        j = si_job(owner, k)
+        got = fed.decode_si(ref["si_streams"][j], sid,
+                            timeout=SERVE_TIMEOUT_S)
+        if not np.array_equal(got, ref["si_images"][j]):
+            raise AssertionError(f"(f) federated decode_si of image {j} on "
+                                 f"{pinned[k]} differs from the in-process "
+                                 f"service's")
+        fed.close_session(sid)
+    if sorted(pinned.values()) != ["m0", "m1"]:
+        raise AssertionError(f"(f) sessions pinned to {pinned}")
+    live0 = leg_lib.live_replicas(router)
+    plan = RolloutPlan(ckpt_dir=ckpts["B"][0], waves=(("m0",), ("m1",)),
+                       canary_timeout_s=180.0, poll_s=0.1, soak_s=FD_SOAK_S,
+                       swap_timeout_s=600.0, rollback_timeout_s=60.0)
+    t0 = time.perf_counter()
+    res = fed.rollout(plan)
+    promote_s = time.perf_counter() - t0
+    k2s.prepared("m0", live0)
+    k2s.prepared("m1", [0])
+    digest_b = res["digest"]
+    sweep = {f"{n}.router": r.params_digest for n, r in members.items()}
+    for n, r in members.items():
+        info = r.aggregate.snapshot()["info"]
+        for i in leg_lib.live_replicas(r):
+            sweep[f"{n}.r{i}"] = info["per_replica"][str(i)][
+                "serve_model_digest"]["digest"]
+    torn = sorted(k for k, d in sweep.items() if d != digest_b)
+    b_pair = [fed.encode(imgs[FD_PROBES[0]], timeout=SERVE_TIMEOUT_S).stream
+              for _ in range(2)]
+    staged = {n: bool(ckpt_lib.latest_checkpoint(
+        os.path.join(root, f"root_{n}"))) for n in members}
+    if (digest_b != streams["digest_b"] or torn or res["per_member"]
+            != {"m0": "committed", "m1": "committed"}
+            or b_pair != [streams["b"]] * 2 or not all(staged.values())):
+        raise AssertionError(f"(f) rollout {res}: digest {digest_b} (B's "
+                             f"{streams['digest_b']}), torn {torn}, B's "
+                             f"streams {[p == streams['b'] for p in b_pair]}"
+                             f", staged {staged}")
+    timing = {w: dict(t) for w, t in fed.rollout_timing.items()}
+    back = fed.rollback()
+    a_pair = [fed.encode(imgs[FD_PROBES[0]], timeout=SERVE_TIMEOUT_S).stream
+              for _ in range(2)]
+    if (back["digest"] != digest_a or back["rolled"] != ["m0", "m1"]
+            or a_pair != [ref["probes"][0]] * 2):
+        raise AssertionError(f"(f) rollback {back}")
+    for i in live0:
+        k2s.check(router, "m0", i, "(f)")
+    k2s.check(m1, "m1", 0, "(f) m1")
+    log(f"  (f) FederatedRouter over m0 (replicas {live0}) and m1 (1 "
+        f"replica): trace {tid} holds {sorted(seen)} (federation, router "
+        f"and replica tiers); a session pinned through the door on each of "
+        f"{sorted(pinned.values())}, decode_si bit-equal to the in-process "
+        f"service's (K2 in the member's replica)")
+    for w, t in sorted(timing.items()):
+        log(f"  (f) wave {w} ({plan.waves[w][0]}): distribute "
+            f"{t['distribute_s']:.2f} s, swap (prepare + commit) "
+            f"{t['swap_s']:.2f} s, canary gate {t['canary_gate_s']:.2f} s, "
+            f"soak {t['soak_s']:.2f} s")
+    log(f"  (f) rollout A -> B ({digest_b}) in two waves {promote_s:.2f} s, "
+        f"decision to convergence; sweep of {len(sweep)} version slots: no "
+        f"torn version; B's streams through the federation equal (d)'s; "
+        f"rollback() -> {back['digest']} (A), A's streams; (f) "
+        f"{time.perf_counter() - t_leg:.1f} s; card {card}")
+    return fed
+
+
+def fd_ckpt_gc(fed, ckpts, root: str, card: str) -> None:
+    """(g) the ckpt_gc CLI (`dsin_tpu_torch.tools.ckpt_gc.main`, in this
+    process) against the federation's aggregated /metrics (served on an
+    ephemeral port) on a root that holds copies of A, B and B'' (which no
+    member references any more) and a directory without a manifest: only
+    B'' is retired."""
+    import contextlib
+    import io
+    from dsin_tpu_torch.serve.metrics import MetricsServer
+    from dsin_tpu_torch.tools import ckpt_gc
+    t_leg = time.perf_counter()
+    gc_root = os.path.join(root, "gc")
+    os.makedirs(gc_root)
+    for name in ("A", "B", "B2"):
+        shutil.copytree(ckpts[name][0], os.path.join(gc_root, name))
+    os.makedirs(os.path.join(gc_root, "legacy"))
+    with open(os.path.join(gc_root, "legacy", "params.bin"), "wb") as f:
+        f.write(b"\0" * 64)
+    server = MetricsServer(fed.aggregate, fed.health).start()
+    out, err = io.StringIO(), io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = ckpt_gc.main([
+                "--root", gc_root, "--metrics_url",
+                f"http://127.0.0.1:{server.port}/metrics", "--keep_latest",
+                "0", "--timeout_s", "60"])
+    finally:
+        server.stop()
+    if rc != 0:
+        raise AssertionError(f"(g) ckpt_gc exited {rc}: "
+                             f"{err.getvalue()[-2000:]}")
+    report = json.loads(out.getvalue())
+    kept = {k["dir"]: k["why"] for k in report["kept"]}
+    left = sorted(os.listdir(gc_root))
+    if ([r["dir"] for r in report["retired"]] != ["B2"]
+            or kept != {"A": "referenced", "B": "referenced"}
+            or report["unidentified"] != ["legacy"]
+            or left != ["A", "B", "legacy"]):
+        raise AssertionError(f"(g) report {report}, left {left}")
+    log(f"  (g) ckpt_gc --metrics_url <the federation's /metrics> "
+        f"--keep_latest 0 on A, B, B'' and a directory without a manifest: "
+        f"retired B'' ({report['bytes_freed']} bytes), kept A and B "
+        f"(referenced: {len(report['referenced'])} digests), left 'legacy' "
+        f"alone; (g) {time.perf_counter() - t_leg:.1f} s; card {card}")
 
 
 def frontdoor_phase(seed: int, dev, ckpts=None) -> int:
@@ -3440,8 +3888,8 @@ def frontdoor_phase(seed: int, dev, ckpts=None) -> int:
     try:
         if ckpts is None:
             ckpts = life_checkpoints(seed, root)
-        ref = fd_overload(seed, dev, traffic, card, ckpts["A"][0])
-        k2 = fd_replicas(seed, dev, traffic, ref, card, ckpts)
+        ref = fd_overload(seed, dev, traffic, card, ckpts)
+        k2 = fd_replicas(seed, dev, traffic, ref, card, ckpts, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     if child_pids() != children0 or shm_segments() != shm0:
@@ -3468,6 +3916,7 @@ def main() -> int:
         t0 = time.perf_counter()
         out = fn()
         walls.append((len(walls) + 2, time.perf_counter() - t0))
+        log(f"  phase {walls[-1][0]}: {walls[-1][1]:.1f} s")
         return out
 
     log(f"[1/13] card: {card}; torch {torch.__version__}, CUDA "
@@ -3518,8 +3967,10 @@ def main() -> int:
     launches["pearson_argmax_shared"] += phase(
         "the front door at full width: priority classes and admission "
         "under overload, the FrontDoorRouter over 1 and 2 spawned replicas "
-        "on this card, session pinning and a replica's death, the fleet "
-        "swap and rollback", lambda: frontdoor_phase(args.seed, dev, life))
+        "on this card, the fleet swap and rollback, the Autoscaler and the "
+        "fleet-health rollback, a two-member FederatedRouter with a "
+        "two-wave rollout, ckpt_gc, session pinning and a replica's death",
+        lambda: frontdoor_phase(args.seed, dev, life))
     shutil.rmtree(life_root, ignore_errors=True)
     log("phase wall s: " + ", ".join(f"[{i}] {t:.1f}" for i, t in walls))
     kernels = [dict(name=name, route="cuda", source=SOURCES[name],

@@ -11,11 +11,15 @@ their own codec, their payloads on the pipe or in shared-memory lanes
 The model lifecycle (`swap.py`: hot swap, instant rollback, the
 post-commit watchdog), model-health telemetry (`quality.py`: coding gap,
 SI-match alarm, golden canary), priority classes with the admission gate,
-and the front door (`router.py`: `FrontDoorRouter` over spawned replica
+the front door (`router.py`: `FrontDoorRouter` over spawned replica
 services, session pinning, the fleet's two-phase swap, elastic add/drain,
-the fleet's metrics and traces; `protocol.py`, its wire tuples) are
-ported; what the JAX package's serve stack has beyond that (federation,
-autoscale, placement and devices > 1) is not: see ROADMAP Queue 1 item 11.
+the fleet's metrics and traces; `protocol.py`, its wire tuples), the
+fleet's control loop (`autoscale.py`: the pure scale and fleet-health
+policies, the `Autoscaler` and the `FederationHealthDriver`) and the router
+of routers (`federation.py`: `FederatedRouter` over member fleets, rollout
+waves, partition healing, the federated metrics and traces) are ported;
+what the JAX package's serve stack has beyond that (placement and
+devices > 1) is not: see ROADMAP Queue 1 item 11c.
 """
 
 from dsin_tpu_torch.serve.batcher import (BULK, INTERACTIVE,
@@ -25,9 +29,22 @@ from dsin_tpu_torch.serve.batcher import (BULK, INTERACTIVE,
                                           ServiceDraining, ServiceOverloaded,
                                           ServiceUnavailable, SessionKey,
                                           default_priority_classes)
+from dsin_tpu_torch.serve.autoscale import (Autoscaler, AutoscaleConfig,
+                                            AutoscaleError, AutoscalePolicy,
+                                            FederationHealthDriver,
+                                            FleetHealthPolicy,
+                                            FleetHealthSignals, ScaleSignals,
+                                            federation_health_from_snapshot,
+                                            health_from_snapshot,
+                                            signals_from_snapshot)
 from dsin_tpu_torch.serve.buckets import (BucketPolicy, NoBucketFits,
                                           crop_from_bucket, pad_to_bucket)
 from dsin_tpu_torch.serve.device import DeviceServer
+from dsin_tpu_torch.serve.federation import (FederatedMetrics,
+                                             FederatedRouter, FederatedTraces,
+                                             FederationError, Member,
+                                             MemberUnreachable,
+                                             RolloutAborted, RolloutPlan)
 from dsin_tpu_torch.serve.metrics import MetricsRegistry, MetricsServer
 from dsin_tpu_torch.serve.quality import (CanaryFailed, CanaryState,
                                           QualityMonitor)
@@ -51,18 +68,23 @@ from dsin_tpu_torch.utils.integrity import IntegrityError
 __all__ = [
     "BULK", "INTERACTIVE",
     "AdmissionController", "AggregatedMetrics", "AggregatedTraces",
+    "AutoscaleConfig", "AutoscaleError", "AutoscalePolicy", "Autoscaler",
     "BucketPolicy", "CanaryFailed", "CanaryState", "CompressionService",
     "ConditionalRollbackRefused", "DeadlineExceeded",
-    "DeviceServer", "EncodeResult", "FleetScaleError", "FleetSwapError",
-    "FlightRecorder", "FrontDoorRouter", "Future",
-    "IntegrityError", "ManifestMismatch", "MetricsRegistry",
-    "MetricsServer", "MicroBatcher", "ModelBundle", "NoBucketFits",
-    "PriorityClass", "QualityMonitor", "Request", "RollbackWatchdog",
+    "DeviceServer", "EncodeResult", "FederatedMetrics", "FederatedRouter",
+    "FederatedTraces", "FederationError", "FederationHealthDriver",
+    "FleetHealthPolicy", "FleetHealthSignals", "FleetScaleError",
+    "FleetSwapError", "FlightRecorder", "FrontDoorRouter", "Future",
+    "IntegrityError", "ManifestMismatch", "Member", "MemberUnreachable",
+    "MetricsRegistry", "MetricsServer", "MicroBatcher", "ModelBundle",
+    "NoBucketFits", "PriorityClass", "QualityMonitor", "Request",
+    "RollbackWatchdog", "RolloutAborted", "RolloutPlan", "ScaleSignals",
     "ServeError", "ServiceConfig",
     "ServiceDraining", "ServiceOverloaded", "ServiceUnavailable",
     "SessionEntry", "SessionError", "SessionExpired", "SessionKey",
     "SessionOverCapacity", "SessionStore", "StreamCorrupt",
     "SwapCoordinator", "SwapError", "TraceContext", "Tracer", "crop_from_bucket",
-    "default_priority_classes", "frame_stream", "pad_to_bucket",
-    "parse_stream",
+    "default_priority_classes", "federation_health_from_snapshot",
+    "frame_stream", "health_from_snapshot", "pad_to_bucket",
+    "parse_stream", "signals_from_snapshot",
 ]

@@ -52,6 +52,21 @@ def control_msg(op: str, rid: int, payload: Any) -> Tuple:
     return (op, rid, payload, None, None)
 
 
+def prepare_payload(ckpt_dir: str, canary: bool = True) -> Any:
+    """The `swap_prepare` payload: the checkpoint path (the JAX
+    package's payload), or with the prepare-time canary switched off
+    (the operator's override, `prepare_swap(..., canary=False)`) the pair
+    (path, False)."""
+    return ckpt_dir if canary else (ckpt_dir, False)
+
+
+def parse_prepare(payload: Any) -> Tuple[str, bool]:
+    """Invert `prepare_payload` -> (checkpoint path, canary)."""
+    if isinstance(payload, tuple):
+        return payload[0], bool(payload[1])
+    return payload, True
+
+
 def request_msg(op: str, rid: int, payload: Any,
                 priority: Optional[str], deadline_ms: Optional[float],
                 trace) -> Tuple:

@@ -315,7 +315,8 @@ def _replica_main(conn, config, replica_id: int, lanes=None) -> None:
         crosses the pipe like any response."""
         try:
             if op == "swap_prepare":
-                res = service.prepare_swap(payload)
+                ckpt, canary = protocol.parse_prepare(payload)
+                res = service.prepare_swap(ckpt, canary=canary)
             elif op == "swap_commit":
                 res = service.commit_swap(expect_digest=payload)
             elif op == "swap_abort":
@@ -1668,7 +1669,8 @@ class FrontDoorRouter:
         return results, errors
 
     def swap_model(self, ckpt_dir: str, prepare_timeout_s: float = 600.0,
-                   commit_timeout_s: float = 60.0) -> dict:
+                   commit_timeout_s: float = 60.0,
+                   canary: bool = True) -> dict:
         """Two-phase fleet hot swap. Prepare on every live replica
         (each loads + manifest-verifies + warms in the background of
         its own traffic and reports the digest it built); commit only
@@ -1679,7 +1681,9 @@ class FrontDoorRouter:
         FleetSwapError naming each replica's outcome. Only LIVE
         replicas participate: one that sits out a swap evicted is
         refused readmission while its digest disagrees with the
-        fleet's (`serve_router_digest_skew`) — re-swap or restart it."""
+        fleet's (`serve_router_digest_skew`) — re-swap or restart it.
+        `canary=False` is the service's operator override, sent to every
+        replica's prepare: no prepare-time golden canary."""
         assert self._started, "start() the router before swapping"
         with self._lock:
             if self._swapping:
@@ -1696,7 +1700,9 @@ class FrontDoorRouter:
             if not reps:
                 raise ServiceUnavailable("no live replica to swap")
             prepared, errors = self._broadcast(
-                reps, "swap_prepare", ckpt_dir, prepare_timeout_s)
+                reps, "swap_prepare",
+                protocol.prepare_payload(ckpt_dir, canary),
+                prepare_timeout_s)
             digests = {info["digest"] for info in prepared.values()}
             if errors or len(digests) != 1:
                 # abort EVERY replica, not just the ones that answered:

@@ -591,6 +591,11 @@ class CompressionService:
         self._canary_imgs = {}        # bucket -> (img, side), pinned
         self._canary_sids = {}        # bucket -> live canary session id
         self._canary_thread: Optional[threading.Thread] = None
+        # bumped by a commit, a rollback and the drain: the prober probes
+        # at once instead of waiting out its period; a bump made while a
+        # probe runs is seen when it ends, so no wake is lost
+        self._canary_cv = threading.Condition()
+        self._canary_gen = 0               # guarded-by: self._canary_cv
         # threads retiring the bundles commits displaced (wait_drained
         # joins them before the last bundles retire);
         # guarded-by: self._workers_lock
@@ -836,6 +841,7 @@ class CompressionService:
         t0 = time.monotonic()
         before = native_build.build_count()
         bundle = self._swap.current
+        spawning = self._spawn_children(bundle)
         self._warm_device(bundle)
         if self._entropy_pool is not None:
             # force every pool thread into existence and build its codec
@@ -850,7 +856,7 @@ class CompressionService:
                       for _ in range(self._entropy_workers)]:
                 f.result(timeout=120)
         if bundle.proc() is not None:
-            self._proc_warm = self._ping_children(bundle)
+            self._proc_warm = self._ping_children(bundle, spawning)
         builds = native_build.build_count() - before
         self._warmup_done = True
         self.metrics.gauge("serve_warmup_builds").set(builds)
@@ -858,13 +864,26 @@ class CompressionService:
         self._publish_launches()
         return {"builds": builds, "seconds": time.monotonic() - t0}
 
-    def _ping_children(self, bundle, timeout_s: float = 300.0) -> list:
-        """One `worker_ping` answer per pool child. The first submits spawn
-        every child at once; pings go out in rounds until each child has
-        answered one (its initializer done), so no child is still warming
-        when the first batch arrives. Raises TimeoutError when a child has
-        not answered within `timeout_s`."""
+    def _spawn_children(self, bundle) -> list:
+        """On the process backend, one `worker_ping` submit per pool child:
+        the submits spawn every child at once, so the children start while
+        the caller warms the device (`_ping_children` collects them)."""
+        if bundle.proc() is None:
+            return []
+        return [bundle.proc().submit(loader_lib.worker_ping, 0.2)
+                for _ in range(self._entropy_workers)]
+
+    def _ping_children(self, bundle, spawning=(),
+                       timeout_s: float = 300.0) -> list:
+        """One `worker_ping` answer per pool child, `spawning`'s first.
+        The first submits spawn every child at once; pings go out in
+        rounds until each child has answered one (its initializer done), so
+        no child is still warming when the first batch arrives. Raises
+        TimeoutError when a child has not answered within `timeout_s`."""
         pings = {}
+        for f in spawning:
+            ping = f.result(timeout=timeout_s)
+            pings.setdefault(ping["pid"], ping)
         deadline = time.monotonic() + timeout_s
         while len(pings) < self._entropy_workers:
             if time.monotonic() > deadline:
@@ -950,13 +969,14 @@ class CompressionService:
 
     def _warm_bundle(self, bundle: swap_lib.ModelBundle) -> dict:
         """The incoming bundle through every bucket's device functions and
-        its codec's schedules (`_warm_device`), then, on the process
-        backend, its children spawned, warmed and pinged."""
+        its codec's schedules (`_warm_device`), on the process backend while
+        its children spawn, then the children pinged."""
         t0 = time.monotonic()
+        spawning = self._spawn_children(bundle)
         self._warm_device(bundle)
         t1 = time.monotonic()
-        pings = (self._ping_children(bundle) if bundle.proc() is not None
-                 else [])
+        pings = (self._ping_children(bundle, spawning)
+                 if bundle.proc() is not None else [])
         return {"buckets": len(self.policy.buckets),
                 "proc_workers": len(pings),
                 "device_s": round(t1 - t0, 3),
@@ -980,6 +1000,7 @@ class CompressionService:
         snap = self._swap.snapshot()
         self.flight.record("swap_commit", digest=snap["digest"],
                            prev=snap["prev_digest"])
+        self._wake_canary()
         if self._watchdog is not None:
             errors, resolved = self._error_counters()
             self._watchdog.arm(time.monotonic(), snap["digest"],
@@ -1049,6 +1070,7 @@ class CompressionService:
             raise RuntimeError("start() before rollback()")
         for b in self._swap.rollback(expect_current=expect_current):
             b.retire()
+        self._wake_canary()
         if self._watchdog is not None:
             # a rollback (operator or watchdog) supersedes any pending
             # judgement: never judge a model that already left
@@ -1257,16 +1279,35 @@ class CompressionService:
             return self.decode_si(stream, sid, timeout=timeout)
 
     def _canary_loop(self) -> None:
-        """The prober thread: one run_canary per period once warmup ran.
-        Errors are counted, never fatal: the prober outlives everything
-        but the drain."""
-        while not self._draining.wait(self.config.canary_every_s):
+        """The prober thread: one run_canary per period once warmup ran,
+        and one at once after a commit or a rollback, so a model's first
+        verdict does not wait out a period and the verdict on the model
+        that left does not outlive it by one (port only: the JAX package's
+        prober waits its period). Errors are counted, never fatal: the
+        prober outlives everything but the drain."""
+        with self._canary_cv:
+            seen = self._canary_gen
+        while True:
+            with self._canary_cv:
+                self._canary_cv.wait_for(
+                    lambda: self._canary_gen != seen,
+                    timeout=self.config.canary_every_s)
+                seen = self._canary_gen
+            if self._draining.is_set():
+                return
             if not self._warmup_done:
                 continue
             try:
                 self.run_canary()
             except Exception:   # noqa: BLE001 — the prober must survive
                 self.metrics.counter("serve_canary_errors").inc()
+
+    def _wake_canary(self) -> None:
+        """Bump the prober's generation: it probes at once, or at the end
+        of the probe it is running."""
+        with self._canary_cv:
+            self._canary_gen += 1
+            self._canary_cv.notify_all()
 
     # -- drain ----------------------------------------------------------------
 
@@ -1283,6 +1324,7 @@ class CompressionService:
         if self._draining.is_set():
             return
         self._draining.set()
+        self._wake_canary()
 
         def _close():
             rejected = self._batcher.close()

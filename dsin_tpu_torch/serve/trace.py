@@ -1,10 +1,10 @@
 """Request tracing + crash flight recorder (a copy of the JAX package's
-`serve/trace.py`, less its federation span: the process entropy backend's
-tasks carry the sampled contexts to the child and back, `sampled_tuple`,
-and its coding span is `SPAN_ENTROPY_PROC`; the front door
-(`serve/router.py`) mints the context a replica honours, records
-`SPAN_ROUTER`, and stitches the fleet's rings with
-`merge_trace_snapshots`).
+`serve/trace.py`: the process entropy backend's tasks carry the sampled
+contexts to the child and back, `sampled_tuple`, and its coding span is
+`SPAN_ENTROPY_PROC`; the front door (`serve/router.py`) mints the context
+a replica honours, records `SPAN_ROUTER`, and stitches the fleet's rings
+with `merge_trace_snapshots`; the federation (`serve/federation.py`) mints
+one tier above and records `SPAN_FEDERATION`).
 
 * **Tracer** — span-based request tracing. A `TraceContext` (trace id +
   head sampling decision) is minted at admission (`service._submit`) and
@@ -55,6 +55,7 @@ SPAN_ENTROPY_PROC = "batch.entropy.proc"  # child-side coding (process backend)
 SPAN_SI_SEARCH = "batch.si_search"  # fused decode->siFinder->siNet executable
 SPAN_SESSION = "session.lookup"     # SI session store lookup at batch start
 SPAN_ROUTER = "router.dispatch"     # front-door send -> future resolution
+SPAN_FEDERATION = "federation.dispatch"  # federation hop -> member resolution
 SPAN_ERROR = "error"                # typed-error resolution (always recorded)
 
 

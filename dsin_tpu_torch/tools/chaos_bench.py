@@ -1,8 +1,10 @@
-"""Three batteries of the chaos bench (counterparts of the JAX package's
-`tools/chaos_bench.py` `run_hotswap` :407, `run_sessions` :867 and
-`run_degraded` :1158): the live model operations and the degraded model,
-each against one running `CompressionService`, and the side-information
-sessions, against services and a session-pinning `FrontDoorRouter`.
+"""Five batteries of the chaos bench (counterparts of the JAX package's
+`tools/chaos_bench.py` `run_hotswap` :407, `run_sessions` :867,
+`run_degraded` :1158, `run_autoscale` :1430 and `run_federation` :1984):
+the live model operations and the degraded model, each against one
+running `CompressionService`; the side-information sessions, against
+services and a session-pinning `FrontDoorRouter`; the elastic fleet and
+the federated fleet, against routers of real services on threads.
 
     python -m dsin_tpu_torch.tools.chaos_bench --smoke --hotswap_only \\
         --device cpu --out /tmp/h.json
@@ -10,6 +12,10 @@ sessions, against services and a session-pinning `FrontDoorRouter`.
         --device cpu --out /tmp/d.json
     python -m dsin_tpu_torch.tools.chaos_bench --smoke --sessions_only \\
         --device cpu --out /tmp/s.json [--spawn_replicas]
+    python -m dsin_tpu_torch.tools.chaos_bench --smoke --autoscale_only \\
+        --device cpu --out /tmp/a.json
+    python -m dsin_tpu_torch.tools.chaos_bench --smoke --federation_only \\
+        --device cpu --out /tmp/f.json [--members N]
 
 Hot-swap battery (`--hotswap_only`): a second model (another seed) is
 saved with a full manifest, then adopted by the running service through
@@ -53,8 +59,26 @@ a hard kill closes the pipe with work in flight), or with
 Invariants: no hung future, every error typed, no native build after
 warmup.
 
-Every other battery of the JAX bench is refused with an error that names
-ROADMAP Queue 1 item 11g. `--smoke` serves the tiny configuration (the
+Autoscale battery (`--autoscale_only`, replicas on threads with SI,
+quality and the canary prober every 0.15 s, the per-replica watchdog off):
+(1) burst load makes the `Autoscaler` scale the fleet from 1 to 2; (2) a
+bit-flipped twin promising the good model's goldens is force-committed
+fleet-wide (`swap_model(canary=False)`) and the fleet-health driver, seeing
+every replica's canary fail, rolls the fleet back conditionally; (3)
+idleness drains the fleet to 1 and the drained replica's pinned session
+answers `SessionExpired`; (4) the only live replica dies during a
+scale-up: no hung future, the newcomer admitted with the fleet's bytes.
+Federation battery (`--federation_only`, `--members` single-replica
+fleets, default 3): one trace id across the federation, router and replica
+spans; a staged two-wave rollout (checkpoints replicated into member
+roots); a bit-flipped model force-committed onto wave 0 and caught by the
+wave's canary gate; a member partitioned away mid-rollout, healed through
+the aborted-digest reconcile; a member's death with pinned sessions.
+Invariants in both: no hung future, every error typed, no torn version,
+no native build after the publishing, a non-empty flight dump.
+
+The transport battery and the main soak are refused with an error that
+names ROADMAP Queue 1 item 11g. `--smoke` serves the tiny configuration (the
 JAX bench's smoke configs) at seconds of CPU; without it the AE and PC
 configs are `--ae_config` / `--pc_config`. Like every entry point of the
 port it runs on the card unless `--device cpu` is given. Exits 1 on any
@@ -90,8 +114,8 @@ from dsin_tpu_torch.train import checkpoint as ckpt_lib
 from dsin_tpu_torch.utils import faults
 
 ROADMAP_CHAOS = ("ROADMAP Queue 1 item 11g (the rest of the chaos bench: "
-                 "the main soak, autoscale, transport and federation "
-                 "batteries)")
+                 "the main soak, the transport battery and the codec "
+                 "CLI's io.read hook)")
 
 #: the JAX bench's smoke configuration (its tools/serve_bench.py)
 SMOKE_AE_CFG = """
@@ -176,6 +200,19 @@ def await_all(futures, timeout_s: float):
             continue
         counts[classify(exc)] += 1
     return counts, hung
+
+
+def watchdog_rollbacks_since(service, before: int,
+                             timeout_s: float = 10.0) -> int:
+    """The watchdog's rollbacks since the count `before`. The watchdog
+    counts its rollback once `rollback()` has returned, after the pointer
+    flip a digest poll sees first: wait up to `timeout_s` for the count
+    to move before reading it."""
+    counter = service.metrics.counter("serve_watchdog_rollbacks")
+    deadline = time.monotonic() + timeout_s
+    while counter.value == before and time.monotonic() < deadline:
+        time.sleep(0.01)
+    return counter.value - before
 
 
 def bitflip_params(state: ckpt_lib.ModelState) -> ckpt_lib.ModelState:
@@ -383,8 +420,7 @@ def run_hotswap(args) -> dict:
                 fired = True
                 break
             time.sleep(0.02)
-    wd_rollbacks = service.metrics.counter(
-        "serve_watchdog_rollbacks").value - wd_before
+    wd_rollbacks = watchdog_rollbacks_since(service, wd_before)
     if not fired or wd_rollbacks < 1:
         violations.append(f"watchdog_rollback: the typed-error storm was "
                           f"not rolled back ({wd_rollbacks} watchdog "
@@ -426,6 +462,9 @@ class ThreadReplicas:
         self.threads = {}
         self.services = {}
         self.warmups = {}
+        #: False = every prepare skips its golden canary (the operator
+        #: override, whatever the router sends)
+        self.prepare_canary = True
 
     def launcher(self, config, idx, ctx):
         parent, child = multiprocessing.Pipe(duplex=True)
@@ -491,7 +530,9 @@ class ThreadReplicas:
             try:
                 if op in protocol.CONTROL_OPS:
                     if op == "swap_prepare":
-                        res = service.prepare_swap(payload)
+                        ckpt, canary = protocol.parse_prepare(payload)
+                        res = service.prepare_swap(
+                            ckpt, canary=canary and self.prepare_canary)
                     elif op == "swap_commit":
                         res = service.commit_swap(expect_digest=payload)
                     elif op == "swap_abort":
@@ -906,8 +947,7 @@ def run_degraded(args) -> dict:
             break
         time.sleep(0.02)
     rolled_s = time.monotonic() - t_commit
-    wd_rollbacks = service.metrics.counter(
-        "serve_watchdog_rollbacks").value - wd_before
+    wd_rollbacks = watchdog_rollbacks_since(service, wd_before)
     canary_failures = service.metrics.counter("serve_canary_failures").value
     if not fired or wd_rollbacks < 1:
         violations.append(f"degraded: the force-committed model was not "
@@ -950,6 +990,598 @@ def run_degraded(args) -> dict:
             "violations": violations}
 
 
+def fleet_config(args, buckets):
+    """The autoscale and federation batteries' replicas: SI on, quality
+    and the golden-canary prober on (every 0.15 s: the fleet-health and
+    wave gates read it), every request traced, the per-replica watchdog
+    OFF: these batteries hold the FLEET-level rollback, which must act
+    alone."""
+    return service_config(args, buckets, enable_si=True, session_max=8,
+                          canary_every_s=0.15, quality_gap_sample_rate=1.0,
+                          rollback_watchdog_window_s=None)
+
+
+def publish_bad_twin(args, service, buckets, tmpd: str, seed_off: int = 1):
+    """The canary publish flow on a warm `service`: a second model B is
+    saved, prepared, its goldens recorded and the prepare aborted; then
+    B's bit-flipped twin is saved PROMISING those goldens. -> (B's path,
+    the twin's path). Publishing runs before any steady-state count."""
+    state_b, extra = model_state(args, args.seed + seed_off, need_sinet=True)
+    extra = {**extra, "buckets": [list(b) for b in buckets]}
+    ckpt_b = os.path.join(tmpd, f"ckpt_b{seed_off}")
+    ckpt_lib.save_checkpoint(ckpt_b, state_b, manifest_extra=extra)
+    service.prepare_swap(ckpt_b, canary=False)
+    goldens = service.canary_goldens(staged=True)
+    service.abort_swap()
+    ckpt_bad = os.path.join(tmpd, f"ckpt_bad{seed_off}")
+    ckpt_lib.save_checkpoint(ckpt_bad, bitflip_params(state_b),
+                             manifest_extra={**extra, "canary": goldens})
+    return ckpt_b, ckpt_bad
+
+
+def flight_evidence(flight, violations: list, label: str) -> dict:
+    flight.flush(timeout=10.0)
+    meta = flight.meta()
+    last_events = 0
+    if meta["last_dump_path"]:
+        with open(meta["last_dump_path"]) as f:
+            last_events = sum(1 for _ in f) - 1
+    if meta["dumps"] < 1 or last_events < 1:
+        violations.append(f"{label} left no non-empty flight dump "
+                          f"({meta['dumps']} dumps, last had "
+                          f"{last_events} events)")
+    return {"dumps": meta["dumps"], "last_dump_events": last_events,
+            "last_dump_path": meta["last_dump_path"]}
+
+
+def run_autoscale(args) -> dict:
+    """The elastic-fleet battery (see the module docstring)."""
+    from dsin_tpu_torch.serve.autoscale import (Autoscaler, AutoscaleConfig,
+                                                FleetHealthPolicy)
+
+    buckets = [(16, 24), (32, 48)]
+    flight_dir = tempfile.mkdtemp(prefix="chaos_autoscale_flight_")
+    replicas = ThreadReplicas(lambda: fleet_config(args, buckets))
+    router = FrontDoorRouter(
+        fleet_config(args, buckets), replicas=1, launcher=replicas.launcher,
+        poll_every_s=0.2, flight_dir=flight_dir).start()
+    rng = np.random.default_rng(args.seed + 17)
+    img = rng.integers(0, 255, (*buckets[0], 3), dtype=np.uint8)
+    violations, scenarios = [], {}
+    t0 = time.monotonic()
+    digest_a = router.params_digest
+    a_stream = router.encode(img, timeout=args.timeout_s).stream
+
+    # -- (1) burst load scales the fleet up (the real control loop) -------
+    scaler = Autoscaler(router, AutoscaleConfig(
+        min_replicas=1, max_replicas=2, check_every_s=0.05,
+        outstanding_high=4.0, outstanding_low=0.5, shed_high=1,
+        hysteresis_checks=2, idle_checks=1000,   # this phase never drains
+        up_cooldown_s=0.5, down_cooldown_s=3600.0)).start()
+    futures = []
+    deadline = time.monotonic() + args.timeout_s
+    while router.health()["live"] < 2 and time.monotonic() < deadline:
+        try:
+            futures.append(router.submit_encode(img))
+        except ServeError:
+            pass                     # admission sheds are typed load
+        time.sleep(args.submit_gap_s)
+    scaler.stop()
+    scaled_to = router.health()["live"]
+    counts, hung = await_all(futures, args.timeout_s)
+    if scaled_to < 2:
+        violations.append("scale_up_burst: the autoscaler never scaled the "
+                          "fleet up under burst load")
+    if hung:
+        violations.append(f"scale_up_burst: {hung} hung futures")
+    if counts["untyped"]:
+        violations.append(f"scale_up_burst: {counts['untyped']} untyped "
+                          f"errors")
+    scenarios["scale_up_burst"] = {
+        "submitted": len(futures), "scaled_to": scaled_to,
+        "completed_ok": counts["ok"], "typed_errors": counts["typed"],
+        "untyped_errors": counts["untyped"], "hung_futures": hung,
+        "scale_ups": router.metrics.counter("serve_router_scale_ups").value,
+        "new_replica_warmup": replicas.warmups.get(1)}
+
+    # -- (2) a canary-failing model rolled back fleet-wide ----------------
+    tmpd = tempfile.mkdtemp(prefix="chaos_autoscale_")
+    _, ckpt_bad = publish_bad_twin(args, replicas.services[0], buckets, tmpd)
+    builds = native_build.build_count()
+    swap_info = router.swap_model(ckpt_bad, canary=False)
+    digest_bad = swap_info["digest"]
+    # the evidence is the canary roll-up carrying the signal, measured
+    # before the driver is armed
+    canary_seen = 0
+    deadline = time.monotonic() + args.timeout_s
+    while time.monotonic() < deadline:
+        q = router.aggregate.snapshot()["info"].get("quality", {})
+        canary_seen = max(canary_seen,
+                          len(q.get("replicas_canary_failing", [])))
+        if canary_seen >= 2:
+            break
+        time.sleep(0.1)
+    if canary_seen < 2:
+        violations.append(f"sick_model_fleet_rollback: the canary roll-up "
+                          f"never reported both replicas failing (saw "
+                          f"{canary_seen})")
+    # the fleet-health driver; its scale policy pinned shut (min = max =
+    # live): only the unanimous-canary verdict can act
+    health = Autoscaler(router, AutoscaleConfig(
+        min_replicas=2, max_replicas=2, check_every_s=0.1),
+        health_policy=FleetHealthPolicy(hysteresis_checks=2,
+                                        cooldown_s=10.0)).start()
+    t_arm = time.monotonic()
+    fired = False
+    deadline = time.monotonic() + args.timeout_s
+    while time.monotonic() < deadline:
+        if router.params_digest == digest_a:
+            fired = True
+            break
+        time.sleep(0.05)
+    rolled_s = time.monotonic() - t_arm
+    health.stop()
+    fleet_rollbacks = router.metrics.counter(
+        "serve_autoscale_fleet_rollbacks").value
+    per_replica = {str(i): s.model_digest
+                   for i, s in replicas.services.items()}
+    if not fired or fleet_rollbacks < 1:
+        violations.append(f"sick_model_fleet_rollback: the canary roll-up "
+                          f"did not drive a fleet rollback "
+                          f"({fleet_rollbacks} fleet rollbacks, router "
+                          f"digest {router.params_digest})")
+    if any(d != digest_a for d in per_replica.values()):
+        violations.append(f"sick_model_fleet_rollback: the fleet did not "
+                          f"converge on the good model: {per_replica}")
+    post = router.encode(img, timeout=args.timeout_s)
+    if post.stream != a_stream:
+        violations.append("sick_model_fleet_rollback: good-model "
+                          "bit-identity lost after the rollback")
+    scenarios["sick_model_fleet_rollback"] = {
+        "digest_a": digest_a, "digest_bad": digest_bad, "fired": fired,
+        "seconds_to_rollback": round(rolled_s, 3),
+        "fleet_rollbacks": fleet_rollbacks,
+        "canary_failing_seen": canary_seen,
+        "digest_after": router.params_digest,
+        "per_replica_digests": per_replica,
+        "bit_identical_after": post.stream == a_stream}
+
+    # -- (3) idleness drains the fleet; pinned sessions orphan typed ------
+    sids = [router.open_session(img, timeout=args.timeout_s)
+            for _ in range(2)]
+    with router._lock:
+        pin_of = {sid: router._sessions[sid] for sid in sids}
+    orphans0 = router.metrics.counter("serve_router_session_orphans").value
+    drainer = Autoscaler(router, AutoscaleConfig(
+        min_replicas=1, max_replicas=2, check_every_s=0.05,
+        outstanding_high=1e9,              # this phase never scales up
+        outstanding_low=2.0, idle_checks=3,
+        up_cooldown_s=0.0, down_cooldown_s=0.0)).start()
+    deadline = time.monotonic() + args.timeout_s
+    while router.health()["live"] > 1 and time.monotonic() < deadline:
+        time.sleep(0.05)
+    drainer.stop()
+    states = router.health()["replicas"]
+    drained = [int(i) for i, s in states.items() if s == "drained"]
+    if router.health()["live"] != 1 or not drained:
+        violations.append(f"drain_down_idle: the fleet did not drain to 1 "
+                          f"({states})")
+    orphans = router.metrics.counter(
+        "serve_router_session_orphans").value - orphans0
+    orphaned_typed = survivor_ok = None
+    stream = router.encode(img, timeout=args.timeout_s).stream
+    for sid in sids:
+        try:
+            router.decode_si(stream, sid, timeout=args.timeout_s)
+            ok = True
+        except SessionExpired:
+            ok = "expired"
+        except Exception:  # noqa: BLE001 — a wrong type is a violation
+            ok = False
+        if pin_of[sid] in drained:
+            orphaned_typed = ok == "expired"
+        else:
+            survivor_ok = ok is True
+    if orphaned_typed is False:
+        violations.append("drain_down_idle: the drained replica's pinned "
+                          "session did not expire TYPED")
+    if survivor_ok is False:
+        violations.append("drain_down_idle: the survivor's pinned session "
+                          "stopped serving")
+    if orphaned_typed and orphans < 1:
+        violations.append("drain_down_idle: a session was orphaned without "
+                          "serve_router_session_orphans accounting")
+    scenarios["drain_down_idle"] = {
+        "drained_to": router.health()["live"], "drained_replicas": drained,
+        "scale_downs": router.metrics.counter(
+            "serve_router_scale_downs").value,
+        "session_orphans": orphans,
+        "orphaned_session_expired_typed": orphaned_typed,
+        "survivor_session_ok": survivor_ok}
+    steady_builds = native_build.build_count() - builds
+    if steady_builds:
+        violations.append(f"autoscale battery: {steady_builds} native "
+                          f"builds across swap, rollback and drain")
+
+    # -- (4) the only live replica dies DURING a scale-up -----------------
+    live_idx = [int(i) for i, s in router.health()["replicas"].items()
+                if s == "live"][0]
+    futures = []
+    for _ in range(4):
+        try:
+            futures.append(router.submit_encode(img))
+        except ServeError:
+            pass
+    adder = {}
+    t = threading.Thread(target=lambda: adder.update(
+        info=router.add_replica()), name="chaos-scaleup")
+    t.start()
+    time.sleep(0.05)                  # the newcomer is building / warming
+    replicas.kill(router, live_idx)   # ... and the only live replica dies
+    t.join(args.timeout_s)
+    admitted = not t.is_alive() and "info" in adder
+    counts, hung = await_all(futures, args.timeout_s)
+    if not admitted:
+        violations.append("death_during_scale_up: add_replica did not "
+                          "complete after the fleet died under it")
+    if hung:
+        violations.append(f"death_during_scale_up: {hung} hung futures")
+    if counts["untyped"]:
+        violations.append(f"death_during_scale_up: {counts['untyped']} "
+                          f"untyped errors")
+    post_admit_builds = None
+    if admitted:
+        tail0 = native_build.build_count()
+        tail = [router.encode(img, timeout=args.timeout_s)
+                for _ in range(3)]
+        post_admit_builds = native_build.build_count() - tail0
+        if post_admit_builds:
+            violations.append(f"death_during_scale_up: {post_admit_builds} "
+                              f"native builds after the admit")
+        if any(res.stream != a_stream for res in tail):
+            violations.append("death_during_scale_up: the admitted "
+                              "replica's streams are not the fleet's")
+    scenarios["death_during_scale_up"] = {
+        "admitted": admitted,
+        "new_replica": adder.get("info", {}).get("replica"),
+        "typed_errors": counts["typed"], "untyped_errors": counts["untyped"],
+        "hung_futures": hung,
+        "replica_deaths": router.metrics.counter(
+            "serve_router_replica_deaths").value,
+        "post_admit_builds": post_admit_builds}
+    flight = flight_evidence(router.flight, violations, "autoscale battery")
+    counters = router.metrics.snapshot()["counters"]
+    router.drain(timeout_s=60)
+    return {"scenarios": scenarios,
+            "autoscale_counters": {k: v for k, v in counters.items()
+                                   if "scale" in k or "rollback" in k},
+            "flight_recorder": flight, "steady_builds": steady_builds,
+            "duration_s": round(time.monotonic() - t0, 3),
+            "violations": violations}
+
+
+def run_federation(args) -> dict:
+    """The federated fleet battery (see the module docstring)."""
+    from dsin_tpu_torch.serve.federation import (FederatedRouter, Member,
+                                                 RolloutAborted,
+                                                 RolloutPlan)
+
+    buckets = [(16, 24), (32, 48)]
+    flight_dir = tempfile.mkdtemp(prefix="chaos_federation_flight_")
+    tmpd = tempfile.mkdtemp(prefix="chaos_federation_")
+    names = tuple(f"m{i}" for i in range(args.members))
+    fleets, routers, member_of = {}, {}, {}
+    for name in names:
+        fleet = ThreadReplicas(lambda: fleet_config(args, buckets))
+        fleets[name] = fleet
+        routers[name] = FrontDoorRouter(
+            fleet_config(args, buckets), replicas=1,
+            launcher=fleet.launcher, poll_every_s=0.2).start()
+        # every member but m0 stages checkpoints into a root of its own
+        # (the replicate_checkpoint path); m0 swaps from the shared dir
+        member_of[name] = Member(
+            name, routers[name], control_timeout_s=args.timeout_s,
+            ckpt_root=(os.path.join(tmpd, f"root_{name}")
+                       if name != "m0" else None))
+    fed = FederatedRouter([member_of[n] for n in names], poll_every_s=0.1,
+                          evict_after=2, trace_sample_rate=1.0,
+                          flight_dir=flight_dir).start()
+    rest = names[1:]
+    rng = np.random.default_rng(args.seed + 23)
+    img = rng.integers(0, 255, (*buckets[0], 3), dtype=np.uint8)
+    violations, scenarios = [], {}
+    t0 = time.monotonic()
+    digest_a = fed.params_digest
+    a_stream = fed.encode(img, timeout=args.timeout_s).stream
+    if any(routers[n].encode(img, timeout=args.timeout_s).stream != a_stream
+           for n in names):
+        violations.append("setup: members are not bit-identical on the "
+                          "seed model")
+
+    def sweep():
+        """Every version slot across both tiers: a committed federation
+        shows ONE digest in every router and every replica service."""
+        return {n: {"router": routers[n].params_digest,
+                    "replica": fleets[n].services[0].model_digest}
+                for n in names}
+
+    def torn(expected, slots):
+        return sorted(f"{n}.{slot}={d!r}" for n, per in slots.items()
+                      for slot, d in per.items() if d != expected)
+
+    # publishing runs before the steady-state count
+    ckpt_b, ckpt_bad = publish_bad_twin(args, fleets["m0"].services[0],
+                                        buckets, tmpd)
+    state_c, extra_c = model_state(args, args.seed + 2, need_sinet=True)
+    ckpt_c = os.path.join(tmpd, "ckpt_c")
+    ckpt_lib.save_checkpoint(ckpt_c, state_c, manifest_extra={
+        **extra_c, "buckets": [list(b) for b in buckets]})
+    builds = native_build.build_count()
+
+    # -- (1) one trace id stitched across both router tiers ---------------
+    fut = fed.submit_encode(img)
+    fut.result(args.timeout_s)
+    tid = fut.trace.trace_id if fut.trace else None
+    need = {"federation.dispatch", "router.dispatch", "queue.wait",
+            "batch.device", "batch.entropy"}
+    names_seen, merged = set(), {"members_scraped": 0}
+    deadline = time.monotonic() + 10.0
+    while time.monotonic() < deadline:
+        merged = fed.traces.snapshot(trace_id=tid)
+        names_seen = {s["name"] for s in merged["spans"]}
+        if need <= names_seen:
+            break
+        time.sleep(0.05)
+    missing = sorted(need - names_seen)
+    if tid is None or missing:
+        violations.append(f"federation_trace_stitch: trace {tid} is missing "
+                          f"spans {missing} (got {sorted(names_seen)})")
+    scenarios["federation_trace_stitch"] = {
+        "trace_id": tid, "span_names": sorted(names_seen),
+        "stitched": not missing,
+        "members_scraped": merged["members_scraped"]}
+
+    def plan(ckpt, **kw):
+        return RolloutPlan(ckpt_dir=ckpt, waves=(("m0",), rest),
+                           canary_timeout_s=args.timeout_s, poll_s=0.05,
+                           swap_timeout_s=args.timeout_s,
+                           rollback_timeout_s=args.timeout_s, **kw)
+
+    # -- (2) the good model promotes wave by wave -------------------------
+    res_b = fed.rollout(plan(ckpt_b, soak_s=0.3))
+    digest_b = res_b["digest"]
+    slots = sweep()
+    torn_b = torn(digest_b, slots)
+    b_stream = fed.encode(img, timeout=args.timeout_s).stream
+    same = all(routers[n].encode(img, timeout=args.timeout_s).stream
+               == b_stream for n in names)
+    staged = {n: bool(ckpt_lib.latest_checkpoint(member_of[n].ckpt_root))
+              for n in rest}
+    if digest_b == digest_a:
+        violations.append("staged_rollout: the promotion did not change the "
+                          "federation's digest")
+    if torn_b:
+        violations.append(f"staged_rollout: torn versions after the full "
+                          f"promotion: {torn_b}")
+    if not same:
+        violations.append("staged_rollout: members are not bit-identical "
+                          "on the promoted model")
+    if not all(staged.values()):
+        violations.append(f"staged_rollout: replicate_checkpoint left no "
+                          f"checkpoint in member roots ({staged})")
+    scenarios["staged_rollout"] = {
+        "digest_a": digest_a, "digest_b": digest_b, "waves": res_b["waves"],
+        "version_sweep": slots, "torn_versions": torn_b,
+        "distributed_roots_staged": staged, "bit_identical_members": same,
+        "rollout_waves": fed.metrics.counter(
+            "federation_rollout_waves").value}
+
+    # -- (3) a bit-flipped model force-committed onto wave 0: the wave's
+    # canary gate catches it through the serve path, the wave rolls back
+    fleets["m0"].prepare_canary = False
+    aborted_bad = None
+    try:
+        fed.rollout(plan(ckpt_bad, soak_s=0.0))
+    except RolloutAborted as e:
+        aborted_bad = e
+    finally:
+        fleets["m0"].prepare_canary = True
+    slots = sweep()
+    torn_bad = torn(digest_b, slots)
+    post = fed.encode(img, timeout=args.timeout_s).stream
+    if aborted_bad is None:
+        violations.append("wave_canary_failure: the bad model promoted: the "
+                          "wave canary gate never fired")
+    elif aborted_bad.wave != 0 or "canary" not in aborted_bad.reason:
+        violations.append(f"wave_canary_failure: aborted for the wrong "
+                          f"reason (wave {aborted_bad.wave}: "
+                          f"{aborted_bad.reason})")
+    if torn_bad:
+        violations.append(f"wave_canary_failure: torn versions after the "
+                          f"abort: {torn_bad}")
+    if post != b_stream:
+        violations.append("wave_canary_failure: good-model bit-identity "
+                          "lost after the wave rollback")
+    scenarios["wave_canary_failure"] = {
+        "aborted_typed": aborted_bad is not None,
+        "abort_wave": getattr(aborted_bad, "wave", None),
+        "abort_reason": getattr(aborted_bad, "reason", None),
+        "wave0_outcome": (aborted_bad.per_wave.get(0, {}).get("m0")
+                          if aborted_bad else None),
+        "version_sweep": slots, "torn_versions": torn_bad,
+        "bit_identical_after": post == b_stream,
+        "rollout_aborts": fed.metrics.counter(
+            "federation_rollout_aborts").value,
+        "wave_rollbacks": fed.metrics.counter(
+            "federation_rollout_wave_rollbacks").value}
+
+    # -- (4) a member partitioned away mid-rollout, healed through the
+    # aborted-digest reconcile --------------------------------------------
+    victim = rest[0]
+
+    def ambush():
+        # partition the victim the moment wave 0 commits (m0's digest
+        # moves): the rollout is mid-flight, wave 1 not yet started
+        end = time.monotonic() + args.timeout_s
+        while time.monotonic() < end:
+            if routers["m0"].params_digest not in (None, digest_b):
+                member_of[victim].partition()
+                return
+            time.sleep(0.005)
+
+    amb = threading.Thread(target=ambush, name="chaos-fed-ambush")
+    amb.start()
+    aborted_c = None
+    try:
+        fed.rollout(plan(ckpt_c, soak_s=1.0, rollback_prior_waves=True))
+    except RolloutAborted as e:
+        aborted_c = e
+    amb.join(args.timeout_s)
+    if aborted_c is None:
+        violations.append("partition_mid_rollout: the rollout PROMOTED "
+                          "across a partitioned member")
+    elif aborted_c.wave != 1:
+        violations.append(f"partition_mid_rollout: aborted at wave "
+                          f"{aborted_c.wave}, not at the partitioned wave "
+                          f"({aborted_c.reason})")
+    futures = []
+    for _ in range(8):
+        try:
+            futures.append(fed.submit_encode(img))
+        except ServeError:
+            pass
+    counts, hung = await_all(futures, args.timeout_s)
+    survivor_stream = fed.encode(img, timeout=args.timeout_s).stream
+    if hung:
+        violations.append(f"partition_mid_rollout: {hung} hung futures "
+                          f"during the partition")
+    if counts["untyped"]:
+        violations.append(f"partition_mid_rollout: {counts['untyped']} "
+                          f"untyped errors")
+    if survivor_stream != b_stream:
+        violations.append("partition_mid_rollout: survivors lost good-model "
+                          "bit-identity after the abort")
+    # the partition ate the swap's answer, not the commit: the member
+    # serves the digest the federation rolled away from
+    routers[victim].swap_model(ckpt_c, prepare_timeout_s=args.timeout_s)
+    stranded = routers[victim].params_digest
+    member_of[victim].heal()
+    reconciled = False
+    deadline = time.monotonic() + args.timeout_s
+    while time.monotonic() < deadline:
+        if (fed.health()["members"].get(victim) == "live"
+                and routers[victim].params_digest == digest_b):
+            reconciled = True
+            break
+        time.sleep(0.05)
+    reconciles = fed.metrics.counter("federation_reconciles").value
+    slots = sweep()
+    torn_c = torn(digest_b, slots)
+    if not reconciled or reconciles < 1:
+        violations.append(f"partition_mid_rollout: the healed member never "
+                          f"reconciled off the aborted digest ({reconciles} "
+                          f"reconciles, {victim} "
+                          f"{fed.health()['members'].get(victim)!r}, digest "
+                          f"{routers[victim].params_digest!r})")
+    if torn_c:
+        violations.append(f"partition_mid_rollout: torn versions after the "
+                          f"heal: {torn_c}")
+    scenarios["partition_mid_rollout"] = {
+        "aborted_typed": aborted_c is not None,
+        "abort_wave": getattr(aborted_c, "wave", None),
+        "abort_reason": getattr(aborted_c, "reason", None),
+        "prior_wave_outcome": (aborted_c.per_wave.get(0, {}).get("m0")
+                               if aborted_c else None),
+        "stranded_digest": stranded, "completed_ok": counts["ok"],
+        "typed_errors": counts["typed"], "untyped_errors": counts["untyped"],
+        "hung_futures": hung,
+        "survivors_bit_identical": survivor_stream == b_stream,
+        "reconciled": reconciled, "reconciles": reconciles,
+        "readmissions": fed.metrics.counter(
+            "federation_member_readmissions").value,
+        "version_sweep": slots, "torn_versions": torn_c}
+
+    # -- (5) a member's whole fleet dies with sessions pinned to it --------
+    doomed = names[-1]
+    pins = {}
+    for _ in range(3 * len(names)):
+        sid = fed.open_session(img, timeout=args.timeout_s)
+        with fed._lock:
+            pins[sid] = fed._sessions[sid]
+        if doomed in pins.values() and len(set(pins.values())) >= 2:
+            break
+    victim_sid = next(s for s, n in pins.items() if n == doomed)
+    survivor_sid = next(s for s, n in pins.items() if n != doomed)
+    limits_before = dict(fed.admission.limits)
+    stream = fed.encode(img, timeout=args.timeout_s).stream
+    futures = []
+    for _ in range(4):
+        try:
+            futures.append(fed.submit_encode(img))
+        except ServeError:
+            pass
+    fleets[doomed].kill(routers[doomed], 0)
+    evicted = False
+    deadline = time.monotonic() + args.timeout_s
+    while time.monotonic() < deadline:
+        if fed.health()["members"].get(doomed) == "evicted":
+            evicted = True
+            break
+        time.sleep(0.05)
+    counts, hung = await_all(futures, args.timeout_s)
+    try:
+        fed.decode_si(stream, victim_sid, timeout=args.timeout_s)
+        victim_typed = False
+    except SessionExpired:
+        victim_typed = True
+    except Exception:  # noqa: BLE001 — a wrong type is a violation
+        victim_typed = False
+    try:
+        fed.decode_si(stream, survivor_sid, timeout=args.timeout_s)
+        survivor_ok = True
+    except Exception:  # noqa: BLE001 — the survivor must serve
+        survivor_ok = False
+    limits_after = dict(fed.admission.limits)
+    if not evicted:
+        violations.append("member_death_pinned_sessions: the dead member "
+                          "was never evicted on scrape evidence")
+    if not victim_typed:
+        violations.append("member_death_pinned_sessions: the dead member's "
+                          "pinned session did not expire TYPED")
+    if not survivor_ok:
+        violations.append("member_death_pinned_sessions: a survivor's "
+                          "pinned session stopped serving")
+    if hung or counts["untyped"]:
+        violations.append(f"member_death_pinned_sessions: {hung} hung, "
+                          f"{counts['untyped']} untyped")
+    if sum(limits_after.values()) >= sum(limits_before.values()):
+        violations.append(f"member_death_pinned_sessions: the admission "
+                          f"budget did not shrink with the member "
+                          f"({limits_before} -> {limits_after})")
+    scenarios["member_death_pinned_sessions"] = {
+        "member": doomed, "evicted": evicted,
+        "victim_session_expired_typed": victim_typed,
+        "survivor_session_ok": survivor_ok,
+        "typed_errors": counts["typed"], "untyped_errors": counts["untyped"],
+        "hung_futures": hung, "budget_before": limits_before,
+        "budget_after": limits_after}
+    steady_builds = native_build.build_count() - builds
+    if steady_builds:
+        violations.append(f"federation battery: {steady_builds} native "
+                          f"builds across rollouts, rollbacks and heals")
+    flight = flight_evidence(fed.flight, violations, "federation battery")
+    counters = fed.metrics.snapshot()["counters"]
+    fed.drain()
+    for name in names:
+        routers[name].drain(timeout_s=60)
+    return {"scenarios": scenarios,
+            "federation_counters": {k: v for k, v in counters.items()
+                                    if k.startswith("federation")},
+            "flight_recorder": flight, "steady_builds": steady_builds,
+            "duration_s": round(time.monotonic() - t0, 3),
+            "violations": violations}
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description="the port's chaos bench: the "
                                 "hot-swap, session and degraded-model "
@@ -982,18 +1614,26 @@ def main(argv=None) -> int:
     p.add_argument("--spawn_replicas", action="store_true",
                    help="session battery: spawned replica processes "
                         "behind the router (default: replicas on threads)")
-    for name in ("autoscale_only", "transport_only", "federation_only"):
-        p.add_argument(f"--{name}", action="store_true",
-                       help=f"not ported: {ROADMAP_CHAOS}")
+    p.add_argument("--autoscale_only", action="store_true",
+                   help="the elastic-fleet battery (Autoscaler, "
+                        "fleet-health rollback)")
+    p.add_argument("--federation_only", action="store_true",
+                   help="the federated fleet battery (FederatedRouter)")
+    p.add_argument("--members", type=int, default=3,
+                   help="federation battery: member fleets (>= 2)")
+    p.add_argument("--transport_only", action="store_true",
+                   help=f"not ported: {ROADMAP_CHAOS}")
     args = p.parse_args(argv)
-    for name in ("autoscale_only", "transport_only", "federation_only"):
-        if getattr(args, name):
-            p.error(f"--{name} is not ported to dsin_tpu_torch yet: "
-                    f"{ROADMAP_CHAOS}")
-    if not (args.hotswap_only or args.degraded_only or args.sessions_only):
-        p.error(f"choose --hotswap_only, --sessions_only or "
-                f"--degraded_only; the main soak is not ported to "
-                f"dsin_tpu_torch yet: {ROADMAP_CHAOS}")
+    if args.transport_only:
+        p.error(f"--transport_only is not ported to dsin_tpu_torch yet: "
+                f"{ROADMAP_CHAOS}")
+    if not (args.hotswap_only or args.degraded_only or args.sessions_only
+            or args.autoscale_only or args.federation_only):
+        p.error(f"choose --hotswap_only, --sessions_only, --degraded_only, "
+                f"--autoscale_only or --federation_only; the main soak is "
+                f"not ported to dsin_tpu_torch yet: {ROADMAP_CHAOS}")
+    if args.members < 2:
+        p.error(f"--members must be >= 2, got {args.members}")
     resolve_device(args.device)
     if args.smoke:
         args.ae_config, args.pc_config = write_smoke_cfgs(tempfile.mkdtemp())
@@ -1008,6 +1648,12 @@ def main(argv=None) -> int:
     if args.degraded_only:
         report["degraded_model"] = run_degraded(args)
         report["violations"] += report["degraded_model"]["violations"]
+    if args.autoscale_only:
+        report["autoscale"] = run_autoscale(args)
+        report["violations"] += report["autoscale"]["violations"]
+    if args.federation_only:
+        report["federation"] = run_federation(args)
+        report["violations"] += report["federation"]["violations"]
     tmp = args.out + ".tmp"
     with open(tmp, "w") as f:
         json.dump(report, f, indent=1)

@@ -1,12 +1,14 @@
-"""Five legs of the serve bench (counterparts of the JAX package's
+"""Seven legs of the serve bench (counterparts of the JAX package's
 `tools/serve_bench.py`): the precision leg (`_run_precision_section`,
 `_gate_precision`, :2334-2515), the entropy-backend leg
 (`_run_backend_axis`, `_gate_backend_axis`, :484-575), the entropy half
 of the transport leg (`_run_transport_section`, `_gate_transport`,
 :2160-2233; its router half is not ported), the model-health leg
-(`_run_quality_section`, :1062) and the front-door legs
+(`_run_quality_section`, :1062), the front-door legs
 (`_run_frontdoor_overload`, `_run_frontdoor_replicas`, `_gate_frontdoor`,
-:1268-1560).
+:1268-1560), the elastic-fleet leg (`_run_autoscale_section`,
+`_gate_autoscale`, :1563-1822) and the federated fleet leg
+(`_run_federation_section`, `_gate_federation`, :1824-2064).
 
     python -m dsin_tpu_torch.tools.serve_bench --out F.json [--precision]
         [--entropy_backend both] [--transport both] [--quality]
@@ -17,6 +19,7 @@ of the transport leg (`_run_transport_section`, `_gate_transport`,
         [--frontdoor_only] [--replicas N] [--priority_mix "C:S C:S"]
         [--interactive_slo_ms MS] [--bulk_deadline_ms MS]
         [--frontdoor_rate R] [--frontdoor_requests N] [--frontdoor_queue N]
+        [--autoscale] [--federation_only] [--members N] [--smoke]
 
 The entropy-backend leg serves one open-loop stream of encodes (`--requests`
 at `--rate` a second over `--shapes`, then `--decode_samples` decodes; by
@@ -58,6 +61,20 @@ configuration: pass a value measured at full width, as `chip_smoke.py`
 phase 13 does), no native build in the window or in a replica after its
 ready handshake, bit-identity; the scaling floor (1.3) is a note on a host
 without the cores, as in the JAX gate.
+
+The fleet legs (`--autoscale`, `--federation_only`): `run_autoscale_section`
+scales spawned thread-backend replicas 1 -> `--replicas` -> 1 under the
+front-door mix and then admits a pre-warmed template; `gate_autoscale`
+holds the scale counts, bit-identical streams at every size, no native
+build after a replica's ready handshake or in this process, no untyped or
+hung future, and the template's decision -> traffic within max(2 s, a
+quarter of the cold admit) (a note in a serial window).
+`run_federation_section` puts `--members` single-replica fleets (the
+canary prober on) behind a `FederatedRouter`: both doors'
+traffic and p50 / p99, one two-wave rollout to a second model with its
+torn-version sweep, and the scrape fan-out; `gate_federation` holds them.
+`--smoke` serves the chaos bench's tiny configuration at 32x48 with a few
+requests (seconds of CPU).
 
 The model-health leg (`--quality`) serves a mixed encode / decode /
 decode_si stream (`--quality_requests` a pass, round-robin over the
@@ -130,6 +147,9 @@ FRONT_BLOCKS = 64
 MODES = ("wavefront_np", "wavefront_pl")
 #: the service legs' batching, as chip_smoke.py phase 10 serves
 LEG_MAX_BATCH, LEG_MAX_QUEUE, LEG_PIPELINE_DEPTH = 4, 256, 2
+#: the federation leg's prober period: longer than the leg, so its probes
+#: are the ones each commit wakes (the wave canary gate reads them)
+FEDERATION_CANARY_EVERY_S = 600.0
 STAGES = ("encode", "decode", "probclass_front_kernel",
           "probclass_front_library", "si_search", "sinet", "epilogue_kernel",
           "epilogue_library")
@@ -874,6 +894,31 @@ def run_frontdoor_overload(args, images=None, svc=None, unloaded: int = 0,
     }
 
 
+def resolve_futures(futures, timeout_s: float = 600.0) -> dict:
+    """Resolve open-loop futures -> completed / typed refusals / failed
+    (untyped or hung)."""
+    completed = failed = rejected = 0
+    for f in futures:
+        try:
+            exc = f.exception(timeout=timeout_s)
+        except TimeoutError:
+            failed += 1
+            continue
+        if exc is None:
+            completed += 1
+        elif isinstance(exc, ServeError):
+            rejected += 1
+        else:
+            failed += 1
+    return {"completed": completed, "rejected_inflight": rejected,
+            "failed": failed}
+
+
+def live_replicas(router) -> list:
+    return sorted(int(i) for i, s in router.health()["replicas"].items()
+                  if s == "live")
+
+
 def replica_counts(router) -> dict:
     """Per replica, from the info entries of its scrape (AggregatedMetrics):
     native builds since its ready handshake (`serve_native_builds` less
@@ -937,19 +982,9 @@ def run_frontdoor_replicas(args, images=None, probes=None, config_over=None,
                         priority=_mixed_class(i, int_share)))
                 except ServeError:
                     shed += 1
-            completed = failed = rejected_inflight = 0
-            for f in futures:
-                try:
-                    exc = f.exception(timeout=600.0)
-                except TimeoutError:
-                    failed += 1
-                    continue
-                if exc is None:
-                    completed += 1
-                elif isinstance(exc, ServeError):
-                    rejected_inflight += 1
-                else:
-                    failed += 1
+            resolved = resolve_futures(futures)
+            completed, failed = resolved["completed"], resolved["failed"]
+            rejected_inflight = resolved["rejected_inflight"]
             duration = time.monotonic() - t0
             # each probe n times in a row: round robin puts one copy on
             # every replica
@@ -1072,6 +1107,394 @@ def gate_frontdoor(section, scaling_floor: float = 1.3) -> tuple:
     return violations, notes
 
 
+def run_autoscale_section(args) -> dict:
+    """The elastic-fleet leg (the JAX leg's `_run_autoscale_section`):
+    scale 1 -> N -> 1 spawned replicas (thread backend; on the card all
+    sharing it) under open-loop load through runtime `add_replica` and
+    `drain_replica`, driven directly (the policy loop that issues them is
+    `serve/autoscale.py`, held by the tests and the chaos battery). Per
+    replica: `builds_at_ready` from its ready handshake and the native
+    builds after it (its `serve_native_builds` less that), read before
+    each drain (a drained replica's endpoint dies with it): the JAX leg's
+    "zero compiles after ready" is "zero native builds after ready" here.
+    The probe images' streams at every fleet size (each probe once per
+    replica, round robin) must equal the 1-replica fleet's. Each admit
+    records the seconds from the decision to its return (`admit_s`) and
+    to one round-robin pass over the fleet (`decision_to_traffic_s`).
+    Then a fresh router stocks a pre-warmed template and one
+    `add_replica` must admit it: decision -> serving traffic through the
+    template against the cold admit."""
+    classes = _frontdoor_classes(args, LEG_MAX_QUEUE)
+    cfg = frontdoor_config(args, classes, entropy_backend="thread")
+    images = _frontdoor_images(args, 5)
+    probes = images[:2]
+    top = max(2, int(args.replicas))
+    chunk = max(8, args.frontdoor_requests // 3)
+    period = 1.0 / args.frontdoor_rate
+    futures, load = [], {"shed": 0}
+    streams = {}
+
+    def run_chunk(router):
+        t0 = time.monotonic()
+        for i in range(chunk):
+            _pace(i, t0, period)
+            try:
+                futures.append(router.submit_encode(images[i % len(images)]))
+            except ServeError:
+                load["shed"] += 1
+
+    def probe(router, tag):
+        n = router.health()["live"]
+        streams[tag] = [[router.encode(im, timeout=600.0).stream
+                         for _ in range(n)] for im in probes]
+
+    out = {"top_replicas": top, "admits": [], "drains": [],
+           "builds_after_ready": {}, "builds_at_ready": {}}
+    steady = out["builds_after_ready"]
+
+    def account(router):
+        after = replica_counts(router)["builds_after_ready"]
+        for i in live_replicas(router):
+            steady[str(i)] = after.get(str(i))
+
+    builds0 = native_build.build_count()
+    router = FrontDoorRouter(cfg, replicas=1).start()
+    try:
+        probe(router, "start_1")
+        run_chunk(router)
+        for _ in range(2, top + 1):
+            t0 = time.monotonic()
+            info = router.add_replica()
+            admit_s = time.monotonic() - t0
+            probe(router, f"admit_{info['replica']}")
+            out["admits"].append({
+                "replica": info["replica"], "admit_s": round(admit_s, 3),
+                "decision_to_traffic_s": round(time.monotonic() - t0, 3),
+                "warmup_s": round(info.get("warmup_s") or 0.0, 3),
+                "warmup_builds": info.get("warmup_builds"),
+                "builds_at_ready": info.get("builds_at_ready")})
+        probe(router, "top")
+        run_chunk(router)
+        while router.health()["live"] > 1:
+            account(router)
+            out["drains"].append(router.drain_replica())
+        probe(router, "end_1")
+        run_chunk(router)
+        account(router)
+        out.update(resolve_futures(futures))
+        counters = router.metrics.snapshot()["counters"]
+        out["builds_at_ready"] = {
+            str(rep.idx): (rep.info or {}).get("builds_at_ready")
+            for rep in router._all_replicas()}
+    finally:
+        router.drain(timeout_s=600.0)
+    ref = [row[0] for row in streams["start_1"]]
+    out["bit_identical"] = all(row == [want] * len(row)
+                               for rows in streams.values()
+                               for row, want in zip(rows, ref))
+    out["probe_streams"] = [hashlib.sha256(s).hexdigest() for s in ref]
+    out.update({
+        "submitted": len(futures), "shed_at_door": load["shed"],
+        "scale_ups": counters.get("serve_router_scale_ups", 0),
+        "scale_downs": counters.get("serve_router_scale_downs", 0),
+        "replica_deaths": counters.get("serve_router_replica_deaths", 0),
+        "router_process_builds": native_build.build_count() - builds0})
+    cold = out["admits"][0] if out["admits"] else {}
+    tpl = {"cold_admit_s": cold.get("admit_s"),
+           "cold_decision_to_traffic_s": cold.get("decision_to_traffic_s"),
+           "effective_cores": round(_effective_cores(), 2),
+           "host_cores": os.cpu_count()}
+    router = FrontDoorRouter(cfg, replicas=1, prewarm_template=True).start()
+    try:
+        deadline = time.monotonic() + 600.0
+        while not router.template_ready():
+            if time.monotonic() > deadline:
+                raise TimeoutError("autoscale: the replica template never "
+                                   "stocked")
+            time.sleep(0.05)
+        t0 = time.monotonic()
+        info = router.add_replica()
+        # one round-robin pass lands a probe on each replica: the clock
+        # stops once the admitted one has served
+        first = [router.encode(im, timeout=600.0).stream for im in probes]
+        tpl["decision_to_traffic_s"] = round(time.monotonic() - t0, 3)
+        second = [router.encode(im, timeout=600.0).stream for im in probes]
+        tpl["template_admit"] = bool(info.get("template_admit"))
+        tpl["bit_identical"] = first == ref and second == ref
+        tpl["builds_at_ready"] = info.get("builds_at_ready")
+        tpl["builds_after_ready"] = replica_counts(router)[
+            "builds_after_ready"].get(str(info["replica"]))
+        counters = router.metrics.snapshot()["counters"]
+        tpl["template_admits"] = counters.get("serve_template_admits", 0)
+        tpl["template_misses"] = counters.get("serve_template_misses", 0)
+    finally:
+        router.drain(timeout_s=600.0)
+    out["template"] = tpl
+    return out
+
+
+def gate_autoscale(section) -> tuple:
+    """Violations of the elastic-fleet leg, and notes (the JAX leg's
+    `_gate_autoscale` with builds for compiles): the fleet scaled 1 -> N
+    -> 1, no replica built natively after its ready handshake (or left no
+    evidence), the router process built nothing, the streams stayed
+    bit-identical at every size, no future failed untyped or hung, no
+    replica died; the template admit took the template, kept the bytes,
+    built nothing after it and served within max(2 s, a quarter of the
+    cold admit), a note on a host whose effective cores read below 1.3.
+    -> (violations, notes)."""
+    violations, notes = [], []
+    want = section["top_replicas"] - 1
+    for key in ("scale_ups", "scale_downs"):
+        if section[key] != want:
+            violations.append(f"autoscale: expected {want} {key}, saw "
+                              f"{section[key]}")
+    if section["failed"]:
+        violations.append(f"autoscale: {section['failed']} untyped/hung "
+                          f"requests across the scale cycle")
+    if section["completed"] == 0:
+        violations.append("autoscale: no request completed")
+    if section["replica_deaths"]:
+        violations.append(f"autoscale: {section['replica_deaths']} replica "
+                          f"deaths during a graceful cycle")
+    if section["bit_identical"] is not True:
+        violations.append("autoscale: fleet streams diverged across "
+                          "scale-up/drain (bit-identity lost)")
+    for idx, n in section["builds_after_ready"].items():
+        if n is None:
+            violations.append(f"autoscale: replica {idx} left no build "
+                              f"evidence (its scrape failed)")
+        elif n:
+            violations.append(f"autoscale: replica {idx} built {n} time(s) "
+                              f"natively after its ready handshake")
+    if section["router_process_builds"]:
+        violations.append(f"autoscale: the router process built "
+                          f"{section['router_process_builds']} time(s)")
+    tpl = section.get("template")
+    if tpl is not None:
+        if not tpl.get("template_admit") or tpl.get("template_admits",
+                                                    0) < 1:
+            violations.append("autoscale: add_replica did not admit from "
+                              "the pre-warmed template")
+        if tpl.get("bit_identical") is not True:
+            violations.append("autoscale: the template-admitted replica's "
+                              "streams diverged from the fleet's")
+        if tpl.get("builds_after_ready") != 0:
+            violations.append(f"autoscale: template replica builds after "
+                              f"ready {tpl.get('builds_after_ready')}")
+        cold = tpl.get("cold_admit_s")
+        budget = max(2.0, 0.25 * cold) if cold else 2.0
+        dt = tpl.get("decision_to_traffic_s")
+        if dt is None or dt > budget:
+            msg = (f"autoscale: template decision->traffic {dt} s over its "
+                   f"{round(budget, 3)} s budget (cold admit {cold} s)")
+            if tpl.get("effective_cores", 99.0) < 1.3:
+                notes.append(msg + f": effective cores "
+                             f"{tpl.get('effective_cores')}, a serial "
+                             f"window")
+            else:
+                violations.append(msg)
+    return violations, notes
+
+
+def run_federation_section(args) -> dict:
+    """The federated fleet leg (the JAX leg's `_run_federation_section`):
+    `--members` single-replica member fleets (spawned replicas, thread
+    backend, the golden-canary prober on: every probe in the leg is the one
+    a commit or a rollback wakes, FEDERATION_CANARY_EVERY_S exceeds it) behind
+    one `FederatedRouter`. Measures routing through the federation's door
+    against one member's own door (`--requests` at `--rate`, then 12
+    sequential probes each way for p50 / p99), one two-wave rollout to a
+    second model (wave m0, then the rest; each wave behind the canary gate
+    and a 0.5 s soak; the checkpoint replicated into every member's root
+    but m0's) from decision to convergence, followed by a sweep for torn
+    versions, and one federated scrape against the members' scrapes in
+    series. Every member must be bit-identical before and after the
+    promotion, and neither this process nor a replica after its ready
+    handshake may build natively."""
+    import concurrent.futures as cf
+    import tempfile
+
+    from dsin_tpu_torch.serve.federation import (FederatedRouter, Member,
+                                                 RolloutPlan)
+    from dsin_tpu_torch.tools.chaos_bench import model_state
+    from dsin_tpu_torch.train import checkpoint as ckpt_lib
+
+    if args.members < 2:
+        raise ValueError(f"--members must be >= 2 for two waves, got "
+                         f"{args.members}")
+    images = _frontdoor_images(args, 29)
+    cfg = frontdoor_config(args, _frontdoor_classes(args, LEG_MAX_QUEUE),
+                           entropy_backend="thread",
+                           canary_every_s=FEDERATION_CANARY_EVERY_S,
+                           quality_gap_sample_rate=1.0)
+    tmpd = tempfile.mkdtemp(prefix="serve_fed_")
+    state_b, extra = model_state(args, args.seed + 1, need_sinet=False)
+    ckpt_b = os.path.join(tmpd, "ckpt_b")
+    ckpt_lib.save_checkpoint(ckpt_b, state_b, manifest_extra={
+        **extra, "buckets": [list(b) for b in cfg.buckets]})
+    names = [f"m{i}" for i in range(args.members)]
+    period = 1.0 / args.rate
+    out = {"members": names, "replicas_per_member": 1}
+
+    def lat_probe(door, n=12):
+        lat = []
+        for i in range(n):
+            t = time.monotonic()
+            door.encode(images[i % len(images)], timeout=600.0)
+            lat.append((time.monotonic() - t) * 1e3)
+        lat.sort()
+        return (round(lat[len(lat) // 2], 3),
+                round(lat[min(len(lat) - 1, int(len(lat) * 0.99))], 3))
+
+    def one_pass(door):
+        futures, shed = [], 0
+        t0 = time.monotonic()
+        for i in range(args.requests):
+            _pace(i, t0, period)
+            try:
+                futures.append(door.submit_encode(images[i % len(images)]))
+            except ServeError:
+                shed += 1
+        res = resolve_futures(futures)
+        return {"submitted": args.requests, "shed_at_door": shed, **res,
+                "wall_s": round(time.monotonic() - t0, 3)}
+
+    def same_bytes(routers, fed, img):
+        ref = routers[names[0]].encode(img, timeout=600.0).stream
+        return ref, (all(routers[n].encode(img, timeout=600.0).stream == ref
+                         for n in names)
+                     and fed.encode(img, timeout=600.0).stream == ref)
+
+    builds0 = native_build.build_count()
+    with cf.ThreadPoolExecutor(len(names)) as pool:
+        started = list(pool.map(
+            lambda n: FrontDoorRouter(cfg, replicas=1).start(), names))
+    routers = dict(zip(names, started))
+    members = {n: Member(n, routers[n],
+                         ckpt_root=(os.path.join(tmpd, f"root_{n}")
+                                    if n != names[0] else None))
+               for n in names}
+    fed = FederatedRouter(list(members.values()), poll_every_s=0.25).start()
+    try:
+        digest_a = fed.params_digest
+        _, ident_before = same_bytes(routers, fed, images[0])
+        direct = one_pass(routers[names[0]])
+        federated = one_pass(fed)
+        d50, d99 = lat_probe(routers[names[0]])
+        f50, f99 = lat_probe(fed)
+        out["routing"] = {
+            "direct": direct, "federated": federated,
+            "direct_p50_ms": d50, "direct_p99_ms": d99,
+            "federated_p50_ms": f50, "federated_p99_ms": f99,
+            # > 1: the extra hop costs wall time; < 1 is as legitimate
+            # (the federation round-robins over every member's fleet)
+            "federation_hop_overhead": (
+                round(federated["wall_s"] / direct["wall_s"], 3)
+                if direct["wall_s"] else None)}
+        plan = RolloutPlan(ckpt_dir=ckpt_b,
+                           waves=((names[0],), tuple(names[1:])),
+                           canary_timeout_s=600.0, poll_s=0.05, soak_s=0.5,
+                           swap_timeout_s=600.0, rollback_timeout_s=60.0)
+        t0 = time.monotonic()
+        res = fed.rollout(plan)
+        promote_s = time.monotonic() - t0
+        digest_b = res["digest"]
+        per_member = {n: routers[n].params_digest for n in names}
+        _, ident_after = same_bytes(routers, fed, images[0])
+        out["rollout"] = {
+            "digest_a": digest_a, "digest_b": digest_b,
+            "waves": res["waves"], "soak_s": plan.soak_s,
+            "promote_s": round(promote_s, 3),
+            "per_member_digests": per_member,
+            "torn_versions": sorted(f"{n}={d!r}"
+                                    for n, d in per_member.items()
+                                    if d != digest_b),
+            "distributed_roots_staged": {
+                n: bool(ckpt_lib.latest_checkpoint(members[n].ckpt_root))
+                for n in names[1:]}}
+        serial_ms = []
+        for n in names:
+            t = time.monotonic()
+            routers[n].aggregate.snapshot()
+            serial_ms.append((time.monotonic() - t) * 1e3)
+        t = time.monotonic()
+        fed_snap = fed.aggregate.snapshot()
+        fed_ms = (time.monotonic() - t) * 1e3
+        out["scrape_fanout"] = {
+            "member_scrape_ms": [round(v, 3) for v in serial_ms],
+            "serial_sum_ms": round(sum(serial_ms), 3),
+            "federated_ms": round(fed_ms, 3),
+            "concurrency_ratio": (round(sum(serial_ms) / fed_ms, 3)
+                                  if fed_ms else None),
+            "members_scraped": fed_snap["info"]["members_scraped"],
+            "members_unreachable": fed_snap["info"]["members_unreachable"]}
+        out["bit_identical"] = {"before_rollout": ident_before,
+                                "after_rollout": ident_after}
+        out["builds_after_ready"] = {
+            n: replica_counts(routers[n])["builds_after_ready"]
+            for n in names}
+        out["federation_counters"] = {
+            k: v for k, v in fed.metrics.snapshot()["counters"].items()
+            if k.startswith("federation")}
+    finally:
+        fed.drain()
+        for n in names:
+            routers[n].drain(timeout_s=600.0)
+    out["bench_process_builds"] = native_build.build_count() - builds0
+    return out
+
+
+def gate_federation(section) -> list:
+    """Violations of the federated fleet leg (the JAX leg's
+    `_gate_federation`, builds for compiles): traffic through both doors
+    completes with nothing hung or untyped; the rollout moves every member
+    onto ONE new digest (no torn version) with the checkpoint staged in
+    every member root, members bit-identical before and after; the
+    federated scrape sees every member; no native build in this process
+    or in a replica after its ready handshake."""
+    violations = []
+    for tag in ("direct", "federated"):
+        leg = section["routing"][tag]
+        if leg["failed"]:
+            violations.append(f"federation: {leg['failed']} untyped/hung "
+                              f"requests through the {tag} door")
+        if leg["completed"] == 0:
+            violations.append(f"federation: no request completed through "
+                              f"the {tag} door")
+    ro = section["rollout"]
+    if ro["digest_b"] in (None, ro["digest_a"]):
+        violations.append(f"federation: the staged rollout did not move "
+                          f"the fleet ({ro['digest_a']} -> "
+                          f"{ro['digest_b']})")
+    if ro["torn_versions"]:
+        violations.append(f"federation: torn versions after full "
+                          f"promotion: {ro['torn_versions']}")
+    if not all(ro["distributed_roots_staged"].values()):
+        violations.append(f"federation: replicate_checkpoint left no "
+                          f"checkpoint in member roots "
+                          f"({ro['distributed_roots_staged']})")
+    for when, ok in section["bit_identical"].items():
+        if ok is not True:
+            violations.append(f"federation: members were not "
+                              f"bit-identical {when.replace('_', ' ')}")
+    sf = section["scrape_fanout"]
+    if (sf["members_scraped"] != len(section["members"])
+            or sf["members_unreachable"]):
+        violations.append(f"federation: the federated scrape missed "
+                          f"members ({sf['members_scraped']} scraped, "
+                          f"{sf['members_unreachable']} unreachable)")
+    bad = {n: b for n, per in section["builds_after_ready"].items()
+           for b in per.values() if b != 0}
+    if bad:
+        violations.append(f"federation: native builds after ready "
+                          f"{section['builds_after_ready']}")
+    if section["bench_process_builds"]:
+        violations.append(f"federation: the bench process built "
+                          f"{section['bench_process_builds']} time(s)")
+    return violations
+
+
 def host_line(device: str) -> dict:
     """The card (`nvidia-smi` name and power limit; None on the CPU) and the
     host's cores."""
@@ -1139,12 +1562,34 @@ def main(argv=None) -> int:
     p.add_argument("--frontdoor_queue", type=int, default=24,
                    help="the overload leg's queue bound (small: the shed "
                         "order needs a full queue)")
+    p.add_argument("--autoscale", dest="autoscale_only", action="store_true",
+                   help="run the elastic-fleet leg (1 -> --replicas -> 1 "
+                        "spawned replicas under load, then a template "
+                        "admit)")
+    p.add_argument("--federation_only", action="store_true",
+                   help="run the federated fleet leg (--members "
+                        "single-replica fleets behind a FederatedRouter)")
+    p.add_argument("--members", type=int, default=3,
+                   help="member fleets of the federation leg")
+    p.add_argument("--smoke", action="store_true",
+                   help="the chaos bench's tiny configuration, 32x48 "
+                        "buckets and a few requests: seconds of CPU")
     args = p.parse_args(argv)
     if not (args.precision or args.entropy_backend or args.transport
-            or args.quality or args.frontdoor_only):
+            or args.quality or args.frontdoor_only or args.autoscale_only
+            or args.federation_only):
         p.error("choose a leg: --precision, --entropy_backend both, "
-                "--transport both, --quality or --frontdoor_only")
+                "--transport both, --quality, --frontdoor_only, "
+                "--autoscale or --federation_only")
     resolve_device(args.device)
+    if args.smoke:
+        import tempfile
+        from dsin_tpu_torch.tools.chaos_bench import write_smoke_cfgs
+        args.ae_config, args.pc_config = write_smoke_cfgs(tempfile.mkdtemp())
+        args.buckets, args.shapes = "32,48", "32,48 24,32"
+        args.requests, args.rate = 12, 200.0
+        args.frontdoor_requests, args.frontdoor_rate = 24, 200.0
+        args.entropy_workers = 1
     report = {"config": {"ae_config": args.ae_config,
                          "pc_config": args.pc_config, "seed": args.seed},
               "host": host_line(args.device)}
@@ -1196,6 +1641,23 @@ def main(argv=None) -> int:
         for note in notes:
             print(f"SERVE_BENCH_NOTE: {note}", file=sys.stderr)
         violations += fd_violations
+    if args.autoscale_only or args.federation_only:
+        report["config"].update(
+            buckets=args.buckets, shapes=args.shapes, smoke=args.smoke,
+            replicas=args.replicas, members=args.members,
+            requests=args.requests, rate=args.rate,
+            frontdoor_rate_rps=args.frontdoor_rate,
+            frontdoor_requests=args.frontdoor_requests)
+    if args.autoscale_only:
+        report["autoscale"] = run_autoscale_section(args)
+        as_violations, notes = gate_autoscale(report["autoscale"])
+        report["autoscale"]["notes"] = notes
+        for note in notes:
+            print(f"SERVE_BENCH_NOTE: {note}", file=sys.stderr)
+        violations += as_violations
+    if args.federation_only:
+        report["federation"] = run_federation_section(args)
+        violations += gate_federation(report["federation"])
     tmp = args.out + ".tmp"
     with open(tmp, "w") as f:
         json.dump(report, f, indent=1)

@@ -25,6 +25,9 @@ verify what they restored against the manifest (`verify_manifest`) and
 refuse a mismatch with a typed `ManifestMismatch`. `replicate_checkpoint`
 copies the resolved latest checkpoint to a peer-visible root, every byte
 CRC-checked against the manifest on both sides of the copy.
+`gc_checkpoints` retires the checkpoint directories under a root whose
+manifest digest no fleet member references (`tools/ckpt_gc.py` reads the
+references from a router's or a federation's aggregated `/metrics`).
 """
 
 from __future__ import annotations
@@ -501,6 +504,127 @@ def replicate_checkpoint(ckpt_dir: str, dest_dir: str, *,
     return {"src": src, "dest": dest_dir,
             "files": len(manifest.get("files") or {}), "bytes": total,
             "params_digest": manifest.get("params_digest")}
+
+
+def _dir_bytes(path: str) -> int:
+    total = 0
+    for root, _dirs, files in os.walk(path):
+        for fname in files:
+            try:
+                total += os.path.getsize(os.path.join(root, fname))
+            except OSError:
+                pass
+    return total
+
+
+def gc_checkpoints(root: str, referenced: Iterable[str], *,
+                   keep_latest: int = 1, dry_run: bool = False,
+                   refresh: Optional[Any] = None) -> Dict[str, Any]:
+    """Manifest-driven checkpoint garbage collection: retire
+    checkpoint directories under `root` whose `params_digest` NO fleet
+    member references (the JAX package's `gc_checkpoints`, the same
+    contract and report).
+
+    `referenced` is the set of digests that must survive — every fleet
+    member's live, staged, AND prev bundle digests (`tools/ckpt_gc.py`
+    gathers them from a router's aggregated /metrics; the prev slot
+    counts because rollback re-instates it WARM from memory but a
+    restarted replica can only re-load it from disk). The contract:
+
+    * a dir without a parseable manifest is NEVER deleted — GC only
+      retires what it can positively identify (legacy/foreign dirs are
+      reported, not reaped);
+    * the `keep_latest` newest complete checkpoints (by meta step, then
+      mtime) survive regardless of references — the operator's re-swap
+      ladder;
+    * `refresh`, when given, is a zero-arg callable returning the
+      CURRENT referenced set, re-polled immediately before EACH
+      deletion. This closes the kill window between the initial listing
+      and the rm: a digest that becomes referenced mid-GC (a fleet
+      prepare staging exactly the candidate this GC was about to
+      delete) is re-checked at the last moment and kept. A refresh
+      that RAISES or returns None means the reference source went
+      unreachable at the deletion edge — the dir is KEPT (fail toward
+      keeping, matching the tool's refusal to GC blind), never deleted
+      against a stale set. The window is narrowed, not zero — the
+      authoritative guard is that publishers never re-publish a
+      retired digest path;
+    * `.tmp-*` staging siblings are left alone (an in-flight
+      save_checkpoint owns them; it sweeps its own stale ones);
+      rotated `.prev-*` siblings ARE candidates like any other dir.
+
+    Returns {"scanned", "kept", "retired", "unidentified",
+    "bytes_freed", "dry_run"}; `dry_run` reports without deleting."""
+    root = os.path.abspath(root)
+    referenced_set = {d for d in referenced if d}
+    try:
+        entries = sorted(os.listdir(root))
+    except OSError:
+        return {"scanned": 0, "kept": [], "retired": [],
+                "unidentified": [], "bytes_freed": 0,
+                "dry_run": bool(dry_run)}
+    candidates = []       # (sort_key, path, digest)
+    unidentified = []
+    for entry in entries:
+        path = os.path.join(root, entry)
+        if not os.path.isdir(path):
+            continue
+        if ".tmp-" in entry:
+            continue      # an in-flight save owns its staging dir
+        try:
+            manifest = load_manifest(path)
+        except IntegrityError:
+            manifest = None
+        digest = (manifest or {}).get("params_digest")
+        if not digest:
+            unidentified.append(entry)
+            continue
+        step = (manifest or {}).get("step", -1)
+        try:
+            mtime = os.path.getmtime(path)
+        except OSError:
+            mtime = 0.0
+        candidates.append(((step, mtime), path, digest))
+    candidates.sort(key=lambda c: c[0], reverse=True)   # newest first
+    kept, retired = [], []
+    bytes_freed = 0
+    for i, (_key, path, digest) in enumerate(candidates):
+        name = os.path.basename(path)
+        if i < max(0, int(keep_latest)):
+            kept.append({"dir": name, "digest": digest,
+                         "why": "keep_latest"})
+            continue
+        if digest in referenced_set:
+            kept.append({"dir": name, "digest": digest,
+                         "why": "referenced"})
+            continue
+        if refresh is not None:
+            # the kill-window re-check: the fleet may have staged this
+            # very digest since the listing — ask again, NOW, before
+            # the irreversible step. An unreachable source here KEEPS
+            # the dir: deleting against a stale set is exactly the
+            # blind GC the initial scrape refuses.
+            try:
+                fresh = refresh()
+            except Exception:   # noqa: BLE001 — fail toward keeping
+                fresh = None
+            if fresh is None:
+                kept.append({"dir": name, "digest": digest,
+                             "why": "reference_source_unreachable"})
+                continue
+            referenced_set |= {d for d in fresh if d}
+            if digest in referenced_set:
+                kept.append({"dir": name, "digest": digest,
+                             "why": "referenced_at_delete"})
+                continue
+        size = _dir_bytes(path)
+        if not dry_run:
+            shutil.rmtree(path, ignore_errors=True)
+        retired.append({"dir": name, "digest": digest, "bytes": size})
+        bytes_freed += size
+    return {"scanned": len(candidates), "kept": kept,
+            "retired": retired, "unidentified": unidentified,
+            "bytes_freed": bytes_freed, "dry_run": bool(dry_run)}
 
 
 def restore_partitions(ckpt_dir: str, state: ModelState,

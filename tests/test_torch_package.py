@@ -73,7 +73,8 @@ def test_importing_the_port_loads_no_jax():
             "serve.session", "serve.swap", "utils.retry",
             "utils.faults", "utils.profiling", "eval.rd_sweep",
             "eval.synthetic_rd", "tools.rd_delta", "serve.router",
-            "serve.protocol")} <= loaded, \
+            "serve.protocol", "serve.autoscale", "serve.federation",
+            "tools.ckpt_gc")} <= loaded, \
         proc.stdout
 
 

@@ -482,6 +482,76 @@ def test_no_native_build_across_the_lifecycle(cfg_files, tmp_path):
         assert svc.drain()
 
 
+def test_a_commit_and_a_rollback_wake_the_prober(cfg_files, tmp_path):
+    """With a 10-minute prober period, a commit and a rollback each get a
+    canary verdict on the model now serving within seconds (the port's
+    prober probes at once after either; the JAX package's waits out its
+    period)."""
+    ae_p, pc_p = cfg_files
+    ckpt = save_model_ckpt(cfg_files, str(tmp_path / "b"), seed=4,
+                           sinet=True)
+    svc = CompressionService(ServiceConfig(
+        ae_config=ae_p, pc_config=pc_p, buckets=BUCKETS, max_batch=2,
+        max_wait_ms=2.0, entropy_workers=1, enable_si=True,
+        canary_every_s=600.0, device="cpu")).start()
+
+    def verdict_on(digest):
+        deadline = time.monotonic() + 60
+        while True:
+            v = svc.metrics.snapshot()["info"].get("serve_canary") or {}
+            if v.get("digest") == digest and v.get("status") == "ok":
+                return
+            assert time.monotonic() < deadline, v
+            time.sleep(0.02)
+
+    try:
+        svc.warmup()
+        digest_a = svc.model_digest
+        time.sleep(0.2)
+        assert svc.metrics.counter("serve_canary_runs").value == 0
+        digest_b = svc.swap_model(ckpt)["digest"]
+        verdict_on(digest_b)
+        svc.rollback()
+        verdict_on(digest_a)
+        assert svc.metrics.counter("serve_canary_runs").value >= 2
+    finally:
+        assert svc.drain()
+
+
+def test_a_wake_during_a_probe_is_not_lost(cfg_files):
+    """A commit that lands while the prober is probing (a 10-minute
+    period) gets a probe of its own as soon as the running one ends."""
+    ae_p, pc_p = cfg_files
+    svc = CompressionService(ServiceConfig(
+        ae_config=ae_p, pc_config=pc_p, buckets=BUCKETS, max_batch=2,
+        max_wait_ms=2.0, entropy_workers=1, canary_every_s=600.0,
+        device="cpu")).start()
+    started, release = threading.Event(), threading.Event()
+    calls = []
+
+    def probe():
+        calls.append(time.monotonic())
+        started.set()
+        assert release.wait(60)
+
+    try:
+        svc.warmup()
+        svc.run_canary = probe
+        svc._wake_canary()
+        assert started.wait(60)
+        svc._wake_canary()            # lands inside the running probe
+        release.set()
+        deadline = time.monotonic() + 30
+        while len(calls) < 2:
+            assert time.monotonic() < deadline, calls
+            time.sleep(0.01)
+        time.sleep(0.2)
+        assert len(calls) == 2
+    finally:
+        release.set()
+        assert svc.drain()
+
+
 @pytest.mark.parametrize("battery,section", [
     ("--hotswap_only", "hotswap"), ("--degraded_only", "degraded_model")])
 def test_chaos_bench_batteries_smoke(tmp_path, battery, section):
@@ -502,14 +572,47 @@ def test_chaos_bench_batteries_smoke(tmp_path, battery, section):
     assert report[section]["steady_builds"] == 0
 
 
+@pytest.mark.parametrize("battery,section,scenario", [
+    ("--hotswap_only", "hotswap", "watchdog_rollback"),
+    ("--degraded_only", "degraded_model", "forced_commit_watchdog")])
+def test_chaos_batteries_wait_for_the_watchdog_count(
+        tmp_path, monkeypatch, battery, section, scenario):
+    """Pin of the watchdog-count race: every rollback is held open for
+    0.5 s after its pointer flip, so a battery that polls the digest
+    sees A again well before the watchdog counts its rollback. Both
+    batteries still pass and count exactly one watchdog rollback."""
+    from dsin_tpu_torch.serve import swap as swap_lib
+    from dsin_tpu_torch.tools import chaos_bench
+    flip = swap_lib.SwapCoordinator.rollback
+
+    def held_open(self, *a, **kw):
+        out = flip(self, *a, **kw)
+        time.sleep(0.5)
+        return out
+
+    monkeypatch.setattr(swap_lib.SwapCoordinator, "rollback", held_open)
+    out = str(tmp_path / "c.json")
+    assert chaos_bench.main(["--smoke", battery, "--device", "cpu",
+                             "--entropy_workers", "1", "--out", out]) == 0
+    with open(out) as f:
+        report = json.load(f)
+    assert report["violations"] == []
+    assert report[section]["scenarios"][scenario]["watchdog_rollbacks"] == 1
+
+
 @pytest.mark.parametrize("battery", ["--autoscale_only",
                                      "--transport_only", "--federation_only",
                                      None])
 def test_chaos_bench_refuses_unported_batteries(battery, capsys):
+    """The transport battery and the main soak still refuse, naming item
+    11g, and a request that names a ported battery beside the transport
+    one is refused before anything runs."""
     from dsin_tpu_torch.tools import chaos_bench
+    argv = ["--smoke", "--device", "cpu"]
+    if battery is not None:
+        argv += sorted({battery, "--transport_only"})
     with pytest.raises(SystemExit):
-        chaos_bench.main(["--smoke", "--device", "cpu"]
-                         + ([battery] if battery else []))
+        chaos_bench.main(argv)
     assert "item 11g" in capsys.readouterr().err
 
 
