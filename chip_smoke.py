@@ -39,7 +39,13 @@ Phases; any failure raises, prints no result and exits non-zero:
      bound, and its device time per pass;
      decode_si on the decoded symbols bit-equal to decode_si on the
      originals; compress_array -> decompress_array with and without a side
-     image;
+     image; then the first image's volume in mode 1 (the network a front,
+     cuDNN conv3d, every front padded to the next power of two) and, cut
+     to every channel of its 8x16 corner (4,096 positions: mode 0 calls the
+     network once a position, 195,840 times for the whole volume), in mode
+     0: exact round trips, the header's mode byte, no K3 launch, ms per
+     pass and the stream and coding gap beside mode 2's on the same
+     volume;
   6. the precision ladder: fused_decode_epilogue (K4) against its plain
      version at (2, 160, 612, 64), the full-width decoder's own activation
      before its last deconv, folded from its conv2, with float32 and bfloat16
@@ -250,7 +256,29 @@ Phases; any failure raises, prints no result and exits non-zero:
      session serving, a new session opened, serve_router_session_orphans
      >= 2, 1 live replica. K2's launches, read from each replica's
      registry (m1's too), equal its SI micro-batches (the prober's
-     included) + its warmup's 2 + 2 per prepare.
+     included) + its warmup's 2 + 2 per prepare;
+ 14. the service's robustness at full width (ae_kitti_stereo + pc_default,
+     phase 10's buckets and images, weights from `--seed`), each sub-phase
+     with its wall time, its checks and the card's line: (a) the chaos
+     bench's main soak (`tools/chaos_bench.run_chaos`) on the process
+     backend, pipe, depth 2, 4 children, 2 workers, with the JAX smoke's
+     counts: 40 encodes under `serve.worker.batch` crash (2, probability
+     1.0) and delay faults, the pool restored, 6 bit-flipped streams caught
+     at the door and 6 `serve.rans`-corrupted ones in the worker, clean
+     decodes after, a non-empty flight dump, no hung future, no untyped
+     error, no build; (b) the lane battery (`run_transport`), 16 requests a
+     scenario, each encoding a 320x1224 image: every bit flip of a lane
+     frame caught, the liars refused, a one-lane replica's burst falling
+     back typed, a replica of two SIGKILLed with descriptors in flight, the
+     census of this process's segments unchanged; (c) the serve bench's
+     router transport leg (`run_router_transport`): one spawned replica a
+     transport, pipe then shm, 16 encodes at 4/s over phase 10's images,
+     4 decodes and 3 probes: probe streams byte-identical across the
+     transports, lane sends and no integrity error on shm, nothing failed,
+     no build after a ready handshake (its gate). No phase-14 path
+     launches a kernel (no SI traffic; mode-2 coding): the launches in
+     this process and in every replica (their scrapes) must be 0, and no
+     child or segment may be left.
 Each phase's wall time is printed after the last phase.
 Kernel times are CUDA events around back-to-back runs that the host
 enqueued while the device slept, so they are device time.
@@ -302,6 +330,7 @@ from dsin_tpu_torch.ops import sifinder_kernel as sk
 from dsin_tpu_torch.ops.patches import assemble_patches
 from dsin_tpu_torch.runtime import config_path, resolve_device
 from dsin_tpu_torch.serve.device import DeviceServer
+from dsin_tpu_torch.tools import chaos_bench
 from dsin_tpu_torch.tools import cityscapes_chip
 from dsin_tpu_torch.tools import k1_bench
 from dsin_tpu_torch.tools import k4_bench
@@ -323,6 +352,9 @@ MARGIN_ATOL = 1e-4         # indices equal where the top-two margin exceeds it
 K3_RTOL, K3_ATOL = 1e-5, 1e-5     # as tests/test_probclass_pallas.py:49
 K3_BATCHES = (1, 5, 64, 128, 256)   # and the largest front of the volume
 K4_RTOL, K4_ATOL = 1e-5, 1e-3     # as tests/test_epilogue_pallas.py:32
+# mode 0 calls the network once a position (195,840 a (32, 40, 153) volume):
+# it codes every channel of an 8x16 corner, 4,096 positions
+MODE0_CUT = (slice(None), slice(0, 8), slice(0, 16))
 LEG_REPS = 5
 # sha256 prefixes of the precision leg's streams at the default seed, every
 # rung: what the dense probclass front kernel gave; the pruned one must give
@@ -834,7 +866,42 @@ def codec_path(server, codec, x, y, seed: int):
     log(f"  compress_array {c_ms:.0f} ms ({len(blob)} bytes), "
         f"decompress_array {d_ms:.0f} ms (= the decoder on the stream's "
         f"symbols), with side {s_ms:.0f} ms (= decode_si on them)")
-    return n_fronts, vols[0].shape, float(np.median(pass_ms))
+    return n_fronts, vols[0], float(np.median(pass_ms))
+
+
+def modes_0_1(codec, vol) -> None:
+    """Modes 1 (the network a front, cuDNN conv3d) on the whole volume and
+    0 (the network a position) on its MODE0_CUT: exact round trips, the
+    header's mode byte, no K3 launch, ms per pass and the stream and coding
+    gap beside mode 2's on the same volume."""
+    cut = np.ascontiguousarray(vol[MODE0_CUT])
+    for mode, v in (("wavefront", vol), ("sequential", cut)):
+        k0 = pk.launch_counts["probclass_front_logits"]
+        stream, enc_ms = timed(lambda: codec.encode(v, mode=mode))
+        back, dec_ms = timed(lambda: codec.decode(stream))
+        gap, gap_ms = timed(lambda: codec.coding_gap(v, stream))
+        if pk.launch_counts["probclass_front_logits"] != k0:
+            raise AssertionError(f"{mode}: K3 launched on a mode-"
+                                 f"{stream[5]} pass")
+        if stream[5] != codec_lib._MODES[mode]:
+            raise AssertionError(f"{mode}: header mode byte {stream[5]}")
+        if not np.array_equal(back, v):
+            raise AssertionError(f"{mode}: {v.shape} did not round-trip "
+                                 f"({int((back != v).sum())} symbols "
+                                 f"differ)")
+        if gap["gap_bits"] < -32:
+            raise AssertionError(f"{mode}: coding gap {gap} below the "
+                                 f"-32-bit flush allowance")
+        ref = codec.encode(v)
+        gap2 = codec.coding_gap(v, ref)
+        log(f"  mode {stream[5]} ({mode}) on {v.shape}, {v.size} positions: "
+            f"encode {enc_ms:.1f} ms, decode {dec_ms:.1f} ms, ideal-bits "
+            f"pass {gap_ms:.1f} ms ({1e3 * enc_ms / v.size:.1f} us a "
+            f"position encoding); {len(stream)} bytes, mode 2 {len(ref)} "
+            f"({100 * (len(stream) - len(ref)) / len(ref):+.4f}%); coding "
+            f"gap {gap['gap_bits']} bits ({gap['gap_pct']:.4f}%), mode 2 "
+            f"{gap2['gap_bits']} bits ({gap2['gap_pct']:.4f}%); ideal bits "
+            f"{gap['ideal_bits']}, mode 2 {gap2['ideal_bits']}")
 
 
 def k3_pass_breakdown(codec, shape, pass_ms, rng, dev):
@@ -883,12 +950,13 @@ def codec_phase(seed: int, dev):
     sk.reset_launch_counts()
     pk.reset_launch_counts()
     rans.reset_native_call_counts()
-    n_fronts, shape, pass_ms = codec_path(server, codec, x, y, seed)
+    n_fronts, vol, pass_ms = codec_path(server, codec, x, y, seed)
     launches = dict(pk.launch_counts, **sk.launch_counts)
     log(f"  codec path launches {launches} ({n_fronts} fronts per pass; "
         f"mode 3 runs 3 passes per volume: encode, decode, coding gap), "
         f"native coder calls {rans.native_call_counts()}")
-    k3_pass_breakdown(codec, shape, pass_ms, rng, dev)
+    k3_pass_breakdown(codec, vol.shape, pass_ms, rng, dev)
+    modes_0_1(codec, vol)
     return row, launches["probclass_front_logits"]
 
 
@@ -3898,6 +3966,232 @@ def frontdoor_phase(seed: int, dev, ckpts=None) -> int:
     return k2
 
 
+CHAOS_ENCODES, CHAOS_CRASHES, CHAOS_CORRUPT = 40, 2, 6   # the JAX smoke's
+LANE_REQUESTS = 16                  # a scenario of the lane battery
+LEG_REQUESTS, LEG_RATE = 16, 4.0    # a transport of the router leg
+
+
+def all_launches() -> dict:
+    """This process's launches of every kernel wrapper."""
+    return dict(sk.launch_counts, **pk.launch_counts, **ek.launch_counts)
+
+
+def reset_all_launches() -> None:
+    sk.reset_launch_counts()
+    pk.reset_launch_counts()
+    ek.reset_launch_counts()
+
+
+def replica_launch_sum(per_scenario: dict) -> dict:
+    """Kernel launches summed over every replica of every run (each
+    replica's own counts, `serve_kernel_launches` from its scrape)."""
+    out = collections.Counter()
+    for per_replica in per_scenario.values():
+        for counts in per_replica.values():
+            out.update(counts)
+    return dict(out)
+
+
+def chaos_args(seed: int, dev, *flags):
+    """The chaos bench's flags at full width: ae_kitti_stereo +
+    pc_default, phase 10's buckets, the JAX smoke counts."""
+    return chaos_bench.parse_args([
+        "--device", str(dev), "--seed", str(seed),
+        "--ae_config", config_path("ae_kitti_stereo"),
+        "--pc_config", config_path("pc_default"),
+        "--buckets", " ".join(f"{h},{w}" for h, w in SERVE_BUCKETS),
+        "--requests", str(CHAOS_ENCODES), "--crashes", str(CHAOS_CRASHES),
+        "--crash_probability", "1.0",
+        "--corrupt_streams", str(CHAOS_CORRUPT),
+        "--timeout_s", str(SERVE_TIMEOUT_S), *flags])
+
+
+def chaos_soak(seed: int, dev, imgs, card: str) -> None:
+    """(a): the main soak on the process backend, pipe, depth 2."""
+    args = chaos_args(seed, dev, "--entropy_backend", "process",
+                      "--transport", "pipe", "--pipeline_depth", "2",
+                      "--entropy_workers", "4")
+    t0 = time.perf_counter()
+    rep = chaos_bench.run_chaos(args, images=imgs)
+    wall = time.perf_counter() - t0
+    sup, integ, inv = rep["supervision"], rep["integrity"], rep["invariants"]
+    if rep["violations"]:
+        raise AssertionError(f"(a) the soak: {rep['violations']}")
+    if not (sup["pool_restored"] and sup["worker_restarts"] >= 1
+            and inv["hung_futures"] == 0 and inv["untyped_errors"] == 0
+            and integ["false_negatives"] == 0 and rep["steady_builds"] == 0
+            and rep["flight_recorder"]["dumps"] >= 1
+            and rep["clean_decodes_after_chaos"] > 0
+            and integ["door"]["corrupted"] == CHAOS_CORRUPT
+            and integ["worker_side"]["corrupted"] == CHAOS_CORRUPT):
+        raise AssertionError(f"(a) the soak's invariants: {rep}")
+    load = rep["load"]
+    log(f"  (a) the soak ({card}): {wall:.1f} s (warmup "
+        f"{rep['warmup'].get('seconds', 0.0):.1f} s, phases A-D "
+        f"{rep['duration_s']:.1f} s); {load['submitted']} encodes admitted "
+        f"of {CHAOS_ENCODES} ({load['door_rejects']} shed typed at the "
+        f"door), {load['completed_ok']} ok, {load['typed_errors']} typed; "
+        f"crashes {sup['worker_crashes']}, restarts "
+        f"{sup['worker_restarts']}, pool restored, health "
+        f"{' -> '.join(sup['health_transitions'])}; corrupt streams caught "
+        f"{integ['door']['detected']}/{integ['door']['corrupted']} at the "
+        f"door, {integ['worker_side']['detected']}/"
+        f"{integ['worker_side']['corrupted']} in the worker (serve.rans); "
+        f"{rep['clean_decodes_after_chaos']} clean decodes after; flight "
+        f"dumps {rep['flight_recorder']['dumps']} (last "
+        f"{rep['flight_recorder']['last_dump_events']} events); no hung "
+        f"future, no untyped error, no build")
+
+
+class Prestarted:
+    """Routers started on threads of their own ahead of the sub-phase that
+    uses them (phase 14's trim: replica starts overlap the previous
+    sub-phase). `starters(key)` gives zero-argument callables that wait
+    for their router; `close()` drains any router nobody took."""
+
+    def __init__(self, starters: dict):
+        self._pool = ThreadPoolExecutor(len(starters))
+        self._futs = {k: self._pool.submit(fn) for k, fn in starters.items()}
+        self._taken = set()
+
+    def starters(self) -> dict:
+        def take(key):
+            self._taken.add(key)
+            return self._futs[key].result(SERVE_TIMEOUT_S)
+        return {k: (lambda k=k: take(k)) for k in self._futs}
+
+    def segments(self) -> set:
+        """The lane rings of every router here, once each has started."""
+        out = set()
+        for fut in self._futs.values():
+            out |= chaos_bench.router_segments(fut.result(SERVE_TIMEOUT_S))
+        return out
+
+    def close(self) -> None:
+        for key, fut in self._futs.items():
+            if key not in self._taken:
+                try:
+                    fut.result(SERVE_TIMEOUT_S).drain(timeout_s=60)
+                except Exception:  # noqa: BLE001 - a failed start: nothing
+                    pass
+        self._pool.shutdown(wait=True)
+
+
+def lane_args(seed: int, dev):
+    return chaos_args(seed, dev, "--requests", str(LANE_REQUESTS),
+                      "--entropy_workers", "4")
+
+
+def leg_args(seed: int, dev):
+    return argparse.Namespace(
+        ae_config=config_path("ae_kitti_stereo"),
+        pc_config=config_path("pc_default"), seed=seed,
+        buckets=" ".join(f"{h},{w}" for h, w in SERVE_BUCKETS),
+        shapes=f"{H},{W}", requests=LEG_REQUESTS, rate=LEG_RATE,
+        decode_samples=4, max_wait_ms=5.0, entropy_workers=4,
+        device=str(dev))
+
+
+def lane_battery(seed: int, dev, img, card: str, routers, census0,
+                 foreign) -> dict:
+    """(b): the lane battery, LANE_REQUESTS a scenario, on the started
+    `routers`, its census taken before they started (`census0`) and
+    without (c)'s routers' rings (`foreign`); -> the replicas' kernel
+    launches."""
+    t0 = time.perf_counter()
+    rep = chaos_bench.run_transport(lane_args(seed, dev), image=img,
+                                    routers=routers, census_before=census0,
+                                    foreign=foreign)
+    wall = time.perf_counter() - t0
+    if rep["violations"]:
+        raise AssertionError(f"(b) the lane battery: {rep['violations']}")
+    sc = rep["scenarios"]
+    lc, le = sc["lane_corruption"], sc["lane_exhaustion"]
+    rd = sc["replica_death_mid_descriptor"]
+    log(f"  (b) the lane battery ({card}): {wall:.1f} s; {lc['flips_caught']}"
+        f" of {lc['frame_bits']} bit flips caught, "
+        f"{lc['geometry_refusals']} of 3 liars refused; exhaustion "
+        f"{le['completed_ok']} of {le['submitted']} served, "
+        f"{le['lane_sends']} lane sends, {le['fallback_exhausted']} typed "
+        f"fallbacks; a replica SIGKILLed with {rd['submitted']} in flight: "
+        f"{rd['completed_ok']} ok, {rd['typed_errors']} typed, "
+        f"{rd['reroutes']} rerouted, deaths {rd['replica_deaths']}; "
+        f"census {rep['shm_census']['before']} -> "
+        f"{rep['shm_census']['after']}")
+    return replica_launch_sum(rep["replica_kernel_launches"])
+
+
+def router_leg(seed: int, dev, imgs, card: str, routers) -> dict:
+    """(c): the serve bench's router transport leg, pipe then shm, on the
+    started `routers`; -> the replicas' kernel launches."""
+    probes = [imgs[0], imgs[10], imgs[12]]           # one of each shape
+    t0 = time.perf_counter()
+    sub = leg_lib.run_router_transport(leg_args(seed, dev), images=imgs,
+                                       probes=probes, routers=routers)
+    wall = time.perf_counter() - t0
+    violations = leg_lib.gate_router_transport(sub)
+    if violations:
+        raise AssertionError(f"(c) the router transport leg: {violations}")
+    runs = sub["runs"]
+    for t, run in runs.items():
+        if (run["completed"] != LEG_REQUESTS or run["decode_roundtrips"] != 4
+                or set(run["replica_builds_after_ready"].values()) != {0}):
+            raise AssertionError(f"(c) {t}: {run}")
+    log(f"  (c) the router transport leg ({card}): {wall:.1f} s; "
+        + "; ".join(f"{t}: {r['throughput_rps']} requests/s "
+                    f"({r['completed']} in {r['duration_s']:.2f} s), lane "
+                    f"sends {r['shm']['sends']}, fallbacks "
+                    f"{r['shm']['fallbacks']}, integrity errors "
+                    f"{r['shm']['integrity_errors']}, effective cores "
+                    f"{r['effective_cores']}" for t, r in runs.items())
+        + f"; shm_vs_pipe {sub['shm_vs_pipe']}, probe streams "
+          f"byte-identical across transports")
+    return replica_launch_sum({t: r["replica_kernel_launches"]
+                               for t, r in runs.items()})
+
+
+def chaos_phase(seed: int, dev) -> dict:
+    """Phase 14 (see the module docstring); -> the kernel launches it made,
+    in this process and in every replica (all 0: no SI traffic, mode 2).
+    (b)'s routers start while (a) runs and (c)'s while (b) runs; (c)'s two
+    runs then each run alone."""
+    card = card_line()
+    _, imgs, _ = serve_traffic(seed)
+    children0, shm0 = child_pids(), shm_segments()
+    reset_all_launches()
+    launches = collections.Counter()
+    census0 = chaos_bench.shm_census()
+    lanes = Prestarted(chaos_bench.transport_routers(lane_args(seed, dev)))
+    legs = None
+    try:
+        t0 = time.perf_counter()
+        chaos_soak(seed, dev, imgs, card)
+        t1 = time.perf_counter()
+        legs = Prestarted(leg_lib.router_transport_routers(
+            leg_args(seed, dev)))
+        launches.update(lane_battery(seed, dev, imgs[0], card,
+                                     lanes.starters(), census0,
+                                     legs.segments))
+        t2 = time.perf_counter()
+        launches.update(router_leg(seed, dev, imgs, card, legs.starters()))
+        t3 = time.perf_counter()
+    finally:
+        lanes.close()
+        if legs is not None:
+            legs.close()
+    launches.update(all_launches())
+    if child_pids() != children0 or shm_segments() != shm0:
+        raise AssertionError(f"phase 14 left children {child_pids()} or "
+                             f"segments {shm_segments()}")
+    if any(launches.values()):
+        raise AssertionError(f"phase 14 launched kernels: {dict(launches)}")
+    log(f"  phase 14: (a) {t1 - t0:.1f} s, (b) {t2 - t1:.1f} s, (c) "
+        f"{t3 - t2:.1f} s (each with the replica starts it waited for); "
+        f"kernel launches in this process and its replicas "
+        f"{dict(launches)}; no child and no segment left ({card})")
+    return dict(launches)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3912,14 +4206,14 @@ def main() -> int:
     rows, launches, walls = {}, {}, []
 
     def phase(title, fn):
-        log(f"[{len(walls) + 2}/13] {title}")
+        log(f"[{len(walls) + 2}/14] {title}")
         t0 = time.perf_counter()
         out = fn()
         walls.append((len(walls) + 2, time.perf_counter() - t0))
         log(f"  phase {walls[-1][0]}: {walls[-1][1]:.1f} s")
         return out
 
-    log(f"[1/13] card: {card}; torch {torch.__version__}, CUDA "
+    log(f"[1/14] card: {card}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}")
     phase("build", build_phase)
     rows.update(phase(f"kernel vs plain at {H}x{W}, patches {PH}x{PW}, seed "
@@ -3972,6 +4266,12 @@ def main() -> int:
         "two-wave rollout, ckpt_gc, session pinning and a replica's death",
         lambda: frontdoor_phase(args.seed, dev, life))
     shutil.rmtree(life_root, ignore_errors=True)
+    for name, n in phase(
+            "the service's robustness at full width: the chaos soak (process "
+            "backend, pipe), the shared-memory lane battery and the serve "
+            "bench's router transport leg (pipe, shm)",
+            lambda: chaos_phase(args.seed, dev)).items():
+        launches[name] = launches.get(name, 0) + n
     log("phase wall s: " + ", ".join(f"[{i}] {t:.1f}" for i, t in walls))
     kernels = [dict(name=name, route="cuda", source=SOURCES[name],
                     replaces=REPLACES[name], launches=launches[name], **r)

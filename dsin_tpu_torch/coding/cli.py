@@ -49,6 +49,7 @@ from dsin_tpu_torch.data.png import read_png, write_png
 from dsin_tpu_torch.models.quantizer import centers_lookup
 from dsin_tpu_torch.ops import sifinder as sifinder_lib
 from dsin_tpu_torch.runtime import config_path
+from dsin_tpu_torch.utils import faults
 from dsin_tpu_torch.utils.integrity import (IntegrityError, frame_crc,
                                             verify_crc)
 
@@ -193,6 +194,7 @@ def decompress(in_path: str, out_path: str, ae_config: str = DEFAULT_AE,
                device="cuda") -> dict:
     with open(in_path, "rb") as f:
         blob = f.read()
+    blob = faults.corrupt("io.read", blob)   # no-op without a fault plan
     img = decompress_array(blob, None if side is None else read_image(side),
                            ae_config, pc_config, ckpt, seed, device)
     write_png(img, out_path)

@@ -29,9 +29,25 @@ Stream modes (the DTPC header is the JAX package's, unchanged):
   card, the plain version for the CPU). The two engines differ in the last
   ulp, as the Pallas kernel in interpret mode and on a TPU already do under
   the same byte.
-* 0 (sequential) and 1 (wavefront) are the JAX package's jit cross-check
-  engines; they are not ported, and decoding or encoding them raises a
-  typed ValueError that names the mode.
+* **1, wavefront**: each front's context blocks through the context model
+  itself (`models/probclass.py` `ResShallow`: cuDNN's `conv3d` on the card,
+  TF32 off and deterministic algorithms as everywhere in the port), one
+  batched call a front, every front padded to the next power of two so
+  that encode and decode run identical batches (`front_bucket`).
+* **0, sequential**: one position a call, in raster order, through the same
+  network on the position's causal block: the obviously-correct baseline.
+  It calls the network once per position (195,840 calls for a (32, 40,
+  153) volume), so it is for cross-checks and small volumes.
+
+Modes 0 and 1 keep mode 3's same-process contract: a stream decodes
+exactly wherever the same engine encoded it. The port's `conv3d` and XLA's
+convolution are different float programs, so a front's logits may differ
+from the JAX package's engines in the last ulp, and one ulp can move one
+integer frequency. At the tiny configuration the logits agree within
+1e-7, and the tables differ from the JAX engines' at 10 of 2,610
+positions in mode 0 and 2 of 2,610 in mode 1, by at most 4 units of
+65,536 (12 test volumes, `tests/test_torch_codec_modes.py`; ROADMAP Queue
+3): a volume whose tables all agree gives the JAX package's bytes.
 """
 
 from __future__ import annotations
@@ -41,6 +57,7 @@ import threading
 from typing import Tuple
 
 import numpy as np
+import torch
 
 from dsin_tpu_torch.coding import rans
 from dsin_tpu_torch.coding.incremental import (IncrementalResShallow,
@@ -78,8 +95,9 @@ class BottleneckCodec:
     `probclass.front_weight_matrices`; `centers` the (L,) quantizer centers
     that decoded symbols map through to rebuild the volume the context model
     conditions on; `pc_config` gives kernel_size and use_centers_for_padding.
-    `device` is where mode 3 runs its front kernel: the card by default,
-    raising without one; only `device="cpu"` runs its plain version.
+    `device` is where mode 3 runs its front kernel and modes 0 and 1 their
+    network: the card by default, raising without one; only
+    `device="cpu"` runs on the CPU (mode 3 through K3's plain version).
     """
 
     @classmethod
@@ -107,6 +125,7 @@ class BottleneckCodec:
         self._engine_lock = threading.Lock()
         self._incremental = None     # built at first use, under the lock
         self._front_kernel = None
+        self._network = None
 
     def _incremental_engine(self):
         with self._engine_lock:
@@ -123,6 +142,29 @@ class BottleneckCodec:
                                                           self.device)
             return self._front_kernel
 
+    def _network_engine(self):
+        """The context model as a ResShallow on the codec's device, for
+        modes 0 and 1 (built at first use; read-only, so clones share it)."""
+        with self._engine_lock:
+            if self._network is None:
+                self._network = pc_lib.res_shallow_from_front_weights(
+                    self.weights, self.pc_config, self.device)
+            return self._network
+
+    def _block_logits_batch(self, blocks: np.ndarray) -> np.ndarray:
+        """(B, cd, cs, cs) float32 causal blocks -> (B, L) float32 logits:
+        one ResShallow call (VALID convs over exactly the receptive field
+        leave one output position per block)."""
+        net = self._network_engine()
+        x = torch.from_numpy(np.ascontiguousarray(blocks, np.float32))
+        with torch.inference_mode():
+            out = net(x.to(self.device)[:, None])
+        return out[:, :, 0, 0, 0].cpu().numpy()
+
+    def _block_logits(self, block: np.ndarray) -> np.ndarray:
+        """One (cd, cs, cs) block -> its (L,) logits: a batch of one."""
+        return self._block_logits_batch(block[None])[0]
+
     def thread_clone(self) -> "BottleneckCodec":
         """A per-thread twin for entropy pools (`serve/service.py`): shares
         this codec's read-only weights, its incremental engine (whose
@@ -136,6 +178,7 @@ class BottleneckCodec:
         with self._engine_lock:
             # read-only once built; may still be None (lazy)
             clone._front_kernel = self._front_kernel
+            clone._network = self._network
         return clone
 
     # -- internals ----------------------------------------------------------
@@ -146,6 +189,24 @@ class BottleneckCodec:
         p = self.pad
         return np.full((d + p, h + 2 * p, w + 2 * p), self.pad_value,
                        dtype=np.float32)
+
+    def _freqs_at(self, buf: np.ndarray, d: int, h: int, w: int) -> np.ndarray:
+        """Mode 0's table at (d, h, w): the position's causal block of the
+        padded buffer through the network, softmax in float64 on the host,
+        quantized (the JAX package's scalar path)."""
+        cd, cs, _ = self.ctx_shape
+        logits = self._block_logits(buf[d:d + cd, h:h + cs, w:w + cs])
+        z = logits.astype(np.float64)
+        z = z - z.max()
+        pmf = np.exp(z)
+        pmf /= pmf.sum()
+        return rans.quantize_pmf(pmf, self.scale_bits)
+
+    def _positions(self, d: int, h: int, w: int):
+        for dd in range(d):
+            for hh in range(h):
+                for ww in range(w):
+                    yield dd, hh, ww
 
     def _tables_from_logits(self, logits_batch: np.ndarray):
         """(n, L) float64 logits -> (freqs (n, L) u32, cum (n, L+1) u32).
@@ -183,16 +244,19 @@ class BottleneckCodec:
         return np.split(pos, bounds)
 
     def _wavefront_pass(self, shape: Tuple[int, int, int], front_symbols,
-                        logits_fn):
-        """Wavefront driver over context blocks: for each front (t
-        ascending) gather its (cd, cs, cs) blocks from a sliding-window
-        VIEW of the buffer (which sees each front's write-back), pad them
-        to the front's bucket, get the logits from `logits_fn(blocks) ->
-        (bucket, L)` in one call, obtain the front's symbols via
+                        logits_fn=None):
+        """Wavefront driver over context blocks (mode 1; mode 3 passes its
+        kernel as `logits_fn`): for each front (t ascending) gather its
+        (cd, cs, cs) blocks from a sliding-window VIEW of the buffer (which
+        sees each front's write-back), pad them to the front's bucket (the
+        next power of two: encode and decode run the same batch), get the
+        logits from `logits_fn(blocks) -> (bucket, L)` in one call (the
+        network by default), obtain the front's symbols via
         `front_symbols(front, cum_b, freqs_b) -> (n,) ints` (encode: a
         gather from the known volume; decode: one native rANS call), write
         their centers back, and yield (front (n,3), symbols (n,), cum_b
         (n,L+1), freqs_b (n,L))."""
+        fn = logits_fn if logits_fn is not None else self._block_logits_batch
         d, h, w = shape
         buf = self._make_buffer(d, h, w)
         p = self.pad
@@ -206,7 +270,7 @@ class BottleneckCodec:
             bucket = front_bucket(n, max_bucket)
             blocks[:n] = win[front[:, 0], front[:, 1], front[:, 2]]
             blocks[n:bucket] = 0.0  # deterministic padding
-            logits = np.asarray(logits_fn(blocks[:bucket]),
+            logits = np.asarray(fn(blocks[:bucket]),
                                 dtype=np.float64)[:n]
             freqs_b, cum_b = self._tables_from_logits(logits)
             s = np.asarray(front_symbols(front, cum_b, freqs_b),
@@ -234,16 +298,40 @@ class BottleneckCodec:
             shape, front_symbols,
             logits_fn=self._front_kernel_engine().front_logits)
 
+    def _scan(self, shape: Tuple[int, int, int], symbol_at):
+        """The sequential driver (mode 0): walk the volume in causal raster
+        order keeping the padded buffer; at each position compute the
+        table, ask `symbol_at(position, cum, freqs)` for the symbol, write
+        its center back, and yield (position, symbol, cum, freqs)."""
+        d, h, w = shape
+        buf = self._make_buffer(d, h, w)
+        p = self.pad
+        for pos in self._positions(d, h, w):
+            dd, hh, ww = pos
+            freqs = self._freqs_at(buf, dd, hh, ww)
+            cum = rans.cum_from_freqs(freqs)
+            s = symbol_at(pos, cum, freqs)
+            buf[dd + p, hh + p, ww + p] = self.centers[s]
+            yield pos, s, cum, freqs
+
+    def _sequential_pass(self, shape: Tuple[int, int, int], front_symbols):
+        """`_scan` under the front-pass contract: every position is a
+        front of one, so encode, decode and ideal_bits take mode 0 through
+        the same code as the wavefront modes (a front of one decodes as
+        one `decode_symbol`; a one-term sum adds the same float)."""
+        def symbol_at(pos, cum, freqs):
+            return int(front_symbols(np.array([pos]), cum[None],
+                                     freqs[None])[0])
+
+        for pos, s, cum, freqs in self._scan(shape, symbol_at):
+            yield np.array([pos]), np.array([s]), cum[None], freqs[None]
+
     def _passes_for(self, mode_id: int):
         """Front-pass driver of a stream mode: the ONE mode -> engine map
         that encode, decode and ideal_bits share."""
-        if mode_id in (MODE_SEQUENTIAL, MODE_WAVEFRONT):
-            raise ValueError(
-                f"stream mode {mode_id} ({_MODE_NAMES[mode_id]}) is one of "
-                f"the JAX package's jit cross-check engines, which this "
-                f"package does not port; it codes modes 2 (wavefront_np) "
-                f"and 3 (wavefront_pl)")
-        return {MODE_WAVEFRONT_NP: self._wavefront_pass_np,
+        return {MODE_SEQUENTIAL: self._sequential_pass,
+                MODE_WAVEFRONT: self._wavefront_pass,
+                MODE_WAVEFRONT_NP: self._wavefront_pass_np,
                 MODE_WAVEFRONT_PL: self._wavefront_pass_pl}[mode_id]
 
     @staticmethod

@@ -127,6 +127,29 @@ def front_weight_matrices(model: ResShallow):
     return out
 
 
+def res_shallow_from_front_weights(weights, pc_config,
+                                   device="cpu") -> ResShallow:
+    """The inverse of `front_weight_matrices`: a ResShallow on `device`
+    whose masked convs are the four pre-masked (W (taps*Cin, Cout), b
+    (Cout,)) pairs, for the engines that hold only those pairs (the codec,
+    a worker's codec from its spec). Masking a pre-masked weight again
+    changes nothing, so its forward is the model's. Frozen, in eval
+    mode."""
+    net = ResShallow(pc_config, int(weights[3][0].shape[1]))
+    fs = filter_shape(int(pc_config.kernel_size))
+    for conv, (wmat, bias) in zip((net.conv0, net.conv1, net.conv2,
+                                   net.conv3), weights):
+        wmat = np.asarray(wmat, np.float32)
+        kern = wmat.reshape(fs + (wmat.shape[0] // int(np.prod(fs)),
+                                  wmat.shape[1]))
+        with torch.no_grad():
+            conv.weight.copy_(torch.from_numpy(
+                np.ascontiguousarray(kern.transpose(4, 3, 0, 1, 2))))
+            conv.bias.copy_(torch.from_numpy(np.asarray(bias, np.float32)))
+    net.requires_grad_(False)
+    return net.eval().to(device)
+
+
 def get_network_cls(pc_config):
     return {"res_shallow": ResShallow}[pc_config.arch]
 

@@ -81,6 +81,19 @@ class ShmLaneError(RuntimeError):
     means the *bytes* are suspect rather than the bookkeeping."""
 
 
+# names of the segments this process created: the lane battery's leak
+# census reads them, so rings of other processes on the host cannot move it
+_created_lock = threading.Lock()
+_created: set = set()      # guarded-by: _created_lock
+
+
+def created_segments() -> List[str]:
+    """Every segment name `LaneRing.create` made in this process, live or
+    unlinked, sorted."""
+    with _created_lock:
+        return sorted(_created)
+
+
 @dataclass(frozen=True)
 class LaneClass:
     """One size class inside a ring: `n_lanes` lanes of `lane_bytes`
@@ -170,6 +183,8 @@ class LaneRing:
         name = f"dsintorch-{name_hint}-{secrets.token_hex(4)}"
         shm = shared_memory.SharedMemory(
             name=name, create=True, size=max(probe._size, _LANE_ALIGN))
+        with _created_lock:
+            _created.add(name)
         ring = cls(shm, classes, owner=True, metrics=metrics)
         n_states = sum(c.n_lanes for c in classes)
         shm.buf[:n_states] = bytes(n_states)

@@ -1,11 +1,17 @@
-"""Five batteries of the chaos bench (counterparts of the JAX package's
-`tools/chaos_bench.py` `run_hotswap` :407, `run_sessions` :867,
-`run_degraded` :1158, `run_autoscale` :1430 and `run_federation` :1984):
-the live model operations and the degraded model, each against one
-running `CompressionService`; the side-information sessions, against
+"""The chaos bench: the main soak and its six batteries (counterparts of the
+JAX package's `tools/chaos_bench.py` `run_chaos` :163, `run_hotswap` :407,
+`run_sessions` :867, `run_degraded` :1158, `run_autoscale` :1430,
+`run_transport` :1781 and `run_federation` :1984, and of its `main`):
+the soak, the live model operations and the degraded model, each against
+one running `CompressionService`; the side-information sessions, against
 services and a session-pinning `FrontDoorRouter`; the elastic fleet and
-the federated fleet, against routers of real services on threads.
+the federated fleet, against routers of real services on threads; the
+shared-memory lanes, against a ring and routers of spawned replicas.
 
+    python -m dsin_tpu_torch.tools.chaos_bench --smoke --device cpu \\
+        --out /tmp/c.json                 # the soak, then all six batteries
+    python -m dsin_tpu_torch.tools.chaos_bench --smoke --transport_only \\
+        --device cpu --out /tmp/t.json
     python -m dsin_tpu_torch.tools.chaos_bench --smoke --hotswap_only \\
         --device cpu --out /tmp/h.json
     python -m dsin_tpu_torch.tools.chaos_bench --smoke --degraded_only \\
@@ -77,12 +83,38 @@ the aborted-digest reconcile; a member's death with pinned sessions.
 Invariants in both: no hung future, every error typed, no torn version,
 no native build after the publishing, a non-empty flight dump.
 
-The transport battery and the main soak are refused with an error that
-names ROADMAP Queue 1 item 11g. `--smoke` serves the tiny configuration (the
-JAX bench's smoke configs) at seconds of CPU; without it the AE and PC
+Main soak (the bare call, before the six batteries in the JAX order):
+(A) `--requests` encodes under `serve.worker.batch` crash faults (at most
+`--crashes`, each visit at `--crash_probability` after the first two) and
+delay faults; the supervisor must restore `live_workers` to the configured
+count and /healthz to ok (the health transitions are reported); (B)
+bit-flipped streams must be refused at the door or fail their own future;
+(C) `serve.rans` corruption after admission must fail each decode with
+IntegrityError: zero false negatives in B and C; (D) clean decodes after
+the chaos, and a non-empty flight dump. Invariants: no hung future, no
+untyped error, no native build (`steady_builds`, where the JAX soak counts
+XLA compiles). The JAX soak's `lock_discipline` section and its inversion
+check are left out: the report says why (`LOCKS_NOT_PORTED`).
+
+Lane battery (`--transport_only`): (1) every bit of a lane frame flipped
+in the mapped segment must raise a typed error, never a wrong payload, and
+descriptors that lie about the ring are refused; (2) one spawned replica
+with one lane per class: a burst's claims that find no lane fall back to
+the pipe typed and counted, every request served, no hung future; (3) one
+replica of two SIGKILLed with descriptors in flight: futures resolve
+(rerouted or typed), the survivor serves, and the /dev/shm census after
+the battery equals the census before it. The census is of the segments
+this process created (`shmlane.created_segments`: the router creates
+every ring its replicas use), where the JAX census lists every "dsin-"
+segment on the host, so that rings of other processes cannot move it. The
+report carries each replica's kernel launches (`replica_kernel_launches`).
+
+`--smoke` serves the tiny configuration (the JAX bench's smoke configs)
+with the JAX smoke counts at seconds of CPU; without it the AE and PC
 configs are `--ae_config` / `--pc_config`. Like every entry point of the
-port it runs on the card unless `--device cpu` is given. Exits 1 on any
-violation; the report goes to `--out`.
+port it runs on the card unless `--device cpu` is given. Every battery's
+violations gate the exit code: exit 1 on any; the report goes to `--out`
+(default CHAOS_BENCH_TORCH.json, never the JAX bench's CHAOS_BENCH.json).
 """
 
 from __future__ import annotations
@@ -107,15 +139,20 @@ from dsin_tpu_torch.models.dsin import build_model
 from dsin_tpu_torch.runtime import config_path, resolve_device
 from dsin_tpu_torch.serve import protocol
 from dsin_tpu_torch.serve import router as router_lib
+from dsin_tpu_torch.serve import shmlane as shmlane_lib
 from dsin_tpu_torch.serve import (CanaryFailed, CompressionService,
                                   FrontDoorRouter, ServeError, ServiceConfig,
                                   SessionExpired)
 from dsin_tpu_torch.train import checkpoint as ckpt_lib
 from dsin_tpu_torch.utils import faults
 
-ROADMAP_CHAOS = ("ROADMAP Queue 1 item 11g (the rest of the chaos bench: "
-                 "the main soak, the transport battery and the codec "
-                 "CLI's io.read hook)")
+LOCKS_NOT_PORTED = ("the JAX soak runs under ranked-lock enforcement and "
+                    "gates on lock-order inversions; the port uses "
+                    "threading.Lock and does not port ranked locks, by "
+                    "design (ROADMAP, 'Not to port')")
+#: the JAX main's order: the soak, then the six batteries
+BATTERIES = ("hotswap", "sessions", "degraded_model", "autoscale",
+             "transport", "federation")
 
 #: the JAX bench's smoke configuration (its tools/serve_bench.py)
 SMOKE_AE_CFG = """
@@ -263,6 +300,438 @@ def service_config(args, buckets, **over) -> ServiceConfig:
               device=args.device)
     kw.update(over)
     return ServiceConfig(**kw)
+
+
+def flip_bit(blob: bytes, bit: int) -> bytes:
+    out = bytearray(blob)
+    out[bit // 8] ^= 1 << (bit % 8)
+    return bytes(out)
+
+
+def run_chaos(args, images=None) -> dict:
+    """The main soak (see the module docstring): phases A-D against one
+    running service, its worker pool under crash and delay faults.
+    `images` (H, W, 3) uint8, cycled by the encodes; default: noise at
+    `--shapes`, the JAX soak's."""
+    from dsin_tpu_torch.serve import IntegrityError
+
+    shapes = parse_shapes(args.shapes)
+    buckets = parse_shapes(args.buckets)
+    # every injected fault that resolves a future typed, and every worker
+    # death, must leave a non-empty flight dump behind
+    flight_dir = tempfile.mkdtemp(prefix="chaos_flight_")
+    cfg = ServiceConfig(
+        ae_config=args.ae_config, pc_config=args.pc_config, ckpt=args.ckpt,
+        seed=args.seed, buckets=buckets, max_batch=args.max_batch,
+        max_wait_ms=args.max_wait_ms, max_queue=args.max_queue,
+        workers=args.workers, entropy_workers=args.entropy_workers,
+        entropy_backend=args.entropy_backend, transport=args.transport,
+        pipeline_depth=args.pipeline_depth, restart_backoff_s=0.02,
+        restart_backoff_max_s=0.25, trace_sample_rate=1.0,
+        flight_dir=flight_dir, flight_dump_min_interval_s=0.0,
+        device=args.device)
+    service = CompressionService(cfg).start()
+    warm = service.warmup()
+
+    rng = np.random.default_rng(args.seed)
+    if images is None:
+        images = [rng.integers(0, 255, (h, w, 3), dtype=np.uint8)
+                  for h, w in shapes]
+
+    violations = []
+    health_transitions = []
+
+    def note_health():
+        status = service.health()["status"]
+        if not health_transitions or health_transitions[-1] != status:
+            health_transitions.append(status)
+
+    t0 = time.monotonic()
+    builds = native_build.build_count()
+    # -- phase A: encode load under crashes and slow batches --------------
+    plan = faults.FaultPlan([
+        faults.FaultSpec(site="serve.worker.batch", action="crash",
+                         probability=args.crash_probability, after=2,
+                         times=args.crashes),
+        faults.FaultSpec(site="serve.worker.batch", action="delay",
+                         probability=0.1, delay_s=0.02, times=10),
+    ], seed=args.seed)
+    futures, door_rejects = [], 0
+    with faults.installed(plan):
+        for i in range(args.requests):
+            try:
+                futures.append(service.submit_encode(
+                    images[i % len(images)]))
+            except ServeError:
+                door_rejects += 1          # typed rejection at the door
+            note_health()
+            time.sleep(args.submit_gap_s)
+        load_counts, load_hung = await_all(futures, args.timeout_s)
+
+    # -- pool restoration after the crash phase ---------------------------
+    restore_deadline = time.monotonic() + 10.0
+    while (service.live_workers < cfg.workers
+           and time.monotonic() < restore_deadline):
+        time.sleep(0.02)
+    note_health()
+    pool_restored = service.live_workers == cfg.workers
+    restarts = service.metrics.counter("serve_worker_restarts").value
+    if plan.activations["serve.worker.batch"] == 0:
+        violations.append("no faults fired in phase A (vacuous run)")
+    if not pool_restored:
+        violations.append(f"worker pool not restored: "
+                          f"{service.live_workers}/{cfg.workers} live")
+    if service.health()["status"] != "ok":
+        violations.append(f"health did not return to ok: "
+                          f"{service.health()}")
+
+    # good streams for the integrity phases (done() first: a hung future
+    # is reported as one, not raised here)
+    good = [f.result(timeout=0) for f in futures
+            if f.done() and f.exception(timeout=0) is None]
+    if len(good) < 4:
+        violations.append(f"only {len(good)} successful encodes — not "
+                          f"enough to exercise integrity")
+
+    # -- phase B: door integrity (bit-flipped frames at submit) ------------
+    door_detected, door_missed = 0, 0
+    for res in good[:args.corrupt_streams]:
+        blob = res.stream
+        bit = int(rng.integers(0, len(blob) * 8))
+        try:
+            f = service.submit_decode(flip_bit(blob, bit))
+        except (ValueError, ServeError):
+            # IntegrityError (CRC) or a structural ValueError: both are
+            # detections, and nothing was admitted
+            door_detected += 1
+            continue
+        if f.exception(timeout=args.timeout_s) is None:
+            door_missed += 1           # decoded an image: false negative
+        else:
+            door_detected += 1
+
+    # -- phase C: worker-side integrity (serve.rans corruption) ------------
+    rans_plan = faults.FaultPlan([faults.FaultSpec(
+        site="serve.rans", action="corrupt", probability=1.0)],
+        seed=args.seed + 1)
+    rans_detected, rans_missed = 0, 0
+    with faults.installed(rans_plan):
+        for res in good[:args.corrupt_streams]:
+            f = service.submit_decode(res.stream)
+            if isinstance(f.exception(timeout=args.timeout_s),
+                          IntegrityError):
+                rans_detected += 1
+            else:
+                rans_missed += 1
+    if door_missed or rans_missed:
+        violations.append(f"integrity false negatives: {door_missed} at "
+                          f"the door, {rans_missed} worker-side")
+
+    # -- phase D: the service still serves cleanly -------------------------
+    clean_ok = 0
+    for res in good[:args.decode_samples]:
+        if service.decode(res.stream, timeout=args.timeout_s).ndim == 3:
+            clean_ok += 1
+    if clean_ok < min(args.decode_samples, len(good)):
+        violations.append("fault-free decodes failed after the chaos")
+    steady_builds = native_build.build_count() - builds
+
+    if load_hung:
+        violations.append(f"{load_hung} hung futures in phase A")
+    if load_counts["untyped"]:
+        violations.append(f"{load_counts['untyped']} untyped errors")
+    if steady_builds:
+        violations.append(f"{steady_builds} native builds in steady state "
+                          f"(recovery must reuse the built libraries)")
+
+    # the phases above fired worker crashes AND typed integrity errors,
+    # both dump triggers: an empty recorder means the forensics are dead
+    service.flight.flush(timeout=10.0)
+    flight_meta = service.flight.meta()
+    flight_last_events = 0
+    if flight_meta["last_dump_path"]:
+        with open(flight_meta["last_dump_path"]) as f:
+            flight_last_events = sum(1 for _ in f) - 1   # minus the header
+    if flight_meta["dumps"] < 1 or flight_last_events < 1:
+        violations.append(
+            f"injected faults produced no non-empty flight-recorder dump "
+            f"({flight_meta['dumps']} dumps, last had {flight_last_events} "
+            f"events)")
+    crashes = service.metrics.counter("serve_worker_crashes").value
+    service.drain()
+    return {
+        "config": {
+            "shapes": [list(im.shape[:2]) for im in images],
+            "buckets": [list(b) for b in buckets],
+            "workers": args.workers,
+            "entropy_workers": service._entropy_workers,
+            "entropy_backend": args.entropy_backend,
+            "transport": args.transport,
+            "pipeline_depth": args.pipeline_depth,
+            "max_batch": args.max_batch, "max_queue": args.max_queue,
+            "requests": args.requests, "crashes": args.crashes,
+            "crash_probability": args.crash_probability,
+            "corrupt_streams": args.corrupt_streams,
+            "seed": args.seed, "smoke": args.smoke, "device": args.device,
+        },
+        "warmup": warm,
+        "load": {"submitted": len(futures), "door_rejects": door_rejects,
+                 "completed_ok": load_counts["ok"],
+                 "typed_errors": load_counts["typed"]},
+        "faults_fired": {
+            "serve.worker.batch": plan.activations["serve.worker.batch"],
+            "serve.rans": rans_plan.activations["serve.rans"]},
+        "supervision": {"worker_restarts": restarts,
+                        "worker_crashes": crashes,
+                        "pool_restored": pool_restored,
+                        "health_transitions": health_transitions},
+        "integrity": {
+            "door": {"corrupted": door_detected + door_missed,
+                     "detected": door_detected},
+            "worker_side": {"corrupted": rans_detected + rans_missed,
+                            "detected": rans_detected},
+            "false_negatives": door_missed + rans_missed},
+        "invariants": {"hung_futures": load_hung,
+                       "untyped_errors": load_counts["untyped"],
+                       "integrity_false_negatives": door_missed + rans_missed,
+                       "flight_dumps": flight_meta["dumps"]},
+        "flight_recorder": {"dumps": flight_meta["dumps"],
+                            "events_in_ring": flight_meta["events"],
+                            "last_dump_path": flight_meta["last_dump_path"],
+                            "last_dump_events": flight_last_events},
+        "lock_discipline": {"ported": False, "why": LOCKS_NOT_PORTED},
+        "clean_decodes_after_chaos": clean_ok,
+        "steady_builds": steady_builds,
+        "duration_s": round(time.monotonic() - t0, 3),
+        "violations": violations,
+    }
+
+
+def shm_census() -> list:
+    """The segments this process created that are still in /dev/shm: the
+    lane battery's leak evidence (the router creates every ring of its
+    replicas; the children only attach)."""
+    return [n for n in shmlane_lib.created_segments()
+            if os.path.exists(os.path.join("/dev/shm", n))]
+
+
+def transport_routers(args) -> dict:
+    """The lane battery's two routers, each as a zero-argument callable
+    that builds and starts it: one shm replica with one lane per class
+    (lane exhaustion), two shm replicas polled every 0.1 s (replica
+    death). A caller may start them ahead of the battery and pass
+    callables that hand over the started routers."""
+    cfg = ServiceConfig(
+        ae_config=args.ae_config, pc_config=args.pc_config, ckpt=args.ckpt,
+        seed=args.seed, buckets=parse_shapes(args.buckets),
+        max_batch=args.max_batch, max_wait_ms=args.max_wait_ms,
+        max_queue=args.max_queue, workers=args.workers,
+        entropy_workers=args.entropy_workers,
+        entropy_backend=args.entropy_backend,
+        pipeline_depth=args.pipeline_depth, device=args.device)
+    return {
+        "lane_exhaustion": lambda: FrontDoorRouter(
+            cfg, replicas=1, transport="shm",
+            shm_lanes_per_class=1).start(),
+        "replica_death_mid_descriptor": lambda: FrontDoorRouter(
+            cfg, replicas=2, transport="shm", poll_every_s=0.1).start(),
+    }
+
+
+def router_segments(router) -> set:
+    """The names of the lane rings a router created for its replicas."""
+    return {ring.name for rep in router._all_replicas()
+            for ring in (rep.rings or {}).values()}
+
+
+def run_transport(args, image=None, routers=None, census_before=None,
+                  foreign=None) -> dict:
+    """The shared-memory lane battery (see the module docstring), three
+    scenarios; `image` (H, W, 3) uint8 is what every request encodes
+    (default: noise at the first bucket, the JAX battery's); `routers` the
+    scenarios' router starters (default: `transport_routers(args)`). A
+    caller that started the routers ahead passes the census it took before
+    that (`census_before`), and `foreign()`, the segments of routers
+    outside the battery alive at its end, which both censuses leave out.
+    Smoke payloads pickle under SMALL_INLINE_MAX, so the battery drops the
+    router's inline threshold to 1 for its duration: every dispatch rides
+    a lane (the child resolves by descriptor type)."""
+    from dsin_tpu_torch.serve import IntegrityError
+
+    buckets = parse_shapes(args.buckets)
+    violations = []
+    scenarios = {}
+    if census_before is None:
+        census_before = shm_census()
+    t0 = time.monotonic()
+
+    # -- (1) lane corruption: every bit of a frame flipped in the segment --
+    ring = shmlane_lib.LaneRing.create(
+        "chaos", [shmlane_lib.LaneClass("c", 512, 2)])
+    try:
+        payload = bytes(range(96))
+        ref = ring.put(payload)
+        frame_bits = (shmlane_lib.FRAME_OVERHEAD + len(payload)) * 8
+        caught = 0
+        for bit in range(frame_bits):
+            ring._shm.buf[ref.offset + bit // 8] ^= 1 << (bit % 8)
+            try:
+                ring.take(ref, free=False)
+            except ValueError:           # IntegrityError is one
+                caught += 1
+            ring._shm.buf[ref.offset + bit // 8] ^= 1 << (bit % 8)
+        pristine_ok = ring.take(ref) == payload
+        ref2 = ring.put(b"g" * 100)
+        liars = (
+            (shmlane_lib.LaneRef(ref2.ring, ref2.cls, ref2.lane,
+                                 ref2.offset, 64), IntegrityError),
+            (shmlane_lib.LaneRef(ref2.ring, ref2.cls, ref2.lane,
+                                 ref2.offset + 8, ref2.length),
+             IntegrityError),
+            (shmlane_lib.LaneRef("not-this-ring", ref2.cls, ref2.lane,
+                                 ref2.offset, ref2.length),
+             shmlane_lib.ShmLaneError),
+        )
+        geometry_refusals = 0
+        for liar, exc_type in liars:
+            try:
+                ring.take(liar, free=False)
+            except exc_type:
+                geometry_refusals += 1
+    finally:
+        ring.unlink()
+    if caught != frame_bits:
+        violations.append(f"lane_corruption: {frame_bits - caught} of "
+                          f"{frame_bits} single-bit flips read through "
+                          f"undetected")
+    if not pristine_ok:
+        violations.append("lane_corruption: the restored frame no longer "
+                          "reads back byte-identical")
+    if geometry_refusals != len(liars):
+        violations.append(f"lane_corruption: {len(liars) - geometry_refusals}"
+                          f" lying descriptors were read through instead of "
+                          f"refused")
+    scenarios["lane_corruption"] = {
+        "frame_bits": frame_bits, "flips_caught": caught,
+        "pristine_readback": pristine_ok,
+        "geometry_refusals": geometry_refusals,
+        "expected_geometry_refusals": len(liars)}
+
+    starters = routers if routers is not None else transport_routers(args)
+    img = image
+    if img is None:
+        rng = np.random.default_rng(args.seed + 23)
+        img = rng.integers(0, 255, (buckets[0][0], buckets[0][1], 3),
+                           dtype=np.uint8)
+    launches = {}
+    inline_max = shmlane_lib.SMALL_INLINE_MAX
+    shmlane_lib.SMALL_INLINE_MAX = 1
+    try:
+        # -- (2) lane exhaustion under a burst: typed fallback -------------
+        router = starters["lane_exhaustion"]()
+        try:
+            futures = []
+            for _ in range(args.requests):
+                try:
+                    futures.append(router.submit_encode(img))
+                except ServeError:
+                    pass                 # admission sheds are typed load
+            counts, hung = await_all(futures, args.timeout_s)
+            exhausted = router.metrics.counter(
+                "serve_shm_fallback_exhausted").value
+            sends = router.metrics.counter("serve_shm_sends").value
+            integ = router.metrics.counter(
+                "serve_shm_integrity_errors").value
+            launches["lane_exhaustion"] = replica_launches(router)
+        finally:
+            router.drain(timeout_s=60)
+        if exhausted < 1:
+            violations.append("lane_exhaustion: a one-lane burst never "
+                              "exhausted the ring — the scenario proved "
+                              "nothing")
+        if sends < 1:
+            violations.append("lane_exhaustion: the lane transport never "
+                              "ran (all sends fell back?)")
+        if hung:
+            violations.append(f"lane_exhaustion: {hung} hung futures")
+        if counts["untyped"]:
+            violations.append(f"lane_exhaustion: {counts['untyped']} "
+                              f"untyped errors")
+        if counts["ok"] == 0:
+            violations.append("lane_exhaustion: no request completed — the "
+                              "fallback path did not serve")
+        if integ:
+            violations.append(f"lane_exhaustion: {integ} lane integrity "
+                              f"errors on an uncorrupted run")
+        scenarios["lane_exhaustion"] = {
+            "submitted": len(futures), "completed_ok": counts["ok"],
+            "typed_errors": counts["typed"],
+            "untyped_errors": counts["untyped"], "hung_futures": hung,
+            "lane_sends": sends, "fallback_exhausted": exhausted,
+            "integrity_errors": integ}
+
+        # -- (3) replica death with descriptors in flight -------------------
+        router = starters["replica_death_mid_descriptor"]()
+        try:
+            launches["replica_death_mid_descriptor"] = replica_launches(
+                router)
+            futures = [router.submit_encode(img)
+                       for _ in range(min(args.requests, 16))]
+            router._replicas[0].proc.kill()
+            counts, hung = await_all(futures, args.timeout_s)
+            deaths = router.metrics.counter(
+                "serve_router_replica_deaths").value
+            reroutes = router.metrics.counter("serve_router_reroutes").value
+            survivor = router.encode(img, timeout=args.timeout_s)
+            for idx, n in replica_launches(router).items():
+                launches["replica_death_mid_descriptor"][idx] = n
+        finally:
+            router.drain(timeout_s=60)
+        if deaths < 1:
+            violations.append("replica_death_mid_descriptor: the kill was "
+                              "never observed as a death")
+        if hung:
+            violations.append(f"replica_death_mid_descriptor: {hung} hung "
+                              f"futures")
+        if counts["untyped"]:
+            violations.append(f"replica_death_mid_descriptor: "
+                              f"{counts['untyped']} untyped errors")
+        if survivor is None:
+            violations.append("replica_death_mid_descriptor: the survivor "
+                              "did not serve after the death")
+        scenarios["replica_death_mid_descriptor"] = {
+            "submitted": len(futures), "completed_ok": counts["ok"],
+            "typed_errors": counts["typed"],
+            "untyped_errors": counts["untyped"], "hung_futures": hung,
+            "replica_deaths": deaths, "reroutes": reroutes}
+    finally:
+        shmlane_lib.SMALL_INLINE_MAX = inline_max
+
+    census_after = shm_census()
+    if foreign is not None:
+        others = foreign()
+        census_before = [n for n in census_before if n not in others]
+        census_after = [n for n in census_after if n not in others]
+    if census_after != census_before:
+        violations.append(f"lane battery leaked shared memory: /dev/shm "
+                          f"census went {census_before} -> {census_after}")
+    return {
+        "scenarios": scenarios,
+        "shm_census": {"before": census_before, "after": census_after},
+        "replica_kernel_launches": launches,
+        "lock_discipline": {"ported": False, "why": LOCKS_NOT_PORTED},
+        "duration_s": round(time.monotonic() - t0, 3),
+        "violations": violations,
+    }
+
+
+def replica_launches(router) -> dict:
+    """Each live replica's kernel launches, from its last scrape
+    (`serve_kernel_launches`, see `serve_bench.replica_counts`); the
+    counts a replica ends with, read before the router drains it."""
+    from dsin_tpu_torch.tools.serve_bench import replica_counts
+    return {k: v for k, v in replica_counts(router)["kernel_launches"].items()
+            if v is not None}
 
 
 def run_hotswap(args) -> dict:
@@ -1582,29 +2051,43 @@ def run_federation(args) -> dict:
             "violations": violations}
 
 
-def main(argv=None) -> int:
+def parse_args(argv=None) -> argparse.Namespace:
+    """The bench's flags, with `--smoke`'s configs and counts applied."""
     p = argparse.ArgumentParser(description="the port's chaos bench: the "
-                                "hot-swap, session and degraded-model "
-                                "batteries")
+                                "main soak and its six batteries")
     p.add_argument("--ae_config", default=config_path("ae_kitti_stereo"))
     p.add_argument("--pc_config", default=config_path("pc_default"))
+    p.add_argument("--ckpt", default=None,
+                   help="soak and lane battery: serve this checkpoint "
+                        "(default: seeded weights)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--shapes", default="16,24 24,32 32,48")
     p.add_argument("--buckets", default="24,32 32,48")
+    p.add_argument("--requests", type=int, default=120)
     p.add_argument("--workers", type=int, default=2)
     p.add_argument("--entropy_workers", type=int, default=None)
     p.add_argument("--entropy_backend", default="thread",
                    choices=("thread", "process"))
+    p.add_argument("--transport", default="pipe", choices=("pipe", "shm"),
+                   help="the soak's service: the process backend's payload "
+                        "transport")
     p.add_argument("--pipeline_depth", type=int, default=2)
     p.add_argument("--max_batch", type=int, default=2)
     p.add_argument("--max_wait_ms", type=float, default=2.0)
     p.add_argument("--max_queue", type=int, default=64)
+    p.add_argument("--crashes", type=int, default=4,
+                   help="soak: most injected worker crashes in phase A")
+    p.add_argument("--crash_probability", type=float, default=0.08)
+    p.add_argument("--corrupt_streams", type=int, default=12)
+    p.add_argument("--decode_samples", type=int, default=4)
     p.add_argument("--submit_gap_s", type=float, default=0.002)
     p.add_argument("--timeout_s", type=float, default=60.0)
     p.add_argument("--device", default="cuda")
     p.add_argument("--out", default="CHAOS_BENCH_TORCH.json")
     p.add_argument("--smoke", action="store_true",
-                   help="the tiny smoke configs, seconds of CPU")
+                   help="the tiny smoke configs and the JAX smoke counts "
+                        "(40 encodes, 2 crashes at probability 1.0, 6 "
+                        "corrupt streams), seconds of CPU")
     p.add_argument("--hotswap_only", action="store_true",
                    help="the live-model-operations battery")
     p.add_argument("--degraded_only", action="store_true",
@@ -1622,38 +2105,47 @@ def main(argv=None) -> int:
     p.add_argument("--members", type=int, default=3,
                    help="federation battery: member fleets (>= 2)")
     p.add_argument("--transport_only", action="store_true",
-                   help=f"not ported: {ROADMAP_CHAOS}")
+                   help="the shared-memory lane battery (in-segment bit "
+                        "flips, lying descriptors, a one-lane exhaustion "
+                        "burst, a replica's death with descriptors in "
+                        "flight, the /dev/shm census)")
     args = p.parse_args(argv)
-    if args.transport_only:
-        p.error(f"--transport_only is not ported to dsin_tpu_torch yet: "
-                f"{ROADMAP_CHAOS}")
-    if not (args.hotswap_only or args.degraded_only or args.sessions_only
-            or args.autoscale_only or args.federation_only):
-        p.error(f"choose --hotswap_only, --sessions_only, --degraded_only, "
-                f"--autoscale_only or --federation_only; the main soak is "
-                f"not ported to dsin_tpu_torch yet: {ROADMAP_CHAOS}")
     if args.members < 2:
         p.error(f"--members must be >= 2, got {args.members}")
     resolve_device(args.device)
     if args.smoke:
         args.ae_config, args.pc_config = write_smoke_cfgs(tempfile.mkdtemp())
-    report = {"config": {"smoke": args.smoke, "seed": args.seed,
-                         "device": args.device}, "violations": []}
-    if args.hotswap_only:
-        report["hotswap"] = run_hotswap(args)
-        report["violations"] += report["hotswap"]["violations"]
-    if args.sessions_only:
-        report["sessions"] = run_sessions(args)
-        report["violations"] += report["sessions"]["violations"]
-    if args.degraded_only:
-        report["degraded_model"] = run_degraded(args)
-        report["violations"] += report["degraded_model"]["violations"]
-    if args.autoscale_only:
-        report["autoscale"] = run_autoscale(args)
-        report["violations"] += report["autoscale"]["violations"]
-    if args.federation_only:
-        report["federation"] = run_federation(args)
-        report["violations"] += report["federation"]["violations"]
+        args.requests = 40
+        args.crashes = 2
+        # p = 1.0: the capped 2 crashes fire at the first two eligible
+        # visits whatever the batch timing (the JAX smoke's rule)
+        args.crash_probability = 1.0
+        args.corrupt_streams = 6
+    return args
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
+    flags = {"hotswap": args.hotswap_only, "sessions": args.sessions_only,
+             "degraded_model": args.degraded_only,
+             "autoscale": args.autoscale_only,
+             "transport": args.transport_only,
+             "federation": args.federation_only}
+    chosen = [name for name in BATTERIES if flags[name]]
+    runners = {"hotswap": run_hotswap, "sessions": run_sessions,
+               "degraded_model": run_degraded, "autoscale": run_autoscale,
+               "transport": run_transport, "federation": run_federation}
+    if chosen:
+        report = {"config": {"smoke": args.smoke, "seed": args.seed,
+                             "device": args.device}, "violations": []}
+    else:
+        # the bare call: the soak, then every battery in the JAX order
+        report = run_chaos(args)
+        chosen = list(BATTERIES)
+    for name in chosen:
+        report[name] = runners[name](args)
+        report["violations"] = report["violations"] + \
+            report[name]["violations"]
     tmp = args.out + ".tmp"
     with open(tmp, "w") as f:
         json.dump(report, f, indent=1)

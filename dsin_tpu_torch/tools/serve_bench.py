@@ -1,9 +1,9 @@
 """Seven legs of the serve bench (counterparts of the JAX package's
 `tools/serve_bench.py`): the precision leg (`_run_precision_section`,
 `_gate_precision`, :2334-2515), the entropy-backend leg
-(`_run_backend_axis`, `_gate_backend_axis`, :484-575), the entropy half
-of the transport leg (`_run_transport_section`, `_gate_transport`,
-:2160-2233; its router half is not ported), the model-health leg
+(`_run_backend_axis`, `_gate_backend_axis`, :484-575), the transport
+leg, its router and its entropy half (`_run_transport_section`,
+`_gate_transport`, :2067-2233), the model-health leg
 (`_run_quality_section`, :1062), the front-door legs
 (`_run_frontdoor_overload`, `_run_frontdoor_replicas`, `_gate_frontdoor`,
 :1268-1560), the elastic-fleet leg (`_run_autoscale_section`,
@@ -31,13 +31,21 @@ throughput, the stage histograms, the overlap ratio, the warmup (child spawn
 included), the children's pids and a two-thread probe of the host's free
 cores (`effective_cores`); a probe set of images is then encoded through
 both warm services, and `bit_identical` says whether their streams are
-byte-equal. The transport leg does the same through the process backend on
-"pipe" and on "shm" and records the lane counters; run after the backend
-leg, it takes that leg's process run as its pipe run (the same
+byte-equal. The transport leg's router half sends the same stream through a
+`FrontDoorRouter` over ONE spawned replica (thread backend) per transport,
+"pipe" then "shm" (the payloads between the door and the replica pickled
+on the pipe, or in shared-memory lanes with only a descriptor on the
+pipe), and records throughput, the router's lane counters, each replica's
+builds after its ready handshake and kernel launches, and `shm_vs_pipe`;
+its entropy half does what the backend leg does through the process
+backend on "pipe" and on "shm" and records the lane counters; run after
+the backend leg, it takes that leg's process run as its pipe run (the same
 configuration, served once). Their gates hold only equality and health:
-byte-equal streams, no native build in the stream window (the JAX leg's
-compile sentinel), no failed request, no lane integrity error, lane sends on
-shm. The output names the card (`nvidia-smi`) and the host's cores
+byte-equal streams across transports, no native build in the stream window
+(the JAX leg's compile sentinel), no failed request, no lane integrity
+error, lane sends on shm; `shm_vs_pipe` gates only below the JAX leg's
+broken-transport floor of 0.5 where the host's probe reads parallel
+headroom. The output names the card (`nvidia-smi`) and the host's cores
 (`os.cpu_count()` and the affinity mask): a served request is host-bound.
 
 The front-door legs (`--frontdoor_only`): (1) overload through ONE
@@ -332,15 +340,22 @@ def _parse_shapes(spec: str):
     return [tuple(int(v) for v in part.split(",")) for part in spec.split()]
 
 
-def _build_service(args, backend: str = "thread", transport: str = "pipe"):
-    """A started, warm service for the legs -> (service, warmup dict)."""
-    service = CompressionService(ServiceConfig(
+def _leg_config(args, backend: str = "thread",
+                transport: str = "pipe") -> ServiceConfig:
+    """The service legs' configuration (phase 10's batching)."""
+    return ServiceConfig(
         ae_config=args.ae_config, pc_config=args.pc_config, seed=args.seed,
         buckets=_parse_shapes(args.buckets), max_batch=LEG_MAX_BATCH,
         max_wait_ms=args.max_wait_ms, max_queue=LEG_MAX_QUEUE,
         entropy_workers=args.entropy_workers, entropy_backend=backend,
         transport=transport, pipeline_depth=LEG_PIPELINE_DEPTH,
-        device=args.device)).start()
+        device=args.device)
+
+
+def _build_service(args, backend: str = "thread", transport: str = "pipe"):
+    """A started, warm service for the legs -> (service, warmup dict)."""
+    service = CompressionService(_leg_config(args, backend,
+                                             transport)).start()
     return service, service.warmup()
 
 
@@ -355,9 +370,7 @@ def _run_stream(service, args) -> dict:
     """One open-loop pass of the request stream through a WARM service:
     `requests` encodes at `rate` a second, then `decode_samples` decodes
     of their streams; `steady_builds` counts native builds in the window."""
-    rng = np.random.default_rng(args.seed)
-    images = [rng.integers(0, 255, (h, w, 3), dtype=np.uint8)
-              for h, w in _parse_shapes(args.shapes)]
+    images = _stream_images(args)
     futures, rejected, errors = [], 0, 0
     builds = native_build.build_count()
     period = 1.0 / args.rate
@@ -525,14 +538,147 @@ def gate_backend_axis(section) -> list:
     return violations
 
 
+def _stream_images(args):
+    """The legs' request images (`_run_stream`'s, from `args.seed`)."""
+    rng = np.random.default_rng(args.seed)
+    return [rng.integers(0, 255, (h, w, 3), dtype=np.uint8)
+            for h, w in _parse_shapes(args.shapes)]
+
+
+def router_transport_routers(args) -> dict:
+    """The router half's two routers, "pipe" and "shm", each as a
+    zero-argument callable that builds and starts it (ONE spawned replica,
+    thread backend). A caller may start them ahead of the leg and pass
+    callables that hand over the started routers."""
+    cfg = _leg_config(args)
+    return {t: (lambda t=t: FrontDoorRouter(cfg, replicas=1,
+                                            transport=t).start())
+            for t in ("pipe", "shm")}
+
+
+def _router_run(args, start, images, probes) -> tuple:
+    """One run of the router half through the router `start()` gives:
+    the open-loop stream of `_run_stream` (over `images`) through the
+    door, `decode_samples` of its streams decoded back, then the probes
+    encoded. -> (run entry, probe streams)."""
+    cores = round(_effective_cores(), 2)
+    router = start()
+    try:
+        futures, shed = [], 0
+        period = 1.0 / args.rate
+        t0 = time.monotonic()
+        for i in range(args.requests):
+            _pace(i, t0, period)
+            try:
+                futures.append(router.submit_encode(images[i % len(images)]))
+            except ServeError:
+                shed += 1
+        completed = failed = 0
+        streams = []
+        for f in futures:
+            try:
+                exc = f.exception(timeout=600.0)
+            except TimeoutError:
+                failed += 1
+                continue
+            if exc is None:
+                completed += 1
+                if len(streams) < args.decode_samples:
+                    streams.append(f.result().stream)
+            else:
+                failed += 1
+        duration = time.monotonic() - t0
+        roundtrips = sum(1 for s in streams
+                         if router.decode(s, timeout=600.0) is not None)
+        frames = [router.encode(im, timeout=600.0).stream for im in probes]
+        counters = router.metrics.snapshot()["counters"]
+        replicas = replica_counts(router)
+    finally:
+        router.drain(timeout_s=60)
+    shm = {k: counters.get(f"serve_shm_{k}", 0)
+           for k in ("sends", "bytes", "frees", "fallbacks",
+                     "fallback_oversize", "fallback_exhausted",
+                     "integrity_errors")}
+    return {"throughput_rps": round(completed / duration, 3)
+            if duration > 0 else 0.0,
+            "completed": completed, "failed": failed, "shed_at_door": shed,
+            "duration_s": round(duration, 4),
+            "decode_roundtrips": roundtrips, "shm": shm,
+            "effective_cores": cores, "host_cores": os.cpu_count(),
+            "replica_builds_after_ready": replicas["builds_after_ready"],
+            "replica_kernel_launches": replicas["kernel_launches"]}, frames
+
+
+def run_router_transport(args, images=None, probes=None,
+                         routers=None) -> dict:
+    """The transport leg's router half: the same stream through one
+    spawned replica per transport, "pipe" then "shm"; the probes' streams
+    compared byte for byte (`bit_identical`), `shm_vs_pipe` as evidence.
+    `images` and `probes` default to the legs' noise (`_stream_images`,
+    `_probe_images`), `routers` to `router_transport_routers(args)`."""
+    images = _stream_images(args) if images is None else images
+    probes = _probe_images(args) if probes is None else probes
+    starters = (routers if routers is not None
+                else router_transport_routers(args))
+    out = {"runs": {}, "bit_identical": None}
+    frames = {}
+    for transport in ("pipe", "shm"):
+        out["runs"][transport], frames[transport] = _router_run(
+            args, starters[transport], images, probes)
+    out["bit_identical"] = frames["pipe"] == frames["shm"]
+    pipe_rps = out["runs"]["pipe"]["throughput_rps"]
+    out["shm_vs_pipe"] = (round(out["runs"]["shm"]["throughput_rps"]
+                                / pipe_rps, 3) if pipe_rps else None)
+    return out
+
+
+def gate_router_transport(sub) -> list:
+    """Violations of the router half (the JAX leg's): streams that differ
+    across transports, a failed or hung request, a lane integrity error,
+    no lane send on shm, and shm below half of pipe's throughput where
+    the host's probe reads parallel headroom (a note in a serial
+    window)."""
+    violations = []
+    if sub["bit_identical"] is not True:
+        violations.append("transport/router: pipe and shm emitted "
+                          "different bytes for the same stream — the "
+                          "transport changed the payload")
+    for transport, entry in sub["runs"].items():
+        if entry["failed"]:
+            violations.append(f"transport/router {transport}: "
+                              f"{entry['failed']} untyped/hung requests")
+        if entry["shm"]["integrity_errors"]:
+            violations.append(f"transport/router {transport}: "
+                              f"{entry['shm']['integrity_errors']} lane "
+                              f"integrity errors on a clean run")
+    shm_run = sub["runs"]["shm"]
+    if shm_run["shm"]["sends"] == 0:
+        violations.append("transport/router shm: zero lane sends — every "
+                          "payload fell back inline; the lane transport "
+                          "never ran")
+    ratio = sub.get("shm_vs_pipe")
+    if ratio is not None and ratio < 0.5:
+        cores = shm_run.get("effective_cores")
+        if isinstance(cores, float) and cores < 1.3:
+            print(f"SERVE_BENCH_NOTE: shm router throughput {ratio}x pipe "
+                  f"in a serial window (effective cores {cores}) — "
+                  f"transport floor not applied", file=sys.stderr)
+        else:
+            violations.append(f"transport/router: shm at {ratio}x pipe with "
+                              f"parallel headroom (effective cores {cores})"
+                              f" — below the broken-transport floor 0.5")
+    return violations
+
+
 def run_transport_section(args, pipe_run=None) -> dict:
-    """The transport leg's entropy half: the same stream through the
-    process backend on "pipe" and on "shm", the probe set's streams
-    compared byte for byte, the lane counters of each run. `pipe_run`
-    (run entry, probe streams) is the backend leg's process run, the same
-    configuration, when that leg ran first."""
+    """The transport leg, both halves in the JAX leg's order: the router
+    half (`run_router_transport`), then the entropy half, the same stream
+    through the process backend on "pipe" and on "shm", the probe set's
+    streams compared byte for byte, the lane counters of each run.
+    `pipe_run` (run entry, probe streams) is the backend leg's process
+    run, the same configuration, when that leg ran first."""
     probes = _probe_images(args)
-    out = {"axis": ["pipe", "shm"],
+    out = {"axis": ["pipe", "shm"], "router": run_router_transport(args),
            "entropy": {"runs": {}, "bit_identical": None}}
     frames = {}
     for transport in out["axis"]:
@@ -550,11 +696,12 @@ def run_transport_section(args, pipe_run=None) -> dict:
 
 
 def gate_transport(section) -> list:
-    """Violations of the transport leg: streams that differ across
-    transports, a failed request, a native build in the stream window, a
-    lane integrity error, or no lane send on shm (every payload fell back
-    to the pipe: the lanes never ran)."""
-    violations = []
+    """Violations of the transport leg: the router half's
+    (`gate_router_transport`), then the entropy half's: streams that
+    differ across transports, a failed request, a native build in the
+    stream window, a lane integrity error, or no lane send on shm (every
+    payload fell back to the pipe: the lanes never ran)."""
+    violations = gate_router_transport(section["router"])
     sub = section["entropy"]
     if sub["bit_identical"] is not True:
         violations.append("transport/entropy: pipe and shm emitted "

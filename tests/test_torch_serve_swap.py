@@ -603,17 +603,38 @@ def test_chaos_batteries_wait_for_the_watchdog_count(
 @pytest.mark.parametrize("battery", ["--autoscale_only",
                                      "--transport_only", "--federation_only",
                                      None])
-def test_chaos_bench_refuses_unported_batteries(battery, capsys):
-    """The transport battery and the main soak still refuse, naming item
-    11g, and a request that names a ported battery beside the transport
-    one is refused before anything runs."""
+def test_chaos_bench_dispatches_every_battery(battery, tmp_path,
+                                              monkeypatch):
+    """Nothing is refused any more: the transport battery and the main
+    soak run. A request that names a battery beside the transport one
+    runs both, in the JAX order; the bare call runs the soak and then all
+    six batteries (the `run_*` functions stubbed, so only the dispatch
+    runs)."""
     from dsin_tpu_torch.tools import chaos_bench
-    argv = ["--smoke", "--device", "cpu"]
+    ran = []
+
+    def stub(name):
+        def run(args):
+            ran.append(name)
+            return {"violations": []} if name != "chaos" else {
+                "config": {}, "violations": []}
+        return run
+
+    for name in ("chaos", "hotswap", "sessions", "degraded",
+                 "autoscale", "transport", "federation"):
+        monkeypatch.setattr(chaos_bench, f"run_{name}", stub(name))
+    argv = ["--smoke", "--device", "cpu", "--out", str(tmp_path / "c.json")]
     if battery is not None:
         argv += sorted({battery, "--transport_only"})
-    with pytest.raises(SystemExit):
-        chaos_bench.main(argv)
-    assert "item 11g" in capsys.readouterr().err
+    assert chaos_bench.main(argv) == 0
+    if battery is None:
+        want = ["chaos", "hotswap", "sessions", "degraded", "autoscale",
+                "transport", "federation"]
+    else:
+        order = ["autoscale", "transport", "federation"]
+        named = {battery[2:-5], "transport"}
+        want = [n for n in order if n in named]
+    assert ran == want
 
 
 def test_coordinator_under_thread_stress():
