@@ -121,7 +121,7 @@ Phases; any failure raises, prints no result and exits non-zero:
      session of 4 requests, finite, in range, no K1/K2 launch, timed with
      their peak memory, and 40 planted patches found exactly; (e)
      tools/cityscapes_chip.run: ae_cityscapes_stereo at 1024x2048, batch 1,
-     bf16, remat, the tiled search, one warm-up and 3 timed train steps
+     bf16, remat, the tiled search, one warm-up and 2 timed train steps
      (finite loss, every trained parameter moved; ms per step, the search's
      ms inside each step, the row chunk that fitted, the peak memory), then
      K1 on one decoded pair of that geometry (P = 4096, 16x32 patches)
@@ -278,7 +278,34 @@ Phases; any failure raises, prints no result and exits non-zero:
      no build after a ready handshake (its gate). No phase-14 path
      launches a kernel (no SI traffic; mode-2 coding): the launches in
      this process and in every replica (their scrapes) must be 0, and no
-     child or segment may be left.
+     child or segment may be left;
+ 15. training over more than one device (`dsin_tpu_torch/parallel/`): 4
+     ranks spawned after the build (`parallel/launch.run_ranks`), all on
+     this card over gloo (a `file://` rendezvous; NCCL refuses two ranks
+     on one device), each probing that gloo takes CUDA tensors for the
+     collectives `parallel/` uses (all_reduce, broadcast, all_gather). (a) ae_kitti_stereo + pc_default at full width, 320x960, global
+     batch 4 over the 4 ranks (the data-parallel step, batch norms and
+     losses over the global batch), from seeded weights, held against the
+     one-process step at batch 4 on this card from the same weights (run
+     in the parent while the ranks start) at the train step's bounds:
+     metrics within rtol 1e-5, gradients within 5e-5 of each leaf's
+     largest magnitude (3% of the leaves at a ReLU's kink within 25%
+     relative L2), running statistics within 1e-5, parameters within 1e-6
+     where the gradient is not near zero and 2 * lr where it is; the
+     ranks' states bit-equal after a second, timed step; K1 twice a rank,
+     no native build; ms per step, the gradient all-reduce's ms and bytes,
+     peak memory a rank. The ranks start, set up and warm (a throwaway step
+     of (a) on a copy of the model, (b)'s first step) while phase 14 runs,
+     and the reference runs then in a process of its own. (b) ae_cityscapes_stereo as published
+     (spatial_shards 4, batch 1, bf16, remat) at 1024x2048 over the mesh
+     `main.py` builds from it: the convs whole on each rank, the search
+     sharded by width (the row-tiled shard search; K1 never), one warm-up
+     and 2 timed steps: the loss finite and equal on every rank, the
+     states bit-equal; then the sharded search on the trained model's
+     decoded frames against the unsharded tiled search on rank 0: winning
+     scores within 1e-5, indices equal beyond the 1e-4 top-two margin
+     (K1's operands read the scores); step ms, the search's ms inside each
+     step (CUDA events), peak memory a rank.
 Each phase's wall time is printed after the last phase.
 Kernel times are CUDA events around back-to-back runs that the host
 enqueued while the device slept, so they are device time.
@@ -290,8 +317,10 @@ from __future__ import annotations
 
 import argparse
 import collections
+import gc
 import hashlib
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -1747,7 +1776,7 @@ def train_phase(seed: int, dev):
 # -- phase 9: the rest of the patch search, the Cityscapes geometry ---------
 
 SCORE_ATOL = 1e-5          # winning scores of two search routes
-CS_STEPS = 3               # timed Cityscapes train steps after one warm-up
+CS_STEPS = 2               # timed Cityscapes train steps after one warm-up
 
 
 def peak_above(fn):
@@ -2553,6 +2582,8 @@ LIFE_LOAD_S = 4.0            # traffic before the prepare and after the commit
 LIFE_CANARY_EVERY_S = 1.0
 LIFE_SESSIONS = 8
 LIFE_REOPENS = 3             # re-opens of a session a commit expired
+LIFE_ERRORS = 8              # failed requests a load client records, then stops
+LIFE_BACKOFF_S = (0.05, 2.0)  # a client's wait after a failure, doubling to 2 s
 
 
 def child_pids() -> list:
@@ -2626,7 +2657,11 @@ class LifeLoad:
     one), and stops after the image in hand once `finish` is called. A
     session that a commit or rollback expired answers typed
     SessionExpired: the client re-opens it and retries. Every request is
-    recorded as (kind, image, submit s, resolve s, result, error)."""
+    recorded as (kind, image, submit s, resolve s, result, error). A
+    failed request makes its client wait (LIFE_BACKOFF_S, doubling while
+    requests keep failing), and a client stops after LIFE_ERRORS failures:
+    a service that fails every request fast is not spun on, and its
+    records stay bounded (`first_error` names the first)."""
 
     def __init__(self, svc, traffic):
         import threading
@@ -2676,6 +2711,7 @@ class LifeLoad:
     def _client(self, c: int) -> None:
         _, imgs, owner = self.traffic
         big = SERVE_BUCKETS[-1]
+        errors, backoff = 0, LIFE_BACKOFF_S[0]
         while not self.stop.is_set():
             for i in range(c, len(imgs), SERVE_CLIENTS):
                 if self.stop.is_set():
@@ -2696,8 +2732,14 @@ class LifeLoad:
                                                   timeout=SERVE_TIMEOUT_S)
                     except Exception as e:  # noqa: BLE001 — every failure
                         self._note(kind, i, t0, error=e)   # is a finding
+                        errors += 1
+                        if errors >= LIFE_ERRORS:
+                            return
+                        self.stop.wait(backoff)
+                        backoff = min(2 * backoff, LIFE_BACKOFF_S[1])
                         break
                     self._note(kind, i, t0, result=res)
+                    backoff = LIFE_BACKOFF_S[0]
 
     def start(self) -> "LifeLoad":
         for t in self.threads:
@@ -2707,6 +2749,15 @@ class LifeLoad:
     def has(self, pred) -> bool:
         with self._lock:
             return any(pred(r) for r in self.records)
+
+    def first_error(self):
+        """'<kind> of image <i>: <error!r>' of the first failed request, or
+        None."""
+        with self._lock:
+            for kind, i, _, _, _, error in self.records:
+                if error is not None:
+                    return f"{kind} of image {i}: {error!r}"
+        return None
 
     def finish(self) -> list:
         self.stop.set()
@@ -2803,6 +2854,7 @@ def lifecycle_phase(seed: int, dev, ckpts=None) -> int:
 
         # 2: the swap under load
         records = []
+        wd0 = svc.metrics.counter("serve_watchdog_rollbacks").value
         hold_canary(svc)
         svc._batch_hook = lambda batch: records.append(
             (batch[0].key[0], [r.future for r in batch]))
@@ -2810,21 +2862,24 @@ def lifecycle_phase(seed: int, dev, ckpts=None) -> int:
         sk.reset_launch_counts()
         svc._canary.release()
         load = LifeLoad(svc, traffic).start()
-        t_start = time.perf_counter()
-        time.sleep(LIFE_LOAD_S)
-        t_prep = time.perf_counter()
-        info = svc.prepare_swap(path_b1)
-        t_commit = time.perf_counter()
-        snap = svc.commit_swap(expect_digest=info["digest"])
-        t_done = time.perf_counter()
-        digest_b = snap["digest"]
-        time.sleep(LIFE_LOAD_S)
-        # and on until an encode has answered with B' (checked below)
-        wait_for(lambda: load.has(
-            lambda r: r[0] == "encode" and r[4] is not None
-            and r[4].model_digest == digest_b), SERVE_TIMEOUT_S,
-            "an encode answered by B'")
-        done = load.finish()
+        try:
+            t_start = time.perf_counter()
+            time.sleep(LIFE_LOAD_S)
+            t_prep = time.perf_counter()
+            info = svc.prepare_swap(path_b1)
+            t_commit = time.perf_counter()
+            snap = svc.commit_swap(expect_digest=info["digest"])
+            t_done = time.perf_counter()
+            digest_b = snap["digest"]
+            time.sleep(LIFE_LOAD_S)
+            # and on until an encode has answered with B' (checked below),
+            # or until the first failed request, named
+            wait_for(lambda: load.has(
+                lambda r: r[0] == "encode" and r[4] is not None
+                and r[4].model_digest == digest_b), SERVE_TIMEOUT_S,
+                "an encode answered by B'", failed=load.first_error)
+        finally:
+            done = load.finish()
         t_end = time.perf_counter()
         hold_canary(svc)
         torch.cuda.synchronize()
@@ -2842,6 +2897,17 @@ def lifecycle_phase(seed: int, dev, ckpts=None) -> int:
             raise AssertionError(f"launches {launches}: {si_batches} SI "
                                  f"batches + {probes} warm and probe")
         k2 = launches["pearson_argmax_shared"]
+        # the commit's own SessionExpired answers are no error of B' (the
+        # watchdog leaves them out): no rollback may land under the load
+        verdicts = [{k: e.get(k) for k in ("fire", "reason", "pre_rate",
+                                           "post_rate", "post_resolved")}
+                    for e in svc.flight._ring.snapshot()[0]
+                    if e["kind"] == "watchdog_verdict"]
+        expired = svc.metrics.counter("serve_session_expired").value
+        if svc.metrics.counter("serve_watchdog_rollbacks").value != wd0:
+            raise AssertionError(f"the watchdog rolled B' back under the "
+                                 f"load: verdicts {verdicts}, "
+                                 f"{expired} SessionExpired answers")
         failed = [r for r in done if r[5] is not None]
         if failed:
             raise AssertionError(f"{len(failed)} requests failed under the "
@@ -2858,9 +2924,12 @@ def lifecycle_phase(seed: int, dev, ckpts=None) -> int:
             elif res.model_digest == digest_b and res.stream == b_streams[i]:
                 new += 1
             else:
-                raise AssertionError(f"encode of image {i} (submitted "
-                                     f"{t0 - t_done:+.3f} s from the commit's "
-                                     f"end) is neither A's stream nor B''s")
+                raise AssertionError(
+                    f"encode of image {i} (submitted {t0 - t_done:+.3f} s "
+                    f"from the commit's end) is neither A's stream nor "
+                    f"B''s: digest {res.model_digest} (A {digest_a}, B' "
+                    f"{digest_b}), A's bytes {res.stream == a_streams[i]}, "
+                    f"B''s bytes {res.stream == b_streams[i]}")
         if new == 0 or old == 0:
             raise AssertionError(f"{old} A and {new} B' streams: the swap "
                                  f"did not land mid-stream")
@@ -2875,7 +2944,9 @@ def lifecycle_phase(seed: int, dev, ckpts=None) -> int:
             f"{1e3 * (t_done - t_commit):.2f} ms; requests/s before "
             f"{rate(done, t_start, t_prep):.2f}, during the prepare "
             f"{rate(done, t_prep, t_commit):.2f}, after the commit "
-            f"{rate(done, t_done, t_end):.2f}; K2 {k2} launches = "
+            f"{rate(done, t_done, t_end):.2f}; {expired} SessionExpired "
+            f"answers, the watchdog's verdicts {verdicts} (no rollback); "
+            f"K2 {k2} launches = "
             f"{si_batches} SI batches + {probes} warm and canary; card {card}")
 
         # 3: rollback
@@ -3580,11 +3651,14 @@ def fd_swap(router, traffic, card: str, ckpts, k2s) -> dict:
     return {"digest_b": digest_b, "b": b.stream, "a": a.stream}
 
 
-def wait_for(pred, timeout_s: float, what: str) -> float:
+def wait_for(pred, timeout_s: float, what: str, failed=None) -> float:
     """Poll `pred` every 10 ms; -> the seconds it took. Raises after
-    `timeout_s`."""
+    `timeout_s`, or at once when `failed()` names a failure."""
     t0 = time.perf_counter()
     while not pred():
+        why = failed() if failed is not None else None
+        if why is not None:
+            raise AssertionError(f"waiting for {what}: {why}")
         if time.perf_counter() - t0 > timeout_s:
             raise AssertionError(f"{what} did not happen within "
                                  f"{timeout_s:g} s")
@@ -4192,6 +4266,505 @@ def chaos_phase(seed: int, dev) -> dict:
     return dict(launches)
 
 
+# -- phase 15: training over more than one device, ranks sharing the card ---
+
+PAR_RANKS = 4
+PAR_TIMEOUT_S = 300.0     # each rank's collectives, and the phase after the go
+PAR_WAIT_S = 1800.0       # a prestarted rank's wait for the go
+PAR_STEPS = 2             # (a): the checked step, then a timed one
+CS_PAR_STEPS = 2          # (b): timed width-sharded steps after a warm-up
+GRAD_RTOL, PARAM_ATOL, STATS_RTOL = 5e-5, 1e-6, 1e-5
+
+
+def state_digest(model) -> str:
+    """sha256 over the parameters and statistics, in state_dict order."""
+    h = hashlib.sha256()
+    for v in model.state_dict().values():
+        h.update(v.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def numpy_state(model) -> tuple:
+    """(gradients, state_dict) of a model as numpy copies."""
+    return ({n: p.grad.detach().to("cpu", copy=True).numpy() for n, p in
+             model.named_parameters() if p.grad is not None},
+            {k: v.detach().to("cpu", copy=True).numpy() for k, v in
+             model.state_dict().items()})
+
+
+def gloo_cuda_ops(dev) -> dict:
+    """Which collectives this torch's gloo takes on CUDA tensors (each probe
+    is collective; a refusal comes before any byte moves, the same on every
+    rank). `parallel/` uses these three."""
+    import torch.distributed as dist
+    t = torch.ones(4, device=dev)
+    probes = {
+        "all_reduce": lambda: dist.all_reduce(t.clone()),
+        "broadcast": lambda: dist.broadcast(t.clone(), 0),
+        "all_gather": lambda: dist.all_gather(
+            [torch.empty_like(t) for _ in range(dist.get_world_size())], t)}
+    out = {}
+    for name, probe in probes.items():
+        try:
+            probe()
+            torch.cuda.synchronize(dev)
+            out[name] = "yes"
+        except RuntimeError as e:
+            out[name] = f"no ({str(e).splitlines()[0][:60]})"
+    return out
+
+
+def dp_setup(dev, seed: int) -> dict:
+    """(a) on one rank, before the go: the mesh over every rank, the seeded
+    model and optimizer, the data-parallel step of the global batch."""
+    from dsin_tpu_torch.parallel import data_parallel as dp
+    from dsin_tpu_torch.parallel import mesh as mesh_lib
+    ae, pc = train_configs(batch_size=PAR_RANKS)
+    mesh = mesh_lib.make_mesh()
+    crop = tuple(ae.crop_size)
+    model = build_model(ae, pc, device=dev, seed=seed)
+    optimizer = optim_lib.Optimizer(model, ae, pc,
+                                    main_lib.DEFAULT_NUM_TRAIN_IMGS)
+    step = dp.make_sharded_train_step(
+        model, optimizer, mesh,
+        si_mask=sifinder_lib.standard_prior(crop[0], crop[1], PH, PW))
+    return {"mesh": mesh, "model": model, "step": step}
+
+
+def dp_run(dev, setup: dict, x, y, steps: int = PAR_STEPS) -> dict:
+    """(a) on one rank: this rank's rows of the global batch (x, y), the
+    checked first step (its metrics; on rank 0 its gradients and state),
+    then a timed one."""
+    from dsin_tpu_torch.parallel import mesh as mesh_lib
+    mesh, model, step = setup["mesh"], setup["model"], setup["step"]
+    xs, ys = mesh_lib.shard_batch(mesh, x, y)
+    builds = native_build.build_count()
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    sk.reset_launch_counts()
+    times, allreduce = [], []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        _, metrics = step(xs, ys)
+        torch.cuda.synchronize(dev)
+        times.append(1e3 * (time.perf_counter() - t0))
+        allreduce.append(dict(step.batch_axis.last))
+        if i == 0:
+            out = {"metrics": {k: float(v) for k, v in metrics.items()}}
+            if mesh.rank == 0:
+                out["grads"], out["state"] = numpy_state(model)
+    out.update(coords=mesh.coords, step_ms=times, allreduce=allreduce,
+               launches=dict(sk.launch_counts),
+               builds=native_build.build_count() - builds,
+               peak_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+               digest=state_digest(model))
+    return out
+
+
+def cs_setup(dev, seed: int) -> dict:
+    """(b) on one rank, before the go: ae_cityscapes_stereo as published
+    (spatial_shards 4, batch 1, bf16, remat) over the (data, spatial) mesh
+    `main.py` builds from it, the seeded model, its width-sharded step (the
+    search timed by CUDA events from its hook) and the frames."""
+    from dsin_tpu_torch.parallel import data_parallel as dp
+    from dsin_tpu_torch.parallel import mesh as mesh_lib
+    ae = parse_config_file(config_path("ae_cityscapes_stereo"))
+    pc = parse_config_file(config_path("pc_default"))
+    h, w = (int(v) for v in ae.crop_size)
+    spatial = int(ae.spatial_shards)
+    data = mesh_lib.data_axis_size(ae.batch_size, PAR_RANKS, spatial)
+    mesh = mesh_lib.make_mesh(num_devices=data * spatial, spatial=spatial)
+    x, y = (torch.from_numpy(a).to(dev)
+            for a in cityscapes_chip.frames(h, w, seed=seed))
+    model = build_model(ae, pc, device=dev, seed=seed)
+    optimizer = optim_lib.Optimizer(model, ae, pc,
+                                    cityscapes_chip.NUM_TRAIN_IMGS)
+    marks = {}
+
+    def on_search(name):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks[name] = ev
+
+    step = dp.make_spatial_train_step(model, optimizer, mesh, h, w,
+                                      on_search=on_search)
+    return {"ae": ae, "mesh": mesh, "model": model, "step": step, "x": x,
+            "y": y, "marks": marks, "record": {
+                "losses": [], "step_ms": [], "search_ms": [], "launches": [],
+                "builds": 0, "peak_gib": 0.0}}
+
+
+def cs_steps(dev, setup: dict, n: int) -> None:
+    """(b) on one rank: `n` steps, each's loss, ms (host clock around the
+    synchronised step) and search ms appended to `setup`'s record, with
+    the K1 launches, native builds and peak memory of the run."""
+    step, marks, rec = setup["step"], setup["marks"], setup["record"]
+    builds = native_build.build_count()
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    sk.reset_launch_counts()
+    for _ in range(n):
+        t0 = time.perf_counter()
+        _, metrics = step(setup["x"], setup["y"])
+        torch.cuda.synchronize(dev)
+        rec["step_ms"].append(1e3 * (time.perf_counter() - t0))
+        rec["search_ms"].append(
+            marks["search_start"].elapsed_time(marks["search"]))
+        rec["losses"].append(float(metrics["loss"]))
+    rec["launches"].append(dict(sk.launch_counts))
+    rec["builds"] += native_build.build_count() - builds
+    rec["peak_gib"] = max(rec["peak_gib"],
+                          torch.cuda.max_memory_allocated(dev) / 2 ** 30)
+
+
+def cs_run(dev, setup: dict) -> dict:
+    """(b) on one rank, after its warm-up step: CS_PAR_STEPS timed steps;
+    then the sharded search on the trained model's decoded frames, and on
+    rank 0 the unsharded tiled search on the same frames with K1's
+    operands for the margin rule."""
+    from dsin_tpu_torch.parallel import spatial as spatial_lib
+    cs_steps(dev, setup, CS_PAR_STEPS)
+    ae, mesh, model = setup["ae"], setup["mesh"], setup["model"]
+    x, y = setup["x"], setup["y"]
+    h, w = (int(v) for v in ae.crop_size)
+    ph, pw = (int(v) for v in ae.y_patch_size)
+    out = {"coords": mesh.coords, **setup["record"],
+           "digest": state_digest(model), "mesh": dict(mesh.shape)}
+    # the sharded search against the unsharded tiled one, same frames
+    with torch.no_grad():
+        x_dec = model.decode(model.encode(x).qbar)
+        y_dec = model.decode(model.encode(y).qbar)
+    setup.clear()
+    del model
+    torch.cuda.empty_cache()
+    row_chunk = spatial_lib.shard_row_chunk(ae, dev.type)
+    search_fn = spatial_lib.build_sharded_search(
+        mesh, ph, pw, h, w, bool(ae.use_gauss_mask), row_chunk=row_chunk)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        _, val, flat = search_fn(x_dec, spatial_lib.width_shard(mesh, y),
+                                 spatial_lib.width_shard(mesh, y_dec))
+    torch.cuda.synchronize(dev)
+    out["shard_search_ms"] = 1e3 * (time.perf_counter() - t0)
+    out["row_chunk"] = row_chunk
+    if mesh.rank == 0:
+        gh, gw = sifinder_lib.gaussian_position_mask_factors(h, w, ph, pw)
+        t0 = time.perf_counter()
+        ref = sifinder_lib.search_single_tiled(
+            x_dec[0], y[0], y_dec[0], ph, pw, mask_factors=(gh, gw),
+            row_chunk=sifinder_lib.sifinder_row_chunk(ae))
+        torch.cuda.synchronize(dev)
+        out["tiled_ms"] = 1e3 * (time.perf_counter() - t0)
+        y_t, inv = sk.side_from_transformed(
+            color_lib.search_transform(y_dec[0]), ph, pw)
+        ops = (y_t[None].contiguous(), sk.prepare_query(x_dec, ph, pw),
+               inv[None].contiguous(), torch.from_numpy(gh).to(dev),
+               torch.from_numpy(np.ascontiguousarray(gw.T)).to(dev))
+        idx = flat.to(torch.int32)
+        out["index"] = {
+            "p": int(idx.numel()),
+            "equal": int((idx[0] == ref.best_flat).sum()),
+            "beyond_margin": int(sk.index_disagreements(
+                ops, ph, pw, idx, ref.best_score[None], ref.best_flat[None],
+                MARGIN_ATOL).sum()),
+            "val_err": float((val[0] - ref.best_score).abs().max())}
+    return out
+
+
+def parallel_rank(dev, seed: int, x, y, go: str, spawned: float) -> dict:
+    """One rank of phase 15: the gloo probe and both set-ups, then, once
+    the `go` file exists, (a) and (b). -> also the seconds from the spawn
+    (`spawned`, the parent's time.time()) to its set-ups' end and those
+    spent waiting for the go."""
+    ops = gloo_cuda_ops(dev)
+    # warms before the go: (a)'s first step on a throwaway copy (cuDNN's
+    # fp32 plans, gloo's connections), (b)'s warm-up step itself
+    warm = dp_setup(dev, seed)
+    t0 = time.perf_counter()
+    dp_run(dev, warm, x, y, steps=1)
+    warm_ms = 1e3 * (time.perf_counter() - t0)
+    warm.clear()
+    a_setup, b_setup = dp_setup(dev, seed), cs_setup(dev, seed)
+    cs_steps(dev, b_setup, 1)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ready = time.time()
+    while not os.path.exists(go):
+        if time.time() - ready > PAR_WAIT_S:
+            raise AssertionError("phase 15's go never came")
+        time.sleep(0.05)
+    waited = time.time() - ready
+    a = dp_run(dev, a_setup, x, y)
+    a_setup.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    a["warm_ms"] = warm_ms
+    return {"gloo_cuda": ops, "dp": a, "cs": cs_run(dev, b_setup),
+            "ready_s": ready - spawned, "waited_s": waited}
+
+
+def dp_reference(seed: int, dev, x, y) -> dict:
+    """The one-process step of (a) at batch PAR_RANKS on this card from the
+    same seeded weights: metrics, gradients, state, the largest rate."""
+    ae, pc = train_configs(batch_size=PAR_RANKS)
+    crop = tuple(ae.crop_size)
+    model = build_model(ae, pc, device=dev, seed=seed)
+    optimizer = optim_lib.Optimizer(model, ae, pc,
+                                    main_lib.DEFAULT_NUM_TRAIN_IMGS)
+    params = dict(model.named_parameters())
+    before = {k: v for k, v in numpy_state(model)[1].items()
+              if k not in params}
+    step = step_lib.make_train_step(
+        model, optimizer,
+        si_mask=sifinder_lib.standard_prior(crop[0], crop[1], PH, PW))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, metrics = step(x, y)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    grads, state = numpy_state(model)
+    lr = max(float(g.schedule(0)) for g in optimizer.groups.values()
+             if g.schedule is not None)
+    return {"metrics": {k: float(v) for k, v in metrics.items()},
+            "grads": grads, "state": state, "before": before, "lr": lr,
+            "ms": ms}
+
+
+def grad_distance(got: dict, ref: dict) -> tuple:
+    """(relative L2 distance of all gradients, {leaf: its largest
+    difference over its largest magnitude}) of `got` from `ref`."""
+    if set(got) != set(ref):
+        raise AssertionError(f"(a) gradients of {sorted(set(got) ^ set(ref))}")
+    per_leaf = {n: float(np.abs(got[n] - r).max())
+                / max(float(np.abs(r).max()), 1e-30) for n, r in ref.items()}
+    diff = sum(float(np.square(got[n] - r).sum()) for n, r in ref.items())
+    norm = sum(float(np.square(r).sum()) for r in ref.values())
+    return math.sqrt(diff / norm), per_leaf
+
+
+def hold_dp_step(got: dict, ref: dict, control: dict) -> str:
+    """Rank 0's first data-parallel step against the one-process step from
+    the same weights. At full width on the card the one-process step is
+    its own noise floor: `control`, the same step on the same rows in
+    another order (mathematically equal), sits up to ~3e-3 of a leaf's
+    largest magnitude from it (the sums' order moves ReLU inputs near 0 by
+    an ulp), 60 times the CPU tests' 5e-5. So the bounds are: metrics
+    within rtol 1e-5; every gradient leaf within twice the control's
+    farthest leaf (at least 5e-5), and all gradients within twice the
+    control's relative L2 distance; each running statistic within twice
+    the control's farthest (at least 1e-5) of its largest magnitude, and
+    moved; the parameters within 1e-6 where the gradient lies outside the
+    gradient band around zero, 2 * lr + 1e-6 inside it (Adam's first step
+    is about lr * sign(g))."""
+    for other, name in ((got, "the ranks' step"), (control, "the control")):
+        bad = [k for k, v in ref["metrics"].items()
+               if abs(other["metrics"][k] - v) > 1e-5 * abs(v) + 1e-7]
+        if bad:
+            raise AssertionError(f"(a) {name}'s metrics {bad}: "
+                                 f"{other['metrics']} against "
+                                 f"{ref['metrics']}")
+    r = ref["grads"]
+    g_l2, g_leaf = grad_distance(got["grads"], r)
+    c_l2, c_leaf = grad_distance(control["grads"], r)
+    tol = max(GRAD_RTOL, 2 * max(c_leaf.values()))
+    far = sorted(((v, n) for n, v in g_leaf.items() if v > tol),
+                 reverse=True)
+    if far or g_l2 > 2 * c_l2 + 1e-7:
+        raise AssertionError(
+            f"(a) gradients {g_l2:.3g} in relative L2 (the control "
+            f"{c_l2:.3g}); leaves beyond {tol:.3g}: "
+            + "; ".join(f"{n} {v:.3g}" for v, n in far[:8]))
+    stats = [k for k, v in ref["state"].items()
+             if k not in r and v.dtype.kind == "f"]
+    _, c_stat = grad_distance({k: control["state"][k] for k in stats},
+                              {k: ref["state"][k] for k in stats})
+    _, g_stat = grad_distance({k: got["state"][k] for k in stats},
+                              {k: ref["state"][k] for k in stats})
+    stat_tol = max(STATS_RTOL, 2 * max(c_stat.values()))
+    far = [k for k, v in g_stat.items() if v > stat_tol
+           or np.array_equal(ref["state"][k], ref["before"][k])]
+    if far:
+        raise AssertionError(f"(a) running statistics beyond {stat_tol:.3g} "
+                             f"or unmoved: " + "; ".join(
+                                 f"{k} {g_stat[k]:.3g}" for k in far[:8]))
+    banded = 0
+    for k in r:
+        rv, gv = ref["state"][k], got["state"][k]
+        near = np.abs(r[k]) <= 2 * tol * float(np.abs(r[k]).max())
+        diff = np.abs(gv - rv)
+        if float(diff[~near].max(initial=0.0)) > PARAM_ATOL or \
+                float(diff.max()) > 2 * ref["lr"] + PARAM_ATOL:
+            raise AssertionError(f"(a) parameter {k} after the step: "
+                                 f"{float(diff.max()):.3g}")
+        banded += int((diff[near] > PARAM_ATOL).sum())
+    return (f"metrics within 1e-5 (loss {got['metrics']['loss']:.6f} "
+            f"against {ref['metrics']['loss']:.6f}); gradients "
+            f"{g_l2:.3g} in relative L2 and each leaf within "
+            f"{max(g_leaf.values()):.3g} of its largest magnitude, where the "
+            f"control (the one-process step on its rows in another order) "
+            f"lies {c_l2:.3g} and {max(c_leaf.values()):.3g} away (bound "
+            f"{tol:.3g} a leaf); running statistics within "
+            f"{max(g_stat.values()):.3g} of each one's largest magnitude (the "
+            f"control {max(c_stat.values()):.3g}, bound {stat_tol:.3g}); "
+            f"parameters within 1e-6 ({banded} elements of gradient within "
+            f"the band around 0 within 2 * lr)")
+
+
+def references(seed: int, device: str, x, y) -> tuple:
+    """(a)'s one-process step and its control (the same rows in another
+    order) on `device` from the seeded weights."""
+    torch.set_num_threads(1)     # beside phase 14's host work
+    dev = resolve_device(device)
+    perm = [1, 0, 3, 2]
+    out = tuple(dp_reference(seed, dev, torch.from_numpy(xi).to(dev),
+                             torch.from_numpy(yi).to(dev))
+                for xi, yi in ((x, y), (x[perm], y[perm])))
+    gc.collect()
+    return out
+
+
+class ParallelRun:
+    """Phase 15's ranks and references, started ahead of the phase (the
+    trim, `PERF.md` section 6): the ranks spawn, join their gloo group on
+    this card, set up (a) and (b) and run their warm-ups (a throwaway step
+    of (a), (b)'s first step), then wait for the go file; the
+    one-process reference and its control run in a spawned process of
+    their own (its K1 launches are not this process's). Each of these
+    processes runs one torch thread on the host, beside phase 14's host
+    work. `results()` waits for the references, gives the go and collects
+    the ranks."""
+
+    def __init__(self, seed: int, dev):
+        import multiprocessing
+        from concurrent.futures import ProcessPoolExecutor
+        from dsin_tpu_torch.parallel.launch import start_ranks
+        ae, _ = train_configs(batch_size=PAR_RANKS)
+        crops = train_crops(seed + 15, PAR_RANKS, tuple(ae.crop_size))
+        x = np.concatenate([c[0] for c in crops])
+        y = np.concatenate([c[1] for c in crops])
+        # the earlier phases' cached blocks back to the card: the ranks and
+        # the reference need ~40 GiB beside phase 14
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+            free, total = torch.cuda.mem_get_info(dev)
+            log(f"  phase 15's ranks start: {free / 2 ** 30:.1f} of "
+                f"{total / 2 ** 30:.1f} GiB free on the card, this process "
+                f"holding {torch.cuda.memory_reserved(dev) / 2 ** 30:.2f} GiB")
+        self.root = tempfile.mkdtemp(prefix="chip_smoke_ranks_")
+        self.go = os.path.join(self.root, "go")
+        # every rank on this card: gloo, an explicit device
+        on = f"cuda:{dev.index or 0}" if dev.type == "cuda" else str(dev)
+        # spawned here, children of this process before phase 14 counts them
+        self.ranks = start_ranks(parallel_rank, PAR_RANKS,
+                                 (seed, x, y, self.go, time.time()), "gloo",
+                                 on, os.path.join(self.root, "rdzv"),
+                                 PAR_WAIT_S + PAR_TIMEOUT_S, 1)
+        self._pool = ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn"))
+        self.refs = self._pool.submit(references, seed, str(dev), x, y)
+
+    def results(self) -> tuple:
+        try:
+            refs = self.refs.result(PAR_WAIT_S)
+            self._pool.shutdown()
+            torch.cuda.empty_cache()
+            open(self.go, "w").close()
+            return refs, self.ranks.results(PAR_TIMEOUT_S + 60)
+        finally:
+            self._pool.shutdown(cancel_futures=True)
+            shutil.rmtree(self.root, ignore_errors=True)
+
+
+def parallel_phase(seed: int, dev, started=None) -> int:
+    """Phase 15 (see the module docstring), on the ranks `started` (a
+    ParallelRun) or on ranks started here; -> K1's launches in (a)'s
+    steps, summed over the ranks."""
+    card = card_line()
+    t0 = time.perf_counter()
+    (ref, control), out = (started or ParallelRun(seed, dev)).results()
+    wall = time.perf_counter() - t0
+    log(f"  the ranks spawned, joined their group, set up (a) and (b) and "
+        f"ran the warm-ups in "
+        + ", ".join(f"{r['ready_s']:.1f}" for r in out)
+        + " s, then waited " + ", ".join(f"{r['waited_s']:.1f}" for r in out)
+        + f" s for the go; the one-process reference {ref['ms']:.1f} ms "
+        f"(its first step), its control {control['ms']:.1f} ms")
+    ops = out[0]["gloo_cuda"]
+    log(f"  gloo on CUDA tensors (torch {torch.__version__}): "
+        + ", ".join(f"{k} {v}" for k, v in ops.items()))
+    if set(ops.values()) != {"yes"}:
+        raise AssertionError(f"gloo refuses a collective parallel/ uses on "
+                             f"CUDA tensors: {ops}")
+
+    a = [r["dp"] for r in out]
+    if [r["coords"] for r in a] != [(d, 0) for d in range(PAR_RANKS)]:
+        raise AssertionError(f"(a) mesh {[r['coords'] for r in a]}")
+    if len({r["digest"] for r in a}) != 1:
+        raise AssertionError("(a) the ranks' states differ after the steps")
+    if any(r["launches"] != {"pearson_argmax": PAR_STEPS,
+                             "pearson_argmax_shared": 0}
+           or r["builds"] for r in a):
+        raise AssertionError(f"(a) launches {[r['launches'] for r in a]}, "
+                             f"builds {[r['builds'] for r in a]}")
+    held = hold_dp_step(a[0], ref, control)
+    ae, _ = train_configs(batch_size=PAR_RANKS)
+    log(f"  (a) ae_kitti_stereo + pc_default at {ae.crop_size[0]}x"
+        f"{ae.crop_size[1]}, global batch {PAR_RANKS} over {PAR_RANKS} gloo "
+        f"ranks on this card, against the one-process step at batch "
+        f"{PAR_RANKS}: {held}; "
+        f"ranks' states bit-equal after {PAR_STEPS} steps; K1 "
+        f"{PAR_STEPS} launches a rank, no native build; a throwaway step on "
+        f"a copy of the model before the go (its warm-up) " + ", ".join(
+            f"{r['warm_ms']:.1f}" for r in a) + " ms; ms per step (first "
+        f"/ second) " + ", ".join(
+            f"r{i} {r['step_ms'][0]:.1f} / {r['step_ms'][1]:.1f}"
+            for i, r in enumerate(a))
+        + "; gradient all-reduce " + ", ".join(
+            f"{r['allreduce'][-1]['allreduce_ms']:.1f}" for r in a)
+        + f" ms of {a[0]['allreduce'][-1]['allreduce_bytes'] / 2 ** 20:.1f} "
+        f"MiB; peak " + ", ".join(f"{r['peak_gib']:.2f}" for r in a)
+        + f" GiB a rank; card {card}")
+
+    b = [r["cs"] for r in out]
+    if len({r["digest"] for r in b}) != 1 or not all(
+            math.isfinite(v) for r in b for v in r["losses"]) or len(
+            {tuple(r["losses"]) for r in b}) != 1:
+        raise AssertionError(f"(b) losses {[r['losses'] for r in b]} or "
+                             f"states differ across the ranks")
+    if any(n != {"pearson_argmax": 0, "pearson_argmax_shared": 0}
+           for r in b for n in r["launches"]) or any(r["builds"] for r in b):
+        raise AssertionError(f"(b) launches {[r['launches'] for r in b]}")
+    idx = b[0]["index"]
+    if idx["beyond_margin"] or idx["val_err"] > SCORE_ATOL:
+        raise AssertionError(f"(b) the sharded search against the tiled "
+                             f"one: {idx}")
+    log(f"  (b) ae_cityscapes_stereo as published (spatial_shards 4, batch "
+        f"1, bf16, remat) at 1024x2048 over mesh {b[0]['mesh']}, the convs "
+        f"whole on each rank, the search sharded (row chunk "
+        f"{b[0]['row_chunk']}): loss " + " -> ".join(
+            f"{v:.4f}" for v in b[0]["losses"])
+        + " on every rank, states bit-equal; ms per step (the warm-up, "
+        "before the go / timed) "
+        + ", ".join("r{} {}".format(i, " / ".join(
+            f"{v:.1f}" for v in r["step_ms"])) for i, r in enumerate(b))
+        + "; search inside each step " + ", ".join("r{} {}".format(
+            i, " / ".join(f"{v:.1f}" for v in r["search_ms"]))
+            for i, r in enumerate(b))
+        + " ms (CUDA events); peak " + ", ".join(
+            f"{r['peak_gib']:.2f}" for r in b)
+        + " GiB a rank; the sharded search on the decoded frames "
+        + ", ".join(f"{r['shard_search_ms']:.1f}" for r in b)
+        + f" ms against the tiled search's {b[0]['tiled_ms']:.1f} ms on "
+        f"rank 0: indices equal {idx['equal']}/{idx['p']} (the rest within "
+        f"the {MARGIN_ATOL} margin), winning scores within "
+        f"{idx['val_err']:.3g}; K1 0 launches; card {card}")
+    log(f"  phase 15: {wall:.1f} s from the go (the ranks' start, set-up and "
+        f"warm-ups and the references ran during phase 14)")
+    return sum(r["launches"]["pearson_argmax"] for r in a)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -4206,14 +4779,14 @@ def main() -> int:
     rows, launches, walls = {}, {}, []
 
     def phase(title, fn):
-        log(f"[{len(walls) + 2}/14] {title}")
+        log(f"[{len(walls) + 2}/15] {title}")
         t0 = time.perf_counter()
         out = fn()
         walls.append((len(walls) + 2, time.perf_counter() - t0))
         log(f"  phase {walls[-1][0]}: {walls[-1][1]:.1f} s")
         return out
 
-    log(f"[1/14] card: {card}; torch {torch.__version__}, CUDA "
+    log(f"[1/15] card: {card}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}")
     phase("build", build_phase)
     rows.update(phase(f"kernel vs plain at {H}x{W}, patches {PH}x{PW}, seed "
@@ -4266,12 +4839,19 @@ def main() -> int:
         "two-wave rollout, ckpt_gc, session pinning and a replica's death",
         lambda: frontdoor_phase(args.seed, dev, life))
     shutil.rmtree(life_root, ignore_errors=True)
+    # phase 15's ranks start, set up and wait while phase 14 runs
+    started = ParallelRun(args.seed, dev)
     for name, n in phase(
             "the service's robustness at full width: the chaos soak (process "
             "backend, pipe), the shared-memory lane battery and the serve "
             "bench's router transport leg (pipe, shm)",
             lambda: chaos_phase(args.seed, dev)).items():
         launches[name] = launches.get(name, 0) + n
+    launches["pearson_argmax"] += phase(
+        "training over more than one device: 4 gloo ranks on this card, "
+        "(a) the data-parallel step (ae_kitti_stereo, 320x960, global batch "
+        "4), (b) the width-sharded Cityscapes step (spatial_shards 4, "
+        "1024x2048)", lambda: parallel_phase(args.seed, dev, started))
     log("phase wall s: " + ", ".join(f"[{i}] {t:.1f}" for i, t in walls))
     kernels = [dict(name=name, route="cuda", source=SOURCES[name],
                     replaces=REPLACES[name], launches=launches[name], **r)

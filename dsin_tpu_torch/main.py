@@ -31,17 +31,30 @@ the best validation loss from `meta.json`), then:
 `<replicate_to>/<model_name>`, CRC-checked on both sides
 (`train/checkpoint.replicate_checkpoint`).
 
-`spatial_shards = 1` trains any bundled config on one card, the Cityscapes
-geometry (`configs/ae_cityscapes_stereo`, 1024x2048) included; its tool is
-`tools/cityscapes_chip.py`. Multi-device training (`--distributed`,
-`spatial_shards > 1`) and `save_plots` are not ported and raise
-NotImplementedError naming their ROADMAP item or reason.
+More than one device (`parallel/`), one process per device: with a
+process group of several ranks (`--distributed`, from torchrun's
+environment) or `spatial_shards > 1`, the run trains over a (data, spatial)
+mesh built as the JAX package builds it. `spatial_shards > 1` takes the
+width-sharded step, its data axis the largest divisor of `batch_size` that
+fits the ranks left (`spatial_shards` above the ranks raises the JAX
+package's ValueError, one process included); otherwise every rank is on the
+data axis when `batch_size` splits over them. Each rank loads the rows of
+its data index (the loader's `host_id` its data index, `num_hosts` the
+data axis), so every spatial rank of a data row sees the same pairs in the
+same order, and its batch is `batch_size` / data ranks. Rank 0 alone
+writes: checkpoints, sidecars, logs, traces, replicas, and it alone runs
+the test split (one process per device would otherwise write the same
+files N times; the JAX package's one process writes once). Ranks past the
+mesh are idle. `save_plots` is not ported and raises NotImplementedError
+naming its reason.
 
 CLI:
     python -m dsin_tpu_torch.main -ae_config <path> -pc_config <path> \
         [--out_root DIR] [--data_root DIR] [--max_steps N] \
         [--max_val_batches N] [--max_test_images N] [--real_bpp] \
         [--profile_dir DIR] [--replicate_to DIR] [--device cpu]
+    torchrun --nproc_per_node=N -m dsin_tpu_torch.main --distributed \
+        [--backend nccl|gloo] [--device cuda|cuda:0|cpu] ...
 """
 
 from __future__ import annotations
@@ -54,6 +67,7 @@ from typing import Callable, Dict, Iterator, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from dsin_tpu_torch.coding.loader import make_codec
 from dsin_tpu_torch.config import Config, parse_config_file
@@ -63,6 +77,8 @@ from dsin_tpu_torch.eval.reporting import (ScoreLists, image_output_path,
                                            save_image)
 from dsin_tpu_torch.models.dsin import build_model
 from dsin_tpu_torch.ops import sifinder as sifinder_lib
+from dsin_tpu_torch.parallel import data_parallel as dp
+from dsin_tpu_torch.parallel import mesh as mesh_lib
 from dsin_tpu_torch.runtime import config_path
 from dsin_tpu_torch.train import checkpoint as ckpt_lib
 from dsin_tpu_torch.train import optim as optim_lib
@@ -73,11 +89,6 @@ from dsin_tpu_torch.utils.signals import install_interrupt_handlers
 
 #: train-split size when the manifest is missing (KITTI stereo's 1576 pairs)
 DEFAULT_NUM_TRAIN_IMGS = 1576
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP Queue 1, {item})")
 
 
 def get_validate_every(iteration: int, total_iterations: int,
@@ -98,7 +109,9 @@ def get_validate_every(iteration: int, total_iterations: int,
 class Experiment:
     """Owns the model, its optimizer, the steps and the datasets of one
     run. The train step, the validation step and the training prior exist
-    only when the config trains (`train_model`)."""
+    only when the config trains (`train_model`). `mesh` is the run's
+    (data, spatial) mesh, or None on one device (module docstring); a rank
+    past the mesh is `idle` and holds nothing else."""
 
     def __init__(self, ae_config: Config, pc_config: Config,
                  out_root: str = ".", seed: int = 0, device="cuda",
@@ -110,12 +123,33 @@ class Experiment:
         #: peer-visible root each best-val save is replicated to, as
         #: <replicate_to>/<model_name> (None: off)
         self.replicate_to = replicate_to
-        shards = int(ae_config.get("spatial_shards", 1) or 1)
-        if shards > 1:
-            raise _not_ported(
-                f"spatial_shards = {shards} (width-sharded training, item 6; "
-                f"spatial_shards = 1 trains on one card)",
-                "multi-device training")
+        self.rank, world = mesh_lib.world()
+        spatial = int(ae_config.get("spatial_shards", 1) or 1)
+        if spatial > world:
+            raise ValueError(f"spatial_shards={spatial} exceeds the {world} "
+                             f"available devices")
+        self.mesh = None
+        if spatial > 1:
+            data_par = mesh_lib.data_axis_size(ae_config.batch_size, world,
+                                               spatial)
+            self.mesh = mesh_lib.make_mesh(num_devices=data_par * spatial,
+                                           spatial=spatial)
+        elif world > 1:
+            if ae_config.batch_size % world:
+                raise ValueError(
+                    f"batch_size {ae_config.batch_size} does not split over "
+                    f"the {world} ranks: run batch_size / ranks rows a rank, "
+                    f"or fewer ranks")
+            self.mesh = mesh_lib.make_mesh()
+        if self.mesh is not None:
+            color_print(
+                f"mesh: data={self.mesh.shape['data']} x spatial="
+                f"{self.mesh.shape['spatial']} ({self.mesh.size}/{world} "
+                f"ranks; data axis auto-sized to the largest divisor of "
+                f"batch_size={ae_config.batch_size} that fits the remaining "
+                f"ranks); rank {self.rank} at {self.mesh.coords}", "yellow")
+        if self.idle:
+            return      # a rank past the mesh builds nothing
         self.model = build_model(ae_config, pc_config, device=device,
                                  seed=seed)
         self.device = self.model.centers.device
@@ -129,6 +163,9 @@ class Experiment:
             if os.path.exists(train_manifest) else DEFAULT_NUM_TRAIN_IMGS)
         self.optimizer = optim_lib.Optimizer(
             self.model, ae_config, pc_config, self.num_train_imgs)
+
+        if self.mesh is not None:
+            mesh_lib.replicate_state(self.mesh, self.model, self.optimizer)
 
         ph, pw = (int(v) for v in ae_config.y_patch_size)
         eh, ew = ae_config.get("eval_crop_size", ae_config.crop_size)
@@ -149,11 +186,24 @@ class Experiment:
                     f"and the rate hinge are evaluated per micro-batch "
                     f"(see the JAX package's train/step.py on when this "
                     f"differs from the full-batch step)", "yellow")
-            self.train_step = step_lib.make_train_step(
-                self.model, self.optimizer, si_mask=self.train_mask,
-                grad_accum=grad_accum)
-            self.val_step = step_lib.make_eval_step(
-                self.model, si_mask=self.train_mask)
+            if self.mesh is None:
+                self.train_step = step_lib.make_train_step(
+                    self.model, self.optimizer, si_mask=self.train_mask,
+                    grad_accum=grad_accum)
+                self.val_step = step_lib.make_eval_step(
+                    self.model, si_mask=self.train_mask)
+            elif spatial > 1:
+                self.train_step = dp.make_spatial_train_step(
+                    self.model, self.optimizer, self.mesh, ch, cw,
+                    grad_accum=grad_accum)
+                self.val_step = dp.make_spatial_eval_step(
+                    self.model, self.mesh, ch, cw)
+            else:
+                self.train_step = dp.make_sharded_train_step(
+                    self.model, self.optimizer, self.mesh,
+                    si_mask=self.train_mask, grad_accum=grad_accum)
+                self.val_step = dp.make_sharded_eval_step(
+                    self.model, self.mesh, si_mask=self.train_mask)
 
         stamp = time.strftime("%Y%m%d_%H%M%S")
         self.model_name = ckpt_lib.model_name_for(ae_config, stamp)
@@ -165,20 +215,45 @@ class Experiment:
     def step(self) -> int:
         return self.optimizer.step
 
+    @property
+    def writer(self) -> bool:
+        """Whether this rank writes (rank 0 of a mesh, or the one process)."""
+        return self.rank == 0
+
+    @property
+    def idle(self) -> bool:
+        """A rank past the mesh: it trains and tests nothing."""
+        return self.mesh is not None and not self.mesh.member
+
+    def _data_axis(self):
+        """(this rank's data index, the data axis) of the loader's
+        sharding."""
+        if self.mesh is None:
+            return 0, 1
+        return self.mesh.data_index, self.mesh.shape["data"]
+
     # -- data ---------------------------------------------------------------
 
-    def _dataset(self, split: str, train: bool) -> PairDataset:
+    def _split_pairs(self, split: str) -> list:
         cfg = self.ae_config
         manifest = os.path.join(cfg.root_data,
                                 getattr(cfg, f"file_path_{split}"))
-        pairs = read_pair_manifest(manifest, root=cfg.root_data)
+        return read_pair_manifest(manifest, root=cfg.root_data)
+
+    def _dataset(self, split: str, train: bool) -> PairDataset:
+        """Train and val: this rank's data index's pairs, batch_size / data
+        ranks a batch; test: every pair, one at a time (rank 0 tests)."""
+        cfg = self.ae_config
+        pairs = self._split_pairs(split)
         crop = (cfg.crop_size if train or split == "val"
                 else cfg.get("eval_crop_size", cfg.crop_size))
+        host, hosts = self._data_axis() if train or split == "val" else (0, 1)
         return PairDataset(
             pairs, crop_size=crop,
-            batch_size=cfg.batch_size if train or split == "val" else 1,
-            train=train, num_crops_per_img=cfg.num_crops_per_img,
-            do_flips=cfg.get("do_flips", True))
+            batch_size=cfg.batch_size // hosts if train or split == "val"
+            else 1, train=train, num_crops_per_img=cfg.num_crops_per_img,
+            do_flips=cfg.get("do_flips", True), host_id=host,
+            num_hosts=hosts)
 
     # -- checkpoints --------------------------------------------------------
 
@@ -235,6 +310,8 @@ class Experiment:
 
     def validate(self, val_batches: Iterator,
                  max_batches: Optional[int] = None) -> float:
+        """The mean validation loss over the batches (each the global
+        batch's on a mesh)."""
         losses = []
         for i, (x, y) in enumerate(val_batches):
             if max_batches is not None and i >= max_batches:
@@ -257,6 +334,14 @@ class Experiment:
         (the rate-target stop keeps the weights that meet the rate)."""
         cfg = self.ae_config
         with self._dataset("val", train=False) as val_ds:
+            if self.mesh is not None:
+                # every data rank runs the same number of batches (each one
+                # collective): the smallest shard's, len(pairs) // ranks
+                _, hosts = self._data_axis()
+                fewest = ((len(self._split_pairs("val")) // hosts)
+                          // val_ds.batch_size)
+                max_val_batches = (fewest if max_val_batches is None
+                                   else min(max_val_batches, fewest))
             val_loss = self.validate(val_ds.batches(loop=False),
                                      max_batches=max_val_batches)
         val_losses.append(val_loss)
@@ -267,7 +352,8 @@ class Experiment:
         logger.log(i + 1, {"val_loss": val_loss})
         if improved:
             best_val = val_loss
-        if (improved or force_save) and cfg.get("save_model", True):
+        if (improved or force_save) and cfg.get("save_model", True) \
+                and self.writer:
             self._save(self.ckpt_dir, best_val=best_val)
             ckpt_lib.write_sidecars(
                 self.weights_root, self.model_name, cfg, self.pc_config,
@@ -310,16 +396,21 @@ class Experiment:
                       if max_steps else cfg.iterations)
         train_ds = self._dataset("train", train=True)
         train_it = Prefetcher(train_ds.batches())
-        logger = JsonlLogger(log_path or os.path.join(
+        logger = JsonlLogger((log_path or os.path.join(
             self.out_root, "logs", f"{self.model_name}.jsonl"))
+            if self.writer else None)
         timer = StepTimer()
         # clamp the trace window into short or resumed runs, so that
         # profile_dir always captures something (past the first steps'
-        # cuDNN plans and kernel builds where it can)
+        # cuDNN plans and kernel builds where it can); rank 0 traces
         remaining = iterations - start
         profiler = StepProfiler(
-            profile_dir, start_step=start + min(5, max(remaining - 3, 0)),
+            profile_dir if self.writer else None,
+            start_step=start + min(5, max(remaining - 3, 0)),
             device=self.device)
+        # the step before which the trace window's last step is drained:
+        # the same on every rank, as a validation there is collective
+        drain_at = profiler.stop_step if profile_dir else None
         checkpoint_every = cfg.get("checkpoint_every", None)
         best_val = self.restored_best_val
         accum: Dict[str, float] = {}
@@ -370,7 +461,8 @@ class Experiment:
 
             # a periodic (not best-val) checkpoint bounds the work a crash
             # loses
-            if checkpoint_every and (j + 1) % checkpoint_every == 0:
+            if checkpoint_every and (j + 1) % checkpoint_every == 0 \
+                    and self.writer:
                 self._save(os.path.join(self.ckpt_dir, "periodic"),
                            extra_meta={"kind": "periodic"})
 
@@ -407,8 +499,7 @@ class Experiment:
                 # drain the in-flight step before the trace window would
                 # close: with the lag-1 loop the last traced step could
                 # otherwise still be running when the profiler stops
-                if (pending is not None and profiler.active
-                        and i >= profiler.stop_step):
+                if pending is not None and i == drain_at:
                     if process(*pending):
                         pending = None
                         break
@@ -428,7 +519,7 @@ class Experiment:
             # a save that raises must not mask the original error. With the
             # lag-1 loop a crash can arrive before the completed step was
             # processed, hence `pending`.
-            if (cfg.get("save_model", True)
+            if (cfg.get("save_model", True) and self.writer
                     and (timer.total_steps > 0 or pending is not None)
                     and not isinstance(e, GeneratorExit)):
                 emergency = os.path.join(self.ckpt_dir, "emergency")
@@ -572,16 +663,19 @@ def run(ae_config: Config, pc_config: Config, out_root: str = ".",
         replicate_to: Optional[str] = None, device="cuda", seed: int = 0,
         on_image: Optional[Callable] = None) -> Dict[str, float]:
     """Config-driven orchestration: restore, train, then test the best-val
-    checkpoint."""
+    checkpoint (on a mesh: every member rank trains, rank 0 tests, a rank
+    past the mesh returns at once)."""
     exp = Experiment(ae_config, pc_config, out_root=out_root, seed=seed,
                      device=device, replicate_to=replicate_to)
-    exp.maybe_restore()
     results: Dict[str, float] = {}
+    if exp.idle:
+        return results
+    exp.maybe_restore()
     if ae_config.train_model:
         results.update(exp.train(max_steps=max_steps,
                                  max_val_batches=max_val_batches,
                                  profile_dir=profile_dir))
-    if ae_config.test_model:
+    if ae_config.test_model and exp.writer:
         if ae_config.train_model:
             # never score the in-memory training tail: test what the run
             # ships
@@ -616,24 +710,40 @@ def parse_args(argv=None):
                         "checkpoint to (CRC-checked on both sides); the "
                         "copy lands at <replicate_to>/<model_name>")
     p.add_argument("--distributed", action="store_true",
-                   help="not ported: multi-host training")
+                   help="one rank of a process group (torchrun's RANK, "
+                        "WORLD_SIZE, LOCAL_RANK and MASTER_ADDR/PORT): "
+                        "trains over the (data, spatial) mesh, rank 0 "
+                        "writes")
+    p.add_argument("--backend", default="nccl", choices=mesh_lib.BACKENDS,
+                   help="with --distributed: nccl (one card a rank) or gloo "
+                        "(the CPU, or ranks sharing a card: pass --device "
+                        "cuda:0); never switched")
+    p.add_argument("--init_method", default=None,
+                   help="with --distributed: the rendezvous (default "
+                        "env://; or file:///path)")
     return p.parse_args(argv)
 
 
 def main(argv=None) -> None:
     args = parse_args(argv)
+    device = args.device
     if args.distributed:
-        raise _not_ported("--distributed", "multi-device training")
-    ae_config = parse_config_file(args.ae_config)
-    pc_config = parse_config_file(args.pc_config)
-    if args.data_root:
-        ae_config = ae_config.replace(root_data=args.data_root)
-    results = run(ae_config, pc_config, out_root=args.out_root,
-                  max_steps=args.max_steps,
-                  max_val_batches=args.max_val_batches,
-                  max_test_images=args.max_test_images,
-                  profile_dir=args.profile_dir, real_bpp=args.real_bpp,
-                  replicate_to=args.replicate_to, device=args.device)
+        device = mesh_lib.init_distributed(args.backend, args.device,
+                                           init_method=args.init_method)
+    try:
+        ae_config = parse_config_file(args.ae_config)
+        pc_config = parse_config_file(args.pc_config)
+        if args.data_root:
+            ae_config = ae_config.replace(root_data=args.data_root)
+        results = run(ae_config, pc_config, out_root=args.out_root,
+                      max_steps=args.max_steps,
+                      max_val_batches=args.max_val_batches,
+                      max_test_images=args.max_test_images,
+                      profile_dir=args.profile_dir, real_bpp=args.real_bpp,
+                      replicate_to=args.replicate_to, device=device)
+    finally:
+        if args.distributed:
+            dist.destroy_process_group()
     color_print(f"done: {results}", "green", bold=True)
 
 

@@ -128,7 +128,7 @@ BN_MOMENTUM = 0.9
 
 
 def batch_norm(x: torch.Tensor, bn: nn.BatchNorm2d, train: bool = False,
-               stats: Optional[dict] = None) -> torch.Tensor:
+               stats: Optional[dict] = None, batch=None) -> torch.Tensor:
     """Batch norm over NCHW `x` in flax's order and promotion: float32
     statistics, mul = rsqrt(var + eps) * scale, y = (x - mean) * mul + bias
     in float32, the result in promote(x, scale, bias).
@@ -141,13 +141,21 @@ def batch_norm(x: torch.Tensor, bn: nn.BatchNorm2d, train: bool = False,
     runs (a rematerialized block runs again in the backward pass and must
     not record twice); `apply_batch_stats` folds them into the running
     statistics. Without `stats` the running statistics stay as they are
-    (`bn_stats = 'frozen'`)."""
+    (`bn_stats = 'frozen'`).
+
+    `batch` (`parallel/data_parallel.BatchAxis`), when the batch is split
+    over the ranks of a data axis, makes both means the global batch's:
+    local sums all-reduced, the sum its own backward, as a global-batch
+    program differentiates them."""
     shape = (1, -1, 1, 1)
     if train:
         xf = x.float()
-        mean = xf.mean(dim=(0, 2, 3))
-        var = torch.clamp(torch.square(xf).mean(dim=(0, 2, 3))
-                          - torch.square(mean), min=0.0)
+        if batch is None:
+            mean = xf.mean(dim=(0, 2, 3))
+            mean2 = torch.square(xf).mean(dim=(0, 2, 3))
+        else:
+            mean, mean2 = batch.means((xf, torch.square(xf)), (0, 2, 3))
+        var = torch.clamp(mean2 - torch.square(mean), min=0.0)
         if stats is not None and bn not in stats:
             stats[bn] = (mean.detach(), var.detach())
     else:
@@ -188,7 +196,7 @@ class ConvBN(nn.Module):
         self.bn = nn.BatchNorm2d(cout, eps=1e-5, momentum=0.1)
 
     def forward(self, x: torch.Tensor, train: bool = False,
-                stats: Optional[dict] = None) -> torch.Tensor:
+                stats: Optional[dict] = None, batch=None) -> torch.Tensor:
         h, w = x.shape[-2:]
         x, weight = x.to(self.dtype), self.conv.weight.to(self.dtype)
         if self.transpose:
@@ -200,7 +208,7 @@ class ConvBN(nn.Module):
             left, right = _same_pads(w, self.kernel, self.stride)
             x = F.conv2d(F.pad(x, (left, right, top, bottom)), weight,
                          stride=self.stride)
-        x = batch_norm(x, self.bn, train, stats)
+        x = batch_norm(x, self.bn, train, stats, batch)
         return F.relu(x) if self.relu else x
 
 
@@ -215,8 +223,10 @@ class ResBlock(nn.Module):
                             dtype=dtype)
         self.conv1 = ConvBN(features, features, 3, relu=False, dtype=dtype)
 
-    def forward(self, x, train: bool = False, stats: Optional[dict] = None):
-        return self.conv1(self.conv0(x, train, stats), train, stats) + x
+    def forward(self, x, train: bool = False, stats: Optional[dict] = None,
+                batch=None):
+        return self.conv1(self.conv0(x, train, stats, batch), train, stats,
+                          batch) + x
 
 
 class ResGroupStack(nn.Module):
@@ -236,20 +246,22 @@ class ResGroupStack(nn.Module):
         blocks.append(ResBlock(features, relu_first=False, dtype=dtype))
         self.blocks = nn.ModuleList(blocks)
 
-    def _block(self, i: int, x, train: bool, stats: Optional[dict]):
+    def _block(self, i: int, x, train: bool, stats: Optional[dict], batch):
         if self.remat and torch.is_grad_enabled():
-            return checkpoint(self.blocks[i], x, train, stats,
+            return checkpoint(self.blocks[i], x, train, stats, batch,
                               use_reentrant=False)
-        return self.blocks[i](x, train, stats)
+        return self.blocks[i](x, train, stats, batch)
 
-    def forward(self, x, train: bool = False, stats: Optional[dict] = None):
+    def forward(self, x, train: bool = False, stats: Optional[dict] = None,
+                batch=None):
         outer = x
         for g in range(self.num_groups):
             inner = x
             for i in range(3):
-                x = self._block(3 * g + i, x, train, stats)
+                x = self._block(3 * g + i, x, train, stats, batch)
             x = x + inner
-        return self._block(len(self.blocks) - 1, x, train, stats) + outer
+        return self._block(len(self.blocks) - 1, x, train, stats,
+                           batch) + outer
 
 
 class Encoder(nn.Module):
@@ -268,10 +280,10 @@ class Encoder(nn.Module):
         self.conv2 = ConvBN(n, c_out, 5, stride=2, relu=False, dtype=dt)
 
     def forward(self, x: torch.Tensor, train: bool = False,
-                stats: Optional[dict] = None) -> torch.Tensor:
+                stats: Optional[dict] = None, batch=None) -> torch.Tensor:
         x = normalize_image(x, self.config.normalization).permute(0, 3, 1, 2)
         for layer in (self.conv0, self.conv1, self.res, self.conv2):
-            x = layer(x, train, stats)
+            x = layer(x, train, stats, batch)
         return x.permute(0, 2, 3, 1)
 
 
@@ -293,21 +305,21 @@ class Decoder(nn.Module):
                             dtype=dt)
 
     def forward(self, q: torch.Tensor, train: bool = False,
-                stats: Optional[dict] = None) -> torch.Tensor:
+                stats: Optional[dict] = None, batch=None) -> torch.Tensor:
         x = q.permute(0, 3, 1, 2)
         for layer in (self.conv0, self.res, self.conv1, self.conv2):
-            x = layer(x, train, stats)
+            x = layer(x, train, stats, batch)
         x = x.float()
         x = denormalize_image(x.permute(0, 2, 3, 1), self.config.normalization)
         return torch.clamp(x, 0.0, 255.0)
 
 
 def encode(encoder: Encoder, x: torch.Tensor, centers: torch.Tensor,
-           train: bool = False,
-           stats: Optional[dict] = None) -> EncoderOutput:
-    """Encoder + heatmap gating + quantization; `train` and `stats` as for
-    `batch_norm`."""
-    bottleneck = encoder(x, train, stats)
+           train: bool = False, stats: Optional[dict] = None,
+           batch=None) -> EncoderOutput:
+    """Encoder + heatmap gating + quantization; `train`, `stats` and
+    `batch` as for `batch_norm`."""
+    bottleneck = encoder(x, train, stats, batch)
     if encoder.config.heatmap:
         heat = heatmap3d(bottleneck)
         z = heat * bottleneck[..., 1:]

@@ -76,16 +76,18 @@ class DSIN(nn.Module):
     # encode and decode take their NHWC input contiguous: the convolutions
     # round differently for another memory layout of equal values. `train`
     # normalizes by batch statistics, which `stats` (a dict) records for
-    # `autoencoder.apply_batch_stats` (see `autoencoder.batch_norm`).
+    # `autoencoder.apply_batch_stats`, and `batch` makes the global batch's
+    # (see `autoencoder.batch_norm`).
 
     def encode(self, x: torch.Tensor, train: bool = False,
-               stats: Optional[dict] = None) -> ae_lib.EncoderOutput:
+               stats: Optional[dict] = None,
+               batch=None) -> ae_lib.EncoderOutput:
         return ae_lib.encode(self.encoder, x.contiguous(), self.centers,
-                             train, stats)
+                             train, stats, batch)
 
     def decode(self, q: torch.Tensor, train: bool = False,
-               stats: Optional[dict] = None) -> torch.Tensor:
-        return self.decoder(q.contiguous(), train, stats)
+               stats: Optional[dict] = None, batch=None) -> torch.Tensor:
+        return self.decoder(q.contiguous(), train, stats, batch)
 
     def bitcost(self, q: torch.Tensor, symbols: torch.Tensor) -> torch.Tensor:
         pad = pc_lib.auto_pad_value(self.pc_config, self.centers)

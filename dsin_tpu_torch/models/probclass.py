@@ -177,8 +177,13 @@ def bitcost(model: ResShallow, q_nhwc: torch.Tensor,
     return nll * np.log2(np.e)
 
 
-def bitcost_to_bpp(bit_cost: torch.Tensor, input_batch: torch.Tensor):
+def bitcost_to_bpp(bit_cost: torch.Tensor, input_batch: torch.Tensor,
+                   batch=None):
     """Total bits / total image pixels. bit_cost (N, H, W, C) over bottleneck
-    positions; input_batch (N, H, W, 3)."""
+    positions; input_batch (N, H, W, 3). `batch`
+    (`parallel/data_parallel.BatchAxis`): the totals of the global batch
+    that the ranks of a data axis hold in blocks."""
     num_pixels = input_batch.numel() // input_batch.shape[-1]
-    return torch.sum(bit_cost) / num_pixels
+    if batch is None:
+        return torch.sum(bit_cost) / num_pixels
+    return batch.sum(bit_cost) / (num_pixels * batch.size)

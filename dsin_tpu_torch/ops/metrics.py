@@ -68,10 +68,12 @@ class Distortions(NamedTuple):
 
 
 def compute_distortions(config, x: torch.Tensor, x_out: torch.Tensor,
-                        is_training: bool) -> Distortions:
+                        is_training: bool, batch=None) -> Distortions:
     """All metrics + the distortion term to minimize. Each metric casts to
     int unless it is the one being trained on; at eval everything casts.
-    MS-SSIM is computed only when it is the optimization target."""
+    MS-SSIM is computed only when it is the optimization target. `batch`
+    (`parallel/data_parallel.BatchAxis`) takes the batch means over the
+    global batch that the ranks of a data axis hold in blocks."""
     minimize_for = config.distortion_to_minimize
     if minimize_for not in DISTORTIONS:
         raise ValueError(f"distortion_to_minimize={minimize_for!r}: "
@@ -80,14 +82,18 @@ def compute_distortions(config, x: torch.Tensor, x_out: torch.Tensor,
     cast_mse = (not is_training) or minimize_for != "mse"
     cast_mae = (not is_training) or minimize_for != "mae"
 
-    mae = mean(mae_per_image(x, x_out, cast_mae), (0,))
-    mse = mean(mse_per_image(x, x_out, cast_mse), (0,))
-    psnr = mean(psnr_per_image(x, x_out, cast_psnr), (0,))
+    per_image = (mae_per_image(x, x_out, cast_mae),
+                 mse_per_image(x, x_out, cast_mse),
+                 psnr_per_image(x, x_out, cast_psnr))
+    if batch is None:
+        mae, mse, psnr = (mean(t, (0,)) for t in per_image)
+    else:
+        mae, mse, psnr = batch.means(per_image, (0,))
 
     ms_ssim = None
     if minimize_for == "ms_ssim":
         from dsin_tpu_torch.ops.msssim import multiscale_ssim
-        ms_ssim = multiscale_ssim(x, x_out)
+        ms_ssim = multiscale_ssim(x, x_out, batch=batch)
 
     if minimize_for == "mae":
         d = mae

@@ -37,7 +37,8 @@ def _blur_valid(img: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 1)
 
 
-def _ssim_and_cs(img1, img2, max_val, filter_size, filter_sigma, k1, k2):
+def _ssim_and_cs(img1, img2, max_val, filter_size, filter_sigma, k1, k2,
+                 batch=None):
     _, h, w, _ = img1.shape
     size = min(filter_size, h, w)
     sigma = size * filter_sigma / filter_size if filter_size else 0.0
@@ -59,9 +60,10 @@ def _ssim_and_cs(img1, img2, max_val, filter_size, filter_sigma, k1, k2):
     c2 = (k2 * max_val) ** 2
     v1 = 2.0 * sigma12 + c2
     v2 = sigma11 + sigma22 + c2
-    ssim = (((2.0 * mu1 * mu2 + c1) * v1)
-            / ((mu1 * mu1 + mu2 * mu2 + c1) * v2)).mean()
-    return ssim, (v1 / v2).mean()
+    ssim = ((2.0 * mu1 * mu2 + c1) * v1) / ((mu1 * mu1 + mu2 * mu2 + c1) * v2)
+    if batch is not None:
+        return batch.means((ssim, v1 / v2))
+    return ssim.mean(), (v1 / v2).mean()
 
 
 def _downsample_2x(img: torch.Tensor) -> torch.Tensor:
@@ -79,8 +81,11 @@ def _downsample_2x(img: torch.Tensor) -> torch.Tensor:
 def multiscale_ssim(img1: torch.Tensor, img2: torch.Tensor,
                     max_val: float = 255.0, filter_size: int = 11,
                     filter_sigma: float = 1.5, k1: float = 0.01,
-                    k2: float = 0.03, weights=None) -> torch.Tensor:
-    """MS-SSIM between two NHWC batches -> a scalar tensor."""
+                    k2: float = 0.03, weights=None,
+                    batch=None) -> torch.Tensor:
+    """MS-SSIM between two NHWC batches -> a scalar tensor; `batch`
+    (`parallel/data_parallel.BatchAxis`) takes each level's means over the
+    global batch that the ranks of a data axis hold in blocks."""
     if img1.ndim != 4 or img1.shape != img2.shape:
         raise ValueError(f"MS-SSIM takes two NHWC batches of one shape, got "
                          f"{tuple(img1.shape)} and {tuple(img2.shape)}")
@@ -91,7 +96,7 @@ def multiscale_ssim(img1: torch.Tensor, img2: torch.Tensor,
     mssim, mcs = [], []
     for _ in range(levels):
         ssim, cs = _ssim_and_cs(im1, im2, max_val, filter_size,
-                                filter_sigma, k1, k2)
+                                filter_sigma, k1, k2, batch)
         mssim.append(ssim)
         mcs.append(cs)
         im1, im2 = _downsample_2x(im1), _downsample_2x(im2)

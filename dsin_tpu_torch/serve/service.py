@@ -113,8 +113,11 @@ Observability: the JAX service's metric names (`serve_device_ms`,
 `serve_si_match_*`, ...), plus per-kind `serve_device_ms_<kind>` /
 `serve_entropy_ms_<kind>` histograms; with no XLA, `serve_native_builds`
 and `serve_warmup_builds` count native builds
-(`native_build.build_count()`) where the JAX service counts compiles.
-Spans and flight events as in `serve/trace.py`, plus the JAX service's
+(`native_build.build_count()`) where the JAX service counts compiles,
+and `serve_session_expired` counts the typed SessionExpired answers,
+which the post-commit watchdog's error rate leaves out (port only: the
+JAX watchdog counts them, and rolls a healthy model back when a commit
+expires the sessions of SI traffic). Spans and flight events as in `serve/trace.py`, plus the JAX service's
 lifecycle events (`swap_prepared`, `swap_commit`, `swap_abort`,
 `swap_rollback`, `watchdog_verdict`, `quality_alarm`, `canary_failure`,
 `canary_refused_swap`).
@@ -1029,8 +1032,13 @@ class CompressionService:
 
     def _error_counters(self) -> Tuple[int, int]:
         """(typed errors, resolutions): the watchdog's inputs, both counted
-        in one place (`_note_resolution`)."""
-        return (self.metrics.counter("serve_typed_errors").value,
+        in one place (`_note_resolution`). A SessionExpired is left out: it
+        tells a client to re-open, and a commit expires every session by
+        design, so counting it judged the swap, not the model (under SI
+        traffic it rolled a healthy model back; the JAX service counts
+        it)."""
+        return (self.metrics.counter("serve_typed_errors").value
+                - self.metrics.counter("serve_session_expired").value,
                 self.metrics.counter("serve_resolved").value)
 
     def abort_swap(self) -> dict:
@@ -1518,15 +1526,18 @@ class CompressionService:
     def _note_resolution(self, fut: Future) -> None:
         """Done-callback on every accepted request: a TYPED error (the
         ServeError/ValueError/InjectedFault families — IntegrityError and
-        SessionExpired are subclasses) counts into `serve_typed_errors`,
-        records the always-on error span and triggers a flight dump. May
-        run under the batcher condition, so nothing here blocks."""
+        SessionExpired are subclasses) counts into `serve_typed_errors`
+        (a SessionExpired into `serve_session_expired` too), records the
+        always-on error span and triggers a flight dump. May run under the
+        batcher condition, so nothing here blocks."""
         exc = fut.exception(timeout=0)
         self.metrics.counter("serve_resolved").inc()
         if exc is None or not isinstance(
                 exc, (ServeError, ValueError, faults.InjectedFault)):
             return
         self.metrics.counter("serve_typed_errors").inc()
+        if isinstance(exc, session_lib.SessionExpired):
+            self.metrics.counter("serve_session_expired").inc()
         ctx = getattr(fut, "trace", None)
         self.tracer.error(ctx, exc)
         self.flight.note_error(

@@ -765,6 +765,13 @@ def run_quality_section(args) -> dict:
     canary_result = {}
     builds = native_build.build_count()
     try:
+        # populate at gap rate 1.0: the first encode of every shape, so
+        # every served bucket's gap histogram gets a sample. A pass's
+        # encodes cycle only the first images at the default
+        # --quality_requests, and a bucket left to the prober's probes
+        # had its sample only when a probe landed in this window (under a
+        # loaded host, 1 leg in 4 had none)
+        prev = svc.quality.set_gap_sample_rate(1.0)
         streams = [(svc.encode(img, timeout=600.0).stream,
                     svc.policy.bucket_for(*img.shape[:2])) for img in images]
         sids = {b: svc.open_session(sides[b]) for b in served}
@@ -783,7 +790,6 @@ def run_quality_section(args) -> dict:
             dur = time.monotonic() - t0
             return n / dur if dur > 0 else 0.0
 
-        prev = svc.quality.set_gap_sample_rate(1.0)
         one_pass()
         svc.quality.set_gap_sample_rate(prev)
         for _ in range(200):

@@ -36,9 +36,17 @@ class RateLoss(NamedTuple):
 
 
 def rate_loss(bitcost: torch.Tensor, heatmap: Optional[torch.Tensor],
-              H_target: float, beta: float) -> RateLoss:
-    H_real = bitcost.mean()
-    H_mask = (bitcost * heatmap).mean() if heatmap is not None else H_real
+              H_target: float, beta: float, batch=None) -> RateLoss:
+    """`batch` (`parallel/data_parallel.BatchAxis`) takes the means over the
+    global batch when the ranks of a data axis hold it in blocks: the hinge
+    then sees the global H_soft, as the JAX package's global-batch step."""
+    if batch is None:
+        H_real = bitcost.mean()
+        H_mask = (bitcost * heatmap).mean() if heatmap is not None else H_real
+    elif heatmap is not None:
+        H_real, H_mask = batch.means((bitcost, bitcost * heatmap))
+    else:
+        H_real = H_mask = batch.mean(bitcost)
     H_soft = 0.5 * (H_mask + H_real)
     pc_loss = beta * torch.clamp(H_soft - H_target, min=0.0)
     return RateLoss(pc_loss=pc_loss, H_real=H_real, H_mask=H_mask,
@@ -73,6 +81,10 @@ def total_loss(d_loss_scaled: torch.Tensor, rate: RateLoss,
     return d_loss_scaled + rate.pc_loss + reg
 
 
-def si_l1_loss(x: torch.Tensor, x_with_si: torch.Tensor) -> torch.Tensor:
-    """Mean |x - x_with_si| (tf.losses.absolute_difference's default)."""
-    return torch.abs(x - x_with_si).mean()
+def si_l1_loss(x: torch.Tensor, x_with_si: torch.Tensor,
+               batch=None) -> torch.Tensor:
+    """Mean |x - x_with_si| (tf.losses.absolute_difference's default), over
+    the global batch when `batch` is given (see `rate_loss`)."""
+    if batch is None:
+        return torch.abs(x - x_with_si).mean()
+    return batch.mean(torch.abs(x - x_with_si))

@@ -19,6 +19,13 @@ volume keeps its gradient to centers[0]. `make_train_step` takes one
 optimizer step over the batch, or over `grad_accum` strided micro-batches
 whose gradients and metrics it averages, their batch statistics chained.
 
+The steps of more than one rank (`parallel/data_parallel.py`) come through
+two hooks, as the JAX package's `synthesize_fn`: `synthesize_fn` replaces
+the patch search (the width-sharded search), and `batch` (a
+`BatchAxis`) takes every batch mean and sum of the loss, the metrics and
+the train-mode batch norms over the global batch that the ranks of a data
+axis hold in blocks, and averages the gradients over it before the update.
+
 The prior is checked once per step built (`ops/sifinder.check_mask`), not
 per image: the check of a 320x1224 Gaussian prior reads its 1.18 GB. A mask
 that checks as the standard Gaussian prior is kept as its factors only, and
@@ -45,20 +52,24 @@ SCALAR_METRICS = ("bpp", "H_real", "H_soft", "pc_loss", "d_loss", "mae",
 
 def forward_losses(model, x: torch.Tensor, y: torch.Tensor, si_mask,
                    train: bool = False, bn_stats: Optional[dict] = None,
-                   on_search: Optional[Callable[[str], None]] = None):
+                   on_search: Optional[Callable[[str], None]] = None,
+                   synthesize_fn: Optional[Callable] = None, batch=None):
     """The shared forward: (loss, aux dict), for NHWC float32 batches in
     [0, 255] on the model's device. `si_mask` is None, an (Hc, Wc, P) prior
     or a `CheckedMask`. `bn_stats`, in training only, receives the batch
     statistics of the encoder's and decoder's batch norms
     (`autoencoder.batch_norm`). `on_search(name)`, when given, is called
     with 'search_start' and 'search' just before and after the patch search
-    (a measurement hook)."""
+    (a measurement hook). `synthesize_fn(x_dec, y, y_dec) -> y_syn`, when
+    given, replaces the search (`si_mask` is then unused); `batch` takes
+    the batch reductions over the ranks of a data axis (module
+    docstring)."""
     if bn_stats is not None and not train:
         raise ValueError("bn_stats records batch statistics, which only "
                          "the train branch computes")
     cfg = model.ae_config
-    enc = model.encode(x, train, bn_stats)
-    x_dec = model.decode(enc.qbar, train, bn_stats)
+    enc = model.encode(x, train, bn_stats, batch)
+    x_dec = model.decode(enc.qbar, train, bn_stats, batch)
     if model.ae_only:
         x_with_si = torch.zeros_like(x)
         y_syn = None
@@ -70,20 +81,24 @@ def forward_losses(model, x: torch.Tensor, y: torch.Tensor, si_mask,
             y_dec = model.decode(model.encode(y).qbar)
             if on_search is not None:
                 on_search("search_start")
-            y_syn = sifinder_lib.synthesize_side_image(
-                x_dec.detach(), y, y_dec, si_mask, ph, pw, cfg)
+            if synthesize_fn is not None:
+                y_syn = synthesize_fn(x_dec.detach(), y, y_dec)
+            else:
+                y_syn = sifinder_lib.synthesize_side_image(
+                    x_dec.detach(), y, y_dec, si_mask, ph, pw, cfg)
             if on_search is not None:
                 on_search("search")
         x_with_si = model.apply_sinet(x_dec, y_syn)
-        si_l1 = loss_lib.si_l1_loss(x, x_with_si)
+        si_l1 = loss_lib.si_l1_loss(x, x_with_si, batch)
         si_weight = cfg.si_weight
 
     # the train cast rules even at eval, as the reference's eval loss
-    dist = metrics_lib.compute_distortions(cfg, x, x_dec, is_training=True)
+    dist = metrics_lib.compute_distortions(cfg, x, x_dec, is_training=True,
+                                           batch=batch)
     d_scaled = (1.0 - si_weight) * dist.d_loss_scaled
     bc = model.bitcost(enc.qbar.detach() if train else enc.qbar, enc.symbols)
-    bpp = bitcost_to_bpp(bc, x)
-    rate = loss_lib.rate_loss(bc, enc.heatmap, cfg.H_target, cfg.beta)
+    bpp = bitcost_to_bpp(bc, x, batch)
+    rate = loss_lib.rate_loss(bc, enc.heatmap, cfg.H_target, cfg.beta, batch)
     regs = loss_lib.regularization_losses(model, cfg, model.pc_config)
     total = loss_lib.total_loss(d_scaled, rate, regs)
     loss = total + si_weight * si_l1
@@ -135,7 +150,8 @@ class TrainState(NamedTuple):
 
 def make_train_step(model, optimizer, si_mask=None, grad_accum: int = 1,
                     on_phase: Optional[Callable[[str], None]] = None,
-                    on_search: Optional[Callable[[str], None]] = None):
+                    on_search: Optional[Callable[[str], None]] = None,
+                    synthesize_fn: Optional[Callable] = None, batch=None):
     """(x, y) -> (TrainState, metrics): one optimizer step on the batch,
     the model and optimizer updated in place, the scalar metrics
     (`SCALAR_METRICS` and 'loss') as detached tensors on the device, read
@@ -146,7 +162,12 @@ def make_train_step(model, optimizer, si_mask=None, grad_accum: int = 1,
     `bn_stats = 'frozen'` the running statistics are not updated.
     `on_phase(name)`, when given, is called after 'forward', 'backward' and
     'optimizer', and `on_search` around the search (`forward_losses`):
-    measurement hooks."""
+    measurement hooks. `synthesize_fn` and `batch`: the hooks of the steps
+    over more than one rank (module docstring); with `batch` the batch is
+    this rank's rows, micro k is its rows k::grad_accum (the JAX package's
+    strided micro of the global batch, whose rows the data axis holds in
+    blocks of a multiple of grad_accum), and the averaged gradients are
+    averaged over the data axis before the update."""
     mask = _checked(model, si_mask)
     update_bn = model.ae_config.get("bn_stats", "update") == "update"
     params = optimizer.params
@@ -156,7 +177,8 @@ def make_train_step(model, optimizer, si_mask=None, grad_accum: int = 1,
     def micro_step(x, y) -> Dict[str, torch.Tensor]:
         stats = {} if update_bn else None
         loss, aux = forward_losses(model, x, y, mask, train=True,
-                                   bn_stats=stats, on_search=on_search)
+                                   bn_stats=stats, on_search=on_search,
+                                   synthesize_fn=synthesize_fn, batch=batch)
         mark("forward")
         loss.backward()
         if stats:
@@ -186,6 +208,8 @@ def make_train_step(model, optimizer, si_mask=None, grad_accum: int = 1,
                     if p.grad is not None:
                         p.grad.mul_(inv)
             metrics = {k: v * inv for k, v in metrics.items()}
+        if batch is not None:
+            batch.average_grads(params.values())
         optimizer.update({n: p.grad for n, p in params.items()})
         mark("optimizer")
         return state, metrics
@@ -193,14 +217,17 @@ def make_train_step(model, optimizer, si_mask=None, grad_accum: int = 1,
     return train_step
 
 
-def make_eval_step(model, si_mask: Optional[torch.Tensor] = None):
-    """(x, y) -> the scalar metrics (`SCALAR_METRICS` and 'loss')."""
+def make_eval_step(model, si_mask: Optional[torch.Tensor] = None,
+                   synthesize_fn: Optional[Callable] = None, batch=None):
+    """(x, y) -> the scalar metrics (`SCALAR_METRICS` and 'loss');
+    `synthesize_fn` and `batch` as for `make_train_step`."""
     mask = _checked(model, si_mask)
 
     @torch.inference_mode()
     def eval_step(x, y) -> Dict[str, torch.Tensor]:
         loss, aux = forward_losses(model, _as_batch(model, x),
-                                   _as_batch(model, y), mask)
+                                   _as_batch(model, y), mask,
+                                   synthesize_fn=synthesize_fn, batch=batch)
         return _scalar_metrics(loss, aux)
 
     return eval_step

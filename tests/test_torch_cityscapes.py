@@ -140,7 +140,8 @@ def test_an_out_of_memory_retries_at_row_chunk_16(monkeypatch):
 def test_main_runs_the_cityscapes_config(no_materialized_prior, tmp_path):
     """`main.run` with ae_cityscapes_stereo at spatial_shards = 1 (cut to a
     32x64 crop): a train step, a validation, a test image, the priors as
-    factors; spatial_shards = 4 raises naming ROADMAP item 6."""
+    factors; spatial_shards = 4 in one process raises the JAX package's
+    error (the width-sharded run is tests/test_torch_parallel_main.py)."""
     root = str(tmp_path)
     manifests = synthetic.write_corpus(root, 2, 1, 1, 40, 72, seed=5)
     for split, path in manifests.items():
@@ -150,7 +151,9 @@ def test_main_runs_the_cityscapes_config(no_materialized_prior, tmp_path):
                     file_path_val="val.txt", file_path_test="test.txt",
                     sifinder_impl="auto", test_model=True, save_model=False,
                     validate_every=1, show_every=1)
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(ValueError,
+                       match="spatial_shards=4 exceeds the 1 available "
+                             "devices"):
         port_main.Experiment(ae.replace(spatial_shards=4), pc, device="cpu")
     seen = []
     results = port_main.run(ae, pc, out_root=root, max_steps=1,

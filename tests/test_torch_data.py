@@ -316,15 +316,21 @@ def test_the_cli_runs_a_test_only_config(split, tmp_path, capsys):
 
 
 def test_what_waits_for_training_raises(split, tmp_path):
-    """Training is ported (tests/test_torch_train_loop.py); what waits for
-    later slices raises, naming its ROADMAP item."""
+    """Training is ported (tests/test_torch_train_loop.py), over more than
+    one device too (tests/test_torch_parallel_main.py); what one process
+    cannot run raises typed: spatial_shards above the devices (the JAX
+    package's error), NCCL on the CPU (naming gloo), --distributed outside
+    torchrun's environment; save_plots names its reason."""
     root, ae, pc = split
-    with pytest.raises(NotImplementedError, match="multi-device training"):
+    with pytest.raises(ValueError,
+                       match="spatial_shards=2 exceeds the 1 available"):
         port_main.run(ae.replace(train_model=True, spatial_shards=2), pc,
                       device="cpu")
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP Queue 1, multi-device training"):
+    with pytest.raises(ValueError, match="backend='gloo' on the CPU"):
         port_main.main(["--distributed", "--device", "cpu"])
+    with pytest.raises(ValueError, match="RANK"):
+        port_main.main(["--distributed", "--device", "cpu", "--backend",
+                        "gloo"])
     exp = port_main.Experiment(ae, pc, out_root=str(tmp_path), device="cpu")
     with pytest.raises(NotImplementedError, match="matplotlib"):
         exp.test(save_plots=True)

@@ -74,7 +74,8 @@ def test_importing_the_port_loads_no_jax():
             "utils.faults", "utils.profiling", "eval.rd_sweep",
             "eval.synthetic_rd", "tools.rd_delta", "serve.router",
             "serve.protocol", "serve.autoscale", "serve.federation",
-            "tools.ckpt_gc")} <= loaded, \
+            "tools.ckpt_gc", "parallel.mesh", "parallel.spatial",
+            "parallel.data_parallel", "parallel.launch")} <= loaded, \
         proc.stdout
 
 

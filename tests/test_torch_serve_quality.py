@@ -428,3 +428,32 @@ def test_serve_bench_quality_leg_json_contract(cfg_files, tmp_path):
     assert len(section["runs"]["on"]) == len(section["runs"]["off"]) == 1
     assert section["steady_builds"] == 0
     assert serve_bench.gate_quality(section) == []
+
+
+def test_quality_leg_samples_every_bucket_without_the_prober(
+        cfg_files, tmp_path, monkeypatch):
+    """With the canary prober idle, the leg's own encodes must still give
+    every served bucket a coding-gap sample and its own probe a green
+    canary: the leg's passes encode only the 16x24 bucket at 6 requests,
+    so the 32x48 sample came from whichever prober probe landed in the
+    rate-1.0 window (under a loaded host the leg failed its gate 1 run in
+    4 on an empty 32x48 histogram)."""
+    import json
+
+    from dsin_tpu_torch.tools import serve_bench
+    monkeypatch.setattr(CompressionService, "_canary_loop",
+                        lambda self: None)
+    out = str(tmp_path / "q.json")
+    assert serve_bench.main([
+        "--quality", "--device", "cpu", "--out", out,
+        "--ae_config", cfg_files[0], "--pc_config", cfg_files[1],
+        "--buckets", "16,24 32,48", "--shapes", "16,24 14,20 32,48",
+        "--entropy_workers", "1", "--quality_requests", "6",
+        "--quality_repeats", "1"]) == 0
+    with open(out) as f:
+        section = json.load(f)["quality"]
+    assert {k: h["count"] >= 1 for k, h in
+            section["gap"]["per_bucket_pct"].items()} == {
+                "16x24": True, "32x48": True}
+    assert section["canary"]["runs"] == 1 and section["canary"]["ok"] == 1
+    assert serve_bench.gate_quality(section) == []

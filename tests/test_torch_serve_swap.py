@@ -361,6 +361,63 @@ def test_sessions_expire_typed_across_a_swap(cfg_files, tmp_path):
         assert svc.drain()
 
 
+def test_watchdog_does_not_judge_a_commit_by_its_expired_sessions(
+        cfg_files, tmp_path):
+    """A commit expires every session by design: decode_si requests queued
+    across it answer typed SessionExpired and their clients re-open. The
+    post-commit error-rate watchdog must not count those as the new
+    model's errors: here every post-commit resolution is such an expiry,
+    and the verdict comes back without firing and the new model serves.
+    (Counting them rolled a healthy model back under SI traffic.)"""
+    from dsin_tpu_torch.serve import SessionExpired
+    ae_p, pc_p = cfg_files
+    ckpt_a = save_model_ckpt(cfg_files, str(tmp_path / "a"), seed=5,
+                             sinet=True)
+    ckpt_b = save_model_ckpt(cfg_files, str(tmp_path / "b"), seed=6,
+                             sinet=True)
+    svc = CompressionService(ServiceConfig(
+        ae_config=ae_p, pc_config=pc_p, ckpt=ckpt_a, buckets=BUCKETS,
+        max_batch=2, max_wait_ms=2.0, entropy_workers=1, enable_si=True,
+        rollback_watchdog_window_s=0.2, rollback_watchdog_min_requests=4,
+        device="cpu")).start()
+    held, go = threading.Event(), threading.Event()
+
+    def hold_first_si_batch(batch):
+        if batch[0].key[0] == "decode_si" and not held.is_set():
+            held.set()
+            go.wait(30.0)
+
+    try:
+        svc.warmup()
+        img = _imgs(1)[0]
+        stream = svc.encode(img).stream
+        sid = svc.open_session(img)
+        svc.decode_si(stream, sid)
+        info = svc.prepare_swap(ckpt_b)
+        svc._batch_hook = hold_first_si_batch
+        futs = [svc.submit_decode_si(stream, sid) for _ in range(4)]
+        assert held.wait(30.0)
+        svc.commit_swap(expect_digest=info["digest"])
+        go.set()
+        for f in futs:
+            assert isinstance(f.exception(30.0), SessionExpired)
+        svc._batch_hook = None
+        deadline = time.monotonic() + 30.0
+        verdicts = []
+        while not verdicts and time.monotonic() < deadline:
+            verdicts = [e for e in svc.flight._ring.snapshot()[0]
+                        if e["kind"] == "watchdog_verdict"]
+            time.sleep(0.02)
+        assert verdicts and not verdicts[0]["fire"], verdicts
+        assert verdicts[0]["post_resolved"] >= 4
+        assert svc.model_digest == info["digest"]
+        assert svc.metrics.counter("serve_watchdog_rollbacks").value == 0
+        assert svc.metrics.counter("serve_typed_errors").value >= 4
+    finally:
+        go.set()
+        assert svc.drain()
+
+
 def _census():
     from multiprocessing import active_children
     return (sorted(p.pid for p in active_children()),
