@@ -163,7 +163,25 @@ Phases; any failure raises, prints no result and exits non-zero:
      pool once and give run A's bytes. Each run prints the same numbers as run
      A, its warmup s (child spawn included, with when each child's initializer
      started and the size of the pool's start-up arguments), its shm lane sends
-     and fallbacks and the host's cores;
+     and fallbacks and the host's cores. Then (d), the bucket ladder over two
+     logical serve devices on this card (`devices=("cuda:0", "cuda:0")`, each
+     with its own copy of the weights, storages apart and one digest, and its
+     own worker stream), one worker a device, the process entropy backend
+     with 2 children (pipe), SI off, uniform weights (one bucket a device):
+     phase 10's 16
+     encodes and their 16 decodes from 4 clients, every stream byte-equal to
+     run A's, every image bit-equal to DeviceServer (device 0's weights) on
+     the batch the service formed and, where run A decoded without SI, to run
+     A's; every batch on its bucket's device, both devices served, the census
+     2 x pairs, no build, no kernel launch. Device 1's worker crashed through
+     the batch hook: device 0 answers with run A's bytes, the supervisor heals
+     the slot onto device 1, which serves its bucket again. Then
+     rebalance_placement({320x1224: 10, 160x600: 1}) warms the new pair
+     inside the call and 4 encodes at 320x1224 run on both devices (a
+     device's first batch waits at the hook until the other has one) with
+     run A's bytes, no build. The drain leaves no serve thread and no child.
+     Prints batches, busy ms and occupancy per device and requests/s beside
+     runs A's and C's (one card and one host shared: a record, not a claim);
  11. the model lifecycle at full width (the phase 10 service on the process
      backend, pipe, 4 children a bundle, quality on, the canary prober every
      second, the watchdog armed), from two checkpoints A and B saved from
@@ -176,8 +194,10 @@ Phases; any failure raises, prints no result and exits non-zero:
      re-opened), every encode stream is byte-equal to A's or B''s stream of
      that image alone, and only B''s after the commit; K2's launches equal
      the SI micro-batches that ran plus the staged bundle's warm and canary
-     probe (scores off on the card: K2 runs with quality on); (3) rollback()
-     to A's digest and streams; (4) B'' (B' bit-flipped, B''s goldens)
+     probe (scores off on the card: K2 runs with quality on; the streams
+     alone are coded for the images the checks read, from each bundle's
+     symbol volumes); (3) rollback() to A's own bundle: its digest, image
+     0's stream and every image's symbol volume; (4) B'' (B' bit-flipped, B''s goldens)
      refused with CanaryFailed, nothing staged; (5) swap_model(B'',
      canary=False): the prober catches it and the watchdog rolls back to A
      by itself; (6) a kill in the prepare window (serve.swap) and (7) a
@@ -295,8 +315,9 @@ Phases; any failure raises, prints no result and exits non-zero:
      ranks' states bit-equal after a second, timed step; K1 twice a rank,
      no native build; ms per step, the gradient all-reduce's ms and bytes,
      peak memory a rank. The ranks start, set up and warm (a throwaway step
-     of (a) on a copy of the model, (b)'s first step) while phase 14 runs,
-     and the reference runs then in a process of its own. (b) ae_cityscapes_stereo as published
+     of (a) on a copy of the model, (b)'s first step) at the phase's start,
+     while the reference runs in a process of its own. (b)
+     ae_cityscapes_stereo as published
      (spatial_shards 4, batch 1, bf16, remat) at 1024x2048 over the mesh
      `main.py` builds from it: the convs whole on each rank, the search
      sharded by width (the row-tiled shard search; K1 never), one warm-up
@@ -326,6 +347,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -359,6 +381,7 @@ from dsin_tpu_torch.ops import sifinder_kernel as sk
 from dsin_tpu_torch.ops.patches import assemble_patches
 from dsin_tpu_torch.runtime import config_path, resolve_device
 from dsin_tpu_torch.serve.device import DeviceServer
+from dsin_tpu_torch.serve.procs import process_context
 from dsin_tpu_torch.tools import chaos_bench
 from dsin_tpu_torch.tools import cityscapes_chip
 from dsin_tpu_torch.tools import k1_bench
@@ -2407,7 +2430,8 @@ def drain_checked(svc, futures, label: str) -> None:
 
 def thread_run(seed: int, dev, traffic):
     """Run A, the thread backend: the traffic with every check against
-    DeviceServer and the codec; -> (K2 launches, streams, images)."""
+    DeviceServer and the codec; -> (K2 launches, streams, images,
+    requests/s, {payload: its symbol volume})."""
     from urllib.request import urlopen
     from dsin_tpu_torch.serve import CompressionService
     svc = CompressionService(serve_config(seed, dev,
@@ -2453,7 +2477,9 @@ def thread_run(seed: int, dev, traffic):
     finally:
         drain_checked(svc, futures, "A")
     return (launches["pearson_argmax_shared"],
-            [r.stream for r in run["enc"]], run["dec"])
+            [r.stream for r in run["enc"]], run["dec"],
+            (len(run["enc"]) + len(run["jobs"]))
+            / (run["enc_s"] + run["dec_s"]), vols)
 
 
 def check_children(pings, label: str) -> None:
@@ -2494,7 +2520,7 @@ def process_run(seed: int, dev, traffic, ref, label: str, transport: str,
     child, no CUDA context and no jax in a child, lane traffic on shm, no
     pool rebuild. With `kill`, after the traffic one child is SIGKILLed and
     the next encode must rebuild the pool once and give run A's bytes.
-    Returns K2's launches in the traffic."""
+    Returns (K2's launches in the traffic, requests/s)."""
     import pickle
     import signal
     from dsin_tpu_torch.serve import CompressionService
@@ -2562,17 +2588,245 @@ def process_run(seed: int, dev, traffic, ref, label: str, transport: str,
                 f"codec warm included)")
     finally:
         drain_checked(svc, futures, label)
-    return run["launches"]["pearson_argmax_shared"]
+    return (run["launches"]["pearson_argmax_shared"],
+            (len(run["enc"]) + len(run["jobs"]))
+            / (run["enc_s"] + run["dec_s"]))
+
+
+MD_HOT = {(320, 1224): 10.0, (160, 600): 1.0}   # (d)'s rebalance weights
+MD_BACKOFF_S = 2.0        # (d)'s restart backoff: the window device 0 serves in
+MD_MEET_S = 60.0          # (d): a device's first hot batch waits for the other
+
+
+def slot_device(n: int) -> int:
+    """The placement index of the serve worker running this code (its
+    thread's name ends in the slot; affinity is slot % devices)."""
+    return int(threading.current_thread().name.rsplit("-", 1)[1]) % n
+
+
+def serve_threads() -> set:
+    return {t.name for t in threading.enumerate()
+            if t.name.startswith("serve-")}
+
+
+def multidevice_run(seed: int, dev, traffic, ref, ref_rps: tuple,
+                    vols: dict) -> None:
+    """(d): the bucket ladder over two logical serve devices on this card
+    (`devices=("cuda:0", "cuda:0")`, each with its own copy of the weights
+    and its own worker stream), one worker a device, the process entropy
+    backend with 2 children (pipe), SI off, uniform weights (one bucket a
+    device). Phase
+    10's 16 encodes and their 16 decodes from 4 clients: every stream
+    byte-equal to run A's for the same image (which run A held to the codec
+    on DeviceServer's symbols; `vols` are their volumes, as run A decoded
+    them), every image bit-equal to DeviceServer on the batch the service
+    formed (device 0's weights; run A's own image where run A decoded
+    without SI), every batch on a device
+    the plan gives its bucket, both devices served, the census 2 x pairs,
+    no build and no kernel launch. Device 1's worker crashed through the
+    batch hook: device 0 answers, the supervisor heals the slot onto
+    device 1, its bucket serves again. Then rebalance_placement(MD_HOT)
+    warms the new pair inside the call, and 4 encodes at 320x1224 (two
+    batches; a device's first one waits at the hook until the other
+    device has one) run on both devices with run A's bytes, still no
+    build. Drain: no serve thread and no child left."""
+    from dsin_tpu_torch.coding import loader as loader_lib
+    from dsin_tpu_torch.serve import CompressionService, EncodeResult
+    from dsin_tpu_torch.utils import faults
+    ref_streams, ref_images = ref
+    sides, imgs, owner = traffic
+    big, small = SERVE_BUCKETS[-1], SERVE_BUCKETS[0]
+    name = f"cuda:{dev.index or 0}"
+    threads0, children0 = serve_threads(), child_pids()
+    t_start = time.perf_counter()
+    svc = CompressionService(serve_config(
+        seed, dev, enable_si=False, devices=(name, name), workers=1,
+        entropy_workers=2, entropy_backend="process", transport="pipe",
+        restart_backoff_s=MD_BACKOFF_S,
+        restart_backoff_max_s=MD_BACKOFF_S)).start()
+    futures = []
+    try:
+        warm = svc.warmup()
+        t_warm = time.perf_counter()
+        servers = svc._swap.current.servers
+        params = [dict(sv.model.named_parameters()) for sv in servers]
+        shared = [k for k in params[0]
+                  if params[0][k].data_ptr() == params[1][k].data_ptr()]
+        digests = {loader_lib.served_digest(sv.model) for sv in servers}
+        plan = svc.placement.plan
+        census = svc.metrics.gauge("serve_executable_census").value
+        if (shared or digests != {svc.model_digest}
+                or plan.as_dict() != {"160x600": [0], "320x1224": [1]}
+                or census != 2 * len(plan.census()) or warm["builds"]):
+            raise AssertionError(f"(d) at start: shared storages {shared}, "
+                                 f"digests {digests}, plan {plan.as_dict()}, "
+                                 f"census {census}, builds {warm['builds']}")
+        log(f"  (d) two logical devices on {name}: start + warmup "
+            f"{t_warm - t_start:.2f} s (warmup {warm['seconds']:.2f} s, 2 "
+            f"entropy children); each device's "
+            f"weights in storage of their own, one digest; plan "
+            f"{plan.as_dict()}, census {census:.0f}")
+        records = []
+        svc._batch_hook = lambda batch: records.append((
+            batch[0].key[0], batch[0].key[1], batch[0].session,
+            [r.payload for r in batch], [r.future for r in batch],
+            slot_device(2)))
+        builds = native_build.build_count()
+        reset_all_launches()
+        enc, enc_ms, enc_s = from_clients(svc.submit_encode, imgs)
+        dec, dec_ms, dec_s = from_clients(
+            lambda r: svc.submit_decode(r.stream), enc)
+        wall = enc_s + dec_s
+        svc._batch_hook = None
+        for r in records:
+            futures += r[4]
+        launches = all_launches()
+        if native_build.build_count() != builds or any(launches.values()):
+            raise AssertionError(f"(d): builds {native_build.build_count() - builds}"
+                                 f", launches {launches}")
+        streams = [r.stream for r in enc]
+        if streams != ref_streams:
+            raise AssertionError(f"(d): streams "
+                                 f"{[i for i, (a, b) in enumerate(zip(streams, ref_streams)) if a != b]}"
+                                 f" differ from run A's")
+        t_checks = time.perf_counter()
+        n_images = check_decode_records(svc, [r[:5] for r in records], vols)
+        plain_a = [i for i, r in enumerate(enc) if r.bucket == small]
+        bad = [i for i in plain_a if not np.array_equal(dec[i],
+                                                        ref_images[i])]
+        misrouted = [(r[1], r[5]) for r in records
+                     if r[5] not in plan.devices_for(r[1])]
+        if bad or misrouted or n_images != len(dec):
+            raise AssertionError(f"(d): images {bad} differ from run A's, "
+                                 f"batches off their plan {misrouted}, "
+                                 f"{n_images} of {len(dec)} checked")
+        snap = svc.metrics.snapshot()
+        per = {d: (snap["counters"].get(f"serve_device_batches_d{d}", 0),
+                   snap["accumulators"].get(f"serve_device_busy_ms_d{d}",
+                                            0.0)) for d in range(2)}
+        if min(b for b, _ in per.values()) < 1:
+            raise AssertionError(f"(d): a device served nothing: {per}")
+        rps = (len(enc) + len(dec)) / wall
+        log(f"  (d) {len(streams)} streams byte-equal to run A's, "
+            f"{n_images} images bit-equal to DeviceServer on the recorded "
+            f"batches ({len(plain_a)} of them run A's own; checked in "
+            f"{time.perf_counter() - t_checks:.2f} s), every batch on "
+            f"its bucket's device; no build, launches {launches}; "
+            + "; ".join(f"device {d}: {b} batches, busy {ms:.1f} ms, "
+                        f"occupancy {ms / (1e3 * wall):.3f}"
+                        for d, (b, ms) in per.items())
+            + f"; {len(enc) + len(dec)} requests in {wall:.2f} s = "
+              f"{rps:.2f} requests/s (run A, 4 entropy threads: "
+              f"{ref_rps[0]:.2f}; run C, 4 children: {ref_rps[1]:.2f}; one "
+              f"card and one host shared: a record, not a claim); submit -> "
+              f"result "
+              f"median encode {float(np.median(enc_ms)):.1f} ms, decode "
+              f"{float(np.median(dec_ms)):.1f} ms; {card_line()}")
+        # device 1's worker crashed (the uniform plan: 320x1224 lives there)
+        t_crash = time.perf_counter()
+        crashed = []
+
+        def crash(batch):
+            if slot_device(2) == 1 and not crashed:
+                crashed.append(1)
+                raise faults.InjectedCrash("die on device 1")
+
+        restarts = svc.metrics.counter("serve_worker_restarts")
+        d1 = svc.metrics.counter("serve_device_batches_d1")
+        svc._batch_hook = crash
+        fb = svc.submit_encode(imgs[0])
+        futures.append(fb)
+        if not isinstance(fb.exception(SERVE_TIMEOUT_S), faults.InjectedCrash):
+            raise AssertionError(f"(d): the crash: {fb.exception(0)!r}")
+        seen_one = wait_for(lambda: svc.live_workers == 1, 30.0,
+                            "(d): device 1's slot dead")
+        small_i = plain_a[0]
+        if svc.encode(imgs[small_i], timeout=SERVE_TIMEOUT_S).stream \
+                != ref_streams[small_i]:
+            raise AssertionError("(d): device 0's answer while device 1's "
+                                 "slot was dead is not run A's stream")
+        before = d1.value
+        wait_for(lambda: restarts.value >= 1 and svc.live_workers == 2,
+                 60.0, "(d): the slot healed")
+        again = svc.encode(imgs[0], timeout=SERVE_TIMEOUT_S)
+        wait_for(lambda: d1.value > before, 30.0, "(d): device 1 served")
+        if again.stream != ref_streams[0] \
+                or svc.metrics.counter("serve_worker_crashes").value != 1:
+            raise AssertionError("(d): after the heal")
+        svc._batch_hook = None
+        log(f"  (d) device 1's worker crashed: device 0 answered with run "
+            f"A's bytes, the supervisor healed the slot onto device 1 "
+            f"({restarts.value} restart, backoff {MD_BACKOFF_S} s) and "
+            f"320x1224 served there again with run A's bytes; "
+            f"{time.perf_counter() - t_crash:.2f} s ({seen_one:.2f} s to "
+            f"see the dead slot)")
+        # the hot bucket gains device 0
+        t0 = time.perf_counter()
+        out = svc.rebalance_placement(weights=MD_HOT)
+        t_rebalance = time.perf_counter() - t0
+        if (not out["changed"] or out["warmed_pairs"] < 1 or out[
+                "assignments"] != {"160x600": [0], "320x1224": [0, 1]}):
+            raise AssertionError(f"(d): rebalance {out}")
+        met = [threading.Event(), threading.Event()]
+        where = []
+
+        def meet(batch):
+            d = slot_device(2)
+            where.append((batch[0].key[1], d, len(batch)))
+            if not met[d].is_set():
+                met[d].set()
+                if not met[1 - d].wait(MD_MEET_S):
+                    raise AssertionError(f"device {1 - d} took no "
+                                         f"{big} batch")
+
+        svc._batch_hook = meet
+        t_hot = time.perf_counter()
+        hot = [svc.submit_encode(imgs[i]) for i in (0, 1)]
+        time.sleep(0.2)
+        hot += [svc.submit_encode(imgs[i]) for i in (2, 3)]
+        futures += hot
+        got = [f.result(SERVE_TIMEOUT_S).stream for f in hot]
+        t_hot = time.perf_counter() - t_hot
+        svc._batch_hook = None
+        if (got != ref_streams[:4] or {d for _, d, _ in where} != {0, 1}
+                or native_build.build_count() != builds
+                or any(all_launches().values())):
+            raise AssertionError(f"(d) after the rebalance: batches {where}, "
+                                 f"streams equal {got == ref_streams[:4]}")
+        log(f"  (d) rebalance_placement({ {f'{h}x{w}': v for (h, w), v in MD_HOT.items()} }) "
+            f"in {t_rebalance:.2f} s, {out['warmed_pairs']} new pair warmed "
+            f"inside it -> {out['assignments']}; 4 encodes at 320x1224 in "
+            f"{t_hot:.2f} s, batches {where} (bucket, device, size), run "
+            f"A's bytes; no "
+            f"build after warmup, no kernel launch")
+    finally:
+        svc._batch_hook = None
+        t_drain = time.perf_counter()
+        drain_checked(svc, futures, "D")
+        t_drain = time.perf_counter() - t_drain
+    left = serve_threads() - threads0
+    if left or child_pids() != children0:
+        raise AssertionError(f"(d): threads {left} or children "
+                             f"{sorted(set(child_pids()) - set(children0))} "
+                             f"left after the drain")
+    log(f"  (d): {time.perf_counter() - t_start:.1f} s with the start (the "
+        f"drain {t_drain:.2f} s); no serve thread and no child left "
+        f"({card_line()})")
 
 
 def service_phase(seed: int, dev) -> int:
     """Phase 10: run A (thread backend) with every check, then run C of the
     process backend (shm at depth 4, the SIGKILL rebuild) on the same
-    traffic; returns K2's launches summed over the runs' traffic."""
+    traffic, then (d), two logical serve devices on this card; returns K2's
+    launches summed over the runs' traffic ((d) launches none)."""
     traffic = serve_traffic(seed)
-    k2, streams, images = thread_run(seed, dev, traffic)
-    return k2 + process_run(seed, dev, traffic, (streams, images),
-                            "C (process, shm, depth 4)", "shm", 4, kill=True)
+    k2, streams, images, rps_a, vols = thread_run(seed, dev, traffic)
+    k2_c, rps_c = process_run(seed, dev, traffic, (streams, images),
+                              "C (process, shm, depth 4)", "shm", 4,
+                              kill=True)
+    multidevice_run(seed, dev, traffic, (streams, images), (rps_a, rps_c),
+                    vols)
+    return k2 + k2_c
 
 
 # -- phase 11: the model lifecycle on one card -------------------------------
@@ -2587,12 +2841,15 @@ LIFE_BACKOFF_S = (0.05, 2.0)  # a client's wait after a failure, doubling to 2 s
 
 
 def child_pids() -> list:
-    """Every child process of this one (zombies included: an unreaped child
-    counts), read from /proc, less multiprocessing's resource tracker (one
+    """Every child process of this one and of its fork server (the service's
+    children are the fork server's: `serve/procs.py`), zombies
+    included (an unreaped child counts), read from /proc, less
+    multiprocessing's resource tracker and the fork server itself (one each
     for the process's life, started with the first pool)."""
-    from multiprocessing import resource_tracker
+    from multiprocessing import forkserver, resource_tracker
     tracker = getattr(resource_tracker._resource_tracker, "_pid", None)
-    me, out = os.getpid(), []
+    server = getattr(forkserver._forkserver, "_forkserver_pid", None)
+    parents, out = {os.getpid(), server} - {None}, []
     for d in os.listdir("/proc"):
         if not d.isdigit():
             continue
@@ -2601,7 +2858,7 @@ def child_pids() -> list:
                 ppid = int(f.read().rsplit(")", 1)[1].split()[1])
         except (OSError, IndexError, ValueError):
             continue
-        if ppid == me and int(d) != tracker:
+        if ppid in parents and int(d) not in (tracker, server):
             out.append(int(d))
     return sorted(out)
 
@@ -2632,11 +2889,11 @@ def life_checkpoints(seed: int, root: str) -> dict:
     return out
 
 
-def streams_alone(svc, bundle, imgs) -> list:
-    """Each image's stream from `bundle` as the dataplane codes a request
-    alone in its batch: lane 0 of a max_batch batch padded with zeros."""
+def symbols_alone(svc, bundle, imgs) -> list:
+    """Each image's symbol volume from `bundle` as the dataplane codes a
+    request alone in its batch (lane 0 of a max_batch batch padded with
+    zeros), with its size and bucket: [(volume, (h, w), bucket)]."""
     from dsin_tpu_torch.serve.buckets import pad_to_bucket
-    from dsin_tpu_torch.serve.service import frame_stream
     out = []
     for img in imgs:
         h, w = img.shape[:2]
@@ -2644,10 +2901,22 @@ def streams_alone(svc, bundle, imgs) -> list:
         x = np.zeros((svc.config.max_batch, *bucket, 3), np.float32)
         x[0] = pad_to_bucket(img.astype(np.float32), bucket)
         sym = bundle.server.encode_symbols(x).cpu().numpy()
-        out.append(frame_stream(
-            bundle.codec.encode(np.transpose(sym[0], (2, 0, 1))), (h, w),
-            bucket))
+        out.append((np.transpose(sym[0], (2, 0, 1)), (h, w), bucket))
     return out
+
+
+def streams_alone(bundle, syms, idx) -> dict:
+    """{i: image i's stream alone} for the images `idx`, from their
+    `symbols_alone` volumes `syms` through `bundle`'s codec (the host's
+    work: only the images a check reads are coded)."""
+    from dsin_tpu_torch.serve.service import frame_stream
+    return {i: frame_stream(bundle.codec.encode(syms[i][0]), syms[i][1],
+                            syms[i][2]) for i in sorted(idx)}
+
+
+def same_symbols(a, b) -> bool:
+    return len(a) == len(b) and all(np.array_equal(x[0], y[0])
+                                    for x, y in zip(a, b))
 
 
 class LifeLoad:
@@ -2818,21 +3087,30 @@ def lifecycle_phase(seed: int, dev, ckpts=None) -> int:
         warm = svc.warmup()
         builds = native_build.build_count()
         digest_a = svc.model_digest
-        a_streams = streams_alone(svc, svc._swap.current, imgs)
+        bundle_a = svc._swap.current
+        t_alone = time.perf_counter()
+        a_syms = symbols_alone(svc, bundle_a, imgs)
+        a_streams = streams_alone(bundle_a, a_syms, [0])
+        t_alone = time.perf_counter() - t_alone
         if svc.encode(imgs[0], timeout=SERVE_TIMEOUT_S).stream \
                 != a_streams[0]:
             raise AssertionError("the service's stream is not A's alone")
         children1 = child_pids()
         log(f"  A from {path_a}: digest {digest_a}, warmup "
-            f"{warm['seconds']:.2f} s, {len(children1) - len(children0)} "
+            f"{warm['seconds']:.2f} s, A's {len(imgs)} "
+            f"symbol volumes alone and image 0's stream {t_alone:.2f} s, "
+            f"{len(children1) - len(children0)} "
             f"children, K2 route {svc._si_route!r} with scores "
             f"{'on' if svc._si_scores_enabled else 'off'} and quality on; "
             f"card {card}")
 
         # 1: the publish flow for B
         info = svc.prepare_swap(path_b)
-        staged = svc._swap.staged
-        b_streams = streams_alone(svc, staged, imgs)
+        # B's bundle stays referenced after the abort (its server and codec
+        # outlive the retire): the streams the swap's checks read are coded
+        # from it after the load
+        bundle_b = svc._swap.staged
+        b_syms = symbols_alone(svc, bundle_b, imgs)
         goldens = svc.canary_goldens(staged=True)
         during = len(child_pids())
         svc.abort_swap()
@@ -2912,30 +3190,41 @@ def lifecycle_phase(seed: int, dev, ckpts=None) -> int:
         if failed:
             raise AssertionError(f"{len(failed)} requests failed under the "
                                  f"swap: {[repr(r[5]) for r in failed[:4]]}")
+        coded = {d: {i for kind, i, _, _, res, _ in done
+                     if kind == "encode" and res.model_digest == d}
+                 for d in (digest_a, digest_b)}
+        t_coded = time.perf_counter()
+        a_streams.update(streams_alone(bundle_a, a_syms,
+                                       coded[digest_a] - set(a_streams)))
+        b_streams = streams_alone(bundle_b, b_syms, coded[digest_b])
+        t_coded = time.perf_counter() - t_coded
         old = new = 0
         for kind, i, t0, _, res, _ in done:
             if kind != "encode":
                 if res.shape != imgs[i].shape or res.dtype != np.uint8:
                     raise AssertionError(f"{kind} gave {res.shape}")
                 continue
-            if res.model_digest == digest_a and res.stream == a_streams[i] \
-                    and t0 < t_done:
+            if res.model_digest == digest_a \
+                    and res.stream == a_streams.get(i) and t0 < t_done:
                 old += 1
-            elif res.model_digest == digest_b and res.stream == b_streams[i]:
+            elif res.model_digest == digest_b \
+                    and res.stream == b_streams.get(i):
                 new += 1
             else:
                 raise AssertionError(
                     f"encode of image {i} (submitted {t0 - t_done:+.3f} s "
                     f"from the commit's end) is neither A's stream nor "
                     f"B''s: digest {res.model_digest} (A {digest_a}, B' "
-                    f"{digest_b}), A's bytes {res.stream == a_streams[i]}, "
-                    f"B''s bytes {res.stream == b_streams[i]}")
+                    f"{digest_b}), A's bytes {res.stream == a_streams.get(i)}"
+                    f", B''s bytes {res.stream == b_streams.get(i)}")
         if new == 0 or old == 0:
             raise AssertionError(f"{old} A and {new} B' streams: the swap "
                                  f"did not land mid-stream")
         sp = info["split"]
         log(f"  2 swap under load: {len(done)} requests ({old} A streams, "
-            f"{new} B' streams, each byte-equal to its model's stream alone; "
+            f"{new} B' streams, each byte-equal to its model's stream alone, "
+            f"coded for images {sorted(coded[digest_a])} of A and "
+            f"{sorted(coded[digest_b])} of B' in {t_coded:.2f} s; "
             f"none failed; {load.session_gone} sessions re-opened after a "
             f"typed SessionExpired); prepare_swap(B') {info['seconds']:.2f} s "
             f"(load {sp['load_s']:.2f}, warm {sp['warm_s']:.2f}, pool start "
@@ -2954,7 +3243,10 @@ def lifecycle_phase(seed: int, dev, ckpts=None) -> int:
         svc.rollback()
         roll_ms = 1e3 * (time.perf_counter() - t0)
         check_still_a(svc, digest_a, a_streams, imgs, "rollback")
-        if streams_alone(svc, svc._swap.current, imgs) != a_streams:
+        # A's own bundle again (its codec), its symbols on every image: so
+        # every stream alone is A's
+        if svc._swap.current is not bundle_a or not same_symbols(
+                symbols_alone(svc, svc._swap.current, imgs), a_syms):
             raise AssertionError("rollback: A's streams changed")
         probe = {"status": "busy"}
         while probe["status"] == "busy":
@@ -4217,7 +4509,9 @@ def router_leg(seed: int, dev, imgs, card: str, routers) -> dict:
                     f"sends {r['shm']['sends']}, fallbacks "
                     f"{r['shm']['fallbacks']}, integrity errors "
                     f"{r['shm']['integrity_errors']}, effective cores "
-                    f"{r['effective_cores']}" for t, r in runs.items())
+                    f"{r['effective_cores']} before, "
+                    f"{r['effective_cores_after']} after"
+                    for t, r in runs.items())
         + f"; shm_vs_pipe {sub['shm_vs_pipe']}, probe streams "
           f"byte-identical across transports")
     return replica_launch_sum({t: r["replica_kernel_launches"]
@@ -4614,7 +4908,7 @@ def hold_dp_step(got: dict, ref: dict, control: dict) -> str:
 def references(seed: int, device: str, x, y) -> tuple:
     """(a)'s one-process step and its control (the same rows in another
     order) on `device` from the seeded weights."""
-    torch.set_num_threads(1)     # beside phase 14's host work
+    torch.set_num_threads(1)     # beside the ranks' host work
     dev = resolve_device(device)
     perm = [1, 0, 3, 2]
     out = tuple(dp_reference(seed, dev, torch.from_numpy(xi).to(dev),
@@ -4625,15 +4919,15 @@ def references(seed: int, device: str, x, y) -> tuple:
 
 
 class ParallelRun:
-    """Phase 15's ranks and references, started ahead of the phase (the
-    trim, `PERF.md` section 6): the ranks spawn, join their gloo group on
-    this card, set up (a) and (b) and run their warm-ups (a throwaway step
-    of (a), (b)'s first step), then wait for the go file; the
-    one-process reference and its control run in a spawned process of
-    their own (its K1 launches are not this process's). Each of these
-    processes runs one torch thread on the host, beside phase 14's host
-    work. `results()` waits for the references, gives the go and collects
-    the ranks."""
+    """Phase 15's ranks and references: the ranks spawn, join their gloo
+    group on this card, set up (a) and (b) and run their warm-ups (a
+    throwaway step of (a), (b)'s first step), then wait for the go file;
+    the one-process reference and its control run meanwhile in a spawned
+    process of their own (its K1 launches are not this process's). Each
+    of these processes runs one torch thread on the host. `results()`
+    waits for the references, gives the go and collects the ranks. (They start
+    at this phase, not beside phase 14: beside it the two phases took 56 s
+    more in sum, `PERF.md` section 6.)"""
 
     def __init__(self, seed: int, dev):
         import multiprocessing
@@ -4656,7 +4950,6 @@ class ParallelRun:
         self.go = os.path.join(self.root, "go")
         # every rank on this card: gloo, an explicit device
         on = f"cuda:{dev.index or 0}" if dev.type == "cuda" else str(dev)
-        # spawned here, children of this process before phase 14 counts them
         self.ranks = start_ranks(parallel_rank, PAR_RANKS,
                                  (seed, x, y, self.go, time.time()), "gloo",
                                  on, os.path.join(self.root, "rdzv"),
@@ -4677,13 +4970,12 @@ class ParallelRun:
             shutil.rmtree(self.root, ignore_errors=True)
 
 
-def parallel_phase(seed: int, dev, started=None) -> int:
-    """Phase 15 (see the module docstring), on the ranks `started` (a
-    ParallelRun) or on ranks started here; -> K1's launches in (a)'s
-    steps, summed over the ranks."""
+def parallel_phase(seed: int, dev) -> int:
+    """Phase 15 (see the module docstring), on ranks started here; -> K1's
+    launches in (a)'s steps, summed over the ranks."""
     card = card_line()
     t0 = time.perf_counter()
-    (ref, control), out = (started or ParallelRun(seed, dev)).results()
+    (ref, control), out = ParallelRun(seed, dev).results()
     wall = time.perf_counter() - t0
     log(f"  the ranks spawned, joined their group, set up (a) and (b) and "
         f"ran the warm-ups in "
@@ -4760,8 +5052,8 @@ def parallel_phase(seed: int, dev, started=None) -> int:
         f"rank 0: indices equal {idx['equal']}/{idx['p']} (the rest within "
         f"the {MARGIN_ATOL} margin), winning scores within "
         f"{idx['val_err']:.3g}; K1 0 launches; card {card}")
-    log(f"  phase 15: {wall:.1f} s from the go (the ranks' start, set-up and "
-        f"warm-ups and the references ran during phase 14)")
+    log(f"  phase 15: {wall:.1f} s, the ranks' start, set-up and warm-ups "
+        f"and the references included")
     return sum(r["launches"]["pearson_argmax"] for r in a)
 
 
@@ -4777,6 +5069,12 @@ def main() -> int:
     dev = resolve_device("cuda")
     card = card_line()
     rows, launches, walls = {}, {}, []
+    # the service's children and replicas fork from the port's fork server:
+    # start it now, beside the build, so its one import of torch is not
+    # paid inside phase 10
+    from multiprocessing import forkserver
+    process_context()
+    forkserver.ensure_running()
 
     def phase(title, fn):
         log(f"[{len(walls) + 2}/15] {title}")
@@ -4812,7 +5110,8 @@ def main() -> int:
           lambda: search_phase(args.seed, dev))
     launches["pearson_argmax_shared"] += phase(
         "the compression service at full width (ae_kitti_stereo + "
-        "pc_default, buckets 160x600 and 320x1224, batches of 4)",
+        "pc_default, buckets 160x600 and 320x1224, batches of 4), and (d) "
+        "over two logical serve devices on this card",
         lambda: service_phase(args.seed, dev))
     # checkpoints A and B, written once for phases 11 and 13
     life_root = tempfile.mkdtemp(prefix="chip_smoke_ckpts_")
@@ -4839,8 +5138,6 @@ def main() -> int:
         "two-wave rollout, ckpt_gc, session pinning and a replica's death",
         lambda: frontdoor_phase(args.seed, dev, life))
     shutil.rmtree(life_root, ignore_errors=True)
-    # phase 15's ranks start, set up and wait while phase 14 runs
-    started = ParallelRun(args.seed, dev)
     for name, n in phase(
             "the service's robustness at full width: the chaos soak (process "
             "backend, pipe), the shared-memory lane battery and the serve "
@@ -4851,7 +5148,7 @@ def main() -> int:
         "training over more than one device: 4 gloo ranks on this card, "
         "(a) the data-parallel step (ae_kitti_stereo, 320x960, global batch "
         "4), (b) the width-sharded Cityscapes step (spatial_shards 4, "
-        "1024x2048)", lambda: parallel_phase(args.seed, dev, started))
+        "1024x2048)", lambda: parallel_phase(args.seed, dev))
     log("phase wall s: " + ", ".join(f"[{i}] {t:.1f}" for i, t in walls))
     kernels = [dict(name=name, route="cuda", source=SOURCES[name],
                     replaces=REPLACES[name], launches=launches[name], **r)

@@ -31,11 +31,15 @@ from __future__ import annotations
 
 import argparse
 import os
+from concurrent.futures import ThreadPoolExecutor
 from typing import Tuple
 
 import numpy as np
 
 from dsin_tpu_torch.data.png import write_png
+
+#: threads compressing a corpus's PNGs while its pairs are drawn
+WRITERS = 4
 
 
 def _smooth_texture(rng: np.random.Generator, h: int, w: int,
@@ -97,27 +101,37 @@ def write_corpus(out_dir: str, num_train: int, num_val: int, num_test: int,
                  height: int, width: int, seed: int = 0,
                  max_disparity: int = 24) -> dict:
     """Generate PNGs + alternating-line manifests (the loader's format,
-    reference DataProvider.py:119-126). Returns {split: manifest_path}."""
+    reference DataProvider.py:119-126). Returns {split: manifest_path}.
+    The pairs are drawn in order from one generator; their PNGs are
+    compressed on `WRITERS` threads meanwhile (zlib drops the GIL), the
+    same files either way."""
     rng = np.random.default_rng(seed)
     img_dir = os.path.join(out_dir, "images")
     os.makedirs(img_dir, exist_ok=True)
     manifests = {}
     counts = {"train": num_train, "val": num_val, "test": num_test}
     idx = 0
-    for split, count in counts.items():
-        lines = []
-        for _ in range(count):
-            left, right = make_stereo_pair(rng, height, width, max_disparity)
-            lp = os.path.join("images", f"{idx:05d}_L.png")
-            rp = os.path.join("images", f"{idx:05d}_R.png")
-            write_png(left, os.path.join(out_dir, lp))
-            write_png(right, os.path.join(out_dir, rp))
-            lines += [lp, rp]
-            idx += 1
-        path = os.path.join(out_dir, f"synthetic_stereo_{split}.txt")
-        with open(path, "w") as f:
-            f.write("\n".join(lines) + "\n")
-        manifests[split] = path
+    with ThreadPoolExecutor(WRITERS) as pool:
+        writes = []
+        for split, count in counts.items():
+            lines = []
+            for _ in range(count):
+                left, right = make_stereo_pair(rng, height, width,
+                                               max_disparity)
+                lp = os.path.join("images", f"{idx:05d}_L.png")
+                rp = os.path.join("images", f"{idx:05d}_R.png")
+                writes += [pool.submit(write_png, left,
+                                       os.path.join(out_dir, lp)),
+                           pool.submit(write_png, right,
+                                       os.path.join(out_dir, rp))]
+                lines += [lp, rp]
+                idx += 1
+            path = os.path.join(out_dir, f"synthetic_stereo_{split}.txt")
+            with open(path, "w") as f:
+                f.write("\n".join(lines) + "\n")
+            manifests[split] = path
+        for w in writes:
+            w.result()
     return manifests
 
 

@@ -1,5 +1,5 @@
-"""The port's compression service on one card (counterpart of the JAX
-package's `dsin_tpu.serve`), exported under the JAX names.
+"""The port's compression service (counterpart of the JAX package's
+`dsin_tpu.serve`), exported under the JAX names.
 
 `CompressionService` (`service.py`) loads the model once, micro-batches
 requests onto static buckets (`buckets.py`, `batcher.py`), writes
@@ -17,9 +17,11 @@ the fleet's metrics and traces; `protocol.py`, its wire tuples), the
 fleet's control loop (`autoscale.py`: the pure scale and fleet-health
 policies, the `Autoscaler` and the `FederationHealthDriver`) and the router
 of routers (`federation.py`: `FederatedRouter` over member fleets, rollout
-waves, partition healing, the federated metrics and traces) are ported;
-what the JAX package's serve stack has beyond that (placement and
-devices > 1) is not: see ROADMAP Queue 1 item 11c.
+waves, partition healing, the federated metrics and traces) and the
+bucket ladder over several serve devices (`placement.py`: the pure
+planner and rebalance trigger, `DevicePlacement`; the service's
+device-affine workers, `devices` as an int or a tuple of logical devices)
+are ported: the whole of the JAX package's serve stack.
 """
 
 from dsin_tpu_torch.serve.batcher import (BULK, INTERACTIVE,
@@ -46,6 +48,9 @@ from dsin_tpu_torch.serve.federation import (FederatedMetrics,
                                              MemberUnreachable,
                                              RolloutAborted, RolloutPlan)
 from dsin_tpu_torch.serve.metrics import MetricsRegistry, MetricsServer
+from dsin_tpu_torch.serve.placement import (DevicePlacement, PlacementError,
+                                            PlacementPlan, RebalanceTrigger,
+                                            plan_placement)
 from dsin_tpu_torch.serve.quality import (CanaryFailed, CanaryState,
                                           QualityMonitor)
 from dsin_tpu_torch.serve.router import (AdmissionController,
@@ -71,14 +76,14 @@ __all__ = [
     "AutoscaleConfig", "AutoscaleError", "AutoscalePolicy", "Autoscaler",
     "BucketPolicy", "CanaryFailed", "CanaryState", "CompressionService",
     "ConditionalRollbackRefused", "DeadlineExceeded",
-    "DeviceServer", "EncodeResult", "FederatedMetrics", "FederatedRouter",
+    "DevicePlacement", "DeviceServer", "EncodeResult", "FederatedMetrics", "FederatedRouter",
     "FederatedTraces", "FederationError", "FederationHealthDriver",
     "FleetHealthPolicy", "FleetHealthSignals", "FleetScaleError",
     "FleetSwapError", "FlightRecorder", "FrontDoorRouter", "Future",
     "IntegrityError", "ManifestMismatch", "Member", "MemberUnreachable",
     "MetricsRegistry", "MetricsServer", "MicroBatcher", "ModelBundle",
-    "NoBucketFits", "PriorityClass", "QualityMonitor", "Request",
-    "RollbackWatchdog", "RolloutAborted", "RolloutPlan", "ScaleSignals",
+    "NoBucketFits", "PlacementError", "PlacementPlan", "PriorityClass", "QualityMonitor", "Request",
+    "RebalanceTrigger", "RollbackWatchdog", "RolloutAborted", "RolloutPlan", "ScaleSignals",
     "ServeError", "ServiceConfig",
     "ServiceDraining", "ServiceOverloaded", "ServiceUnavailable",
     "SessionEntry", "SessionError", "SessionExpired", "SessionKey",
@@ -86,5 +91,5 @@ __all__ = [
     "SwapCoordinator", "SwapError", "TraceContext", "Tracer", "crop_from_bucket",
     "default_priority_classes", "federation_health_from_snapshot",
     "frame_stream", "health_from_snapshot", "pad_to_bucket",
-    "parse_stream", "signals_from_snapshot",
+    "parse_stream", "plan_placement", "signals_from_snapshot",
 ]

@@ -13,8 +13,10 @@
 
 * **FrontDoorRouter** — one router (the caller's process) in front of N
   SHARED-NOTHING service replicas. Each replica is a full
-  `CompressionService` in its own process, started with the `spawn`
-  context (never fork: the parent may hold a CUDA context), on the
+  `CompressionService` in its own process, forked from the serve
+  stack's fork server (`serve/procs.py`; never a fork of the router,
+  which may hold a CUDA context; a replica inherits the environment the
+  process had when the fork server started), on the
   config's `device` (the card unless the caller asks for "cpu"; a child
   without a card raises at start, it never falls back). The picklable
   `ServiceConfig` is the entire bootstrap; each replica answers its
@@ -78,6 +80,8 @@ from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 from dsin_tpu_torch import native_build
 from dsin_tpu_torch.serve import metrics as metrics_lib
+from dsin_tpu_torch.serve import placement as placement_lib
+from dsin_tpu_torch.serve.procs import process_context
 from dsin_tpu_torch.serve import protocol
 from dsin_tpu_torch.serve import shmlane
 from dsin_tpu_torch.serve import trace as trace_lib
@@ -122,13 +126,13 @@ def default_admission_limits(config) -> Dict[str, int]:
     """ONE process's worth of admissible backlog per class: the class's
     queue bound plus everything the executor pipelines can hold in
     flight — max_batch * workers * pipeline_depth * devices (workers
-    are PER-DEVICE executor threads). Shared by the in-process service
-    gate and the front door (which scales it by replica count) so the
-    two derivations cannot drift."""
+    are PER-DEVICE executor threads; `devices` counts logical devices,
+    an int or a tuple of device strings). Shared by the in-process
+    service gate and the front door (which scales it by replica count)
+    so the two derivations cannot drift."""
     slack = (config.max_batch * max(1, config.workers)
              * max(1, config.pipeline_depth)
-             * (1 if getattr(config, "devices", None) is None
-                else max(1, config.devices)))
+             * placement_lib.device_count(getattr(config, "devices", None)))
     classes = getattr(config, "priority_classes", None)
     if classes:
         return {pc.name: pc.max_queue + slack for pc in classes}
@@ -433,8 +437,9 @@ def _replica_main(conn, config, replica_id: int, lanes=None) -> None:
 
 
 def _spawn_launcher(config, idx: int, ctx, lanes=None):
-    """Default replica launcher: a real spawn process + duplex pipe
-    (spawn, never fork: the parent may hold a CUDA context).
+    """Default replica launcher: a real process from `ctx` (the fork
+    server's: never a fork of this process, which may hold a CUDA context)
+    + duplex pipe.
     Tests substitute a launcher whose far end is driven in-process.
     `lanes` (shm transport) is the picklable {req, res} ring-manifest
     pair the child attaches to."""
@@ -697,8 +702,7 @@ class FrontDoorRouter:
     def start(self) -> "FrontDoorRouter":
         if self._started:
             return self
-        import multiprocessing
-        ctx = multiprocessing.get_context("spawn")
+        ctx = process_context()
         replicas = []
         for i in range(self.num_replicas):
             replicas.append(self._launch(i, ctx))
@@ -1286,8 +1290,7 @@ class FrontDoorRouter:
         model warm, shm lanes pre-mapped). Runs WITHOUT the scale
         claim: stocking for seconds must not block a drain; only the
         O(1) admit runs under add_replica's claim."""
-        import multiprocessing
-        ctx = multiprocessing.get_context("spawn")
+        ctx = process_context()
         rep = None
         try:
             with self._lock:
@@ -1431,8 +1434,7 @@ class FrontDoorRouter:
                     self.metrics.counter("serve_template_misses").inc()
                     self.flight.record("template_miss",
                                        reason="not_stocked")
-            import multiprocessing
-            ctx = multiprocessing.get_context("spawn")
+            ctx = process_context()
             with self._lock:
                 idx = len(self._replicas)
             try:

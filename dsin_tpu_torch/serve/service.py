@@ -1,5 +1,5 @@
-"""Long-lived compression service on one card (counterpart of the JAX
-package's `serve/service.py` `CompressionService`).
+"""Long-lived compression service (counterpart of the JAX package's
+`serve/service.py` `CompressionService`).
 
 The model is loaded once (`coding/loader.load_model_state`, from a seed or
 a checkpoint of either package); requests of any (h, w) are padded onto
@@ -62,9 +62,12 @@ share a session coalesce into one micro-batch (`Request.session`), one
 K2 launch each.
 
 Process entropy backend (`entropy_backend="process"`): the entropy
-stage's coding work runs in a spawn-context `ProcessPoolExecutor` of
-worker-resident codecs (`coding/loader.py` `CodecSpec`: rebuilt once per
-child as a host codec, schedules warmed there, mode 2 only; a child never
+stage's coding work runs in a `ProcessPoolExecutor` of worker-resident
+codecs, forked from the serve stack's fork server (`serve/procs.py`: it
+never initialises CUDA and holds torch and the codec imported, so a child
+starts in well under a second; children inherit the environment the
+process had when the fork server started) (`coding/loader.py`
+`CodecSpec`: rebuilt once per child as a host codec, schedules warmed there, mode 2 only; a child never
 initialises CUDA). The pool threads become bridges: the device-to-host
 transfer, the per-request `serve.rans` fault site and CRC re-verify,
 framing and futures. A payload in another mode than 2 (a client's mode-3
@@ -143,15 +146,34 @@ router hop and the replica's spans. The card's kernel launches
 `serve_kernel_launches_<name>` gauges and the `serve_kernel_launches` info
 entry, so a replica's counts are readable from its endpoint.
 
-Not ported, and refused with NotImplementedError naming the ROADMAP item:
-more than one device and placement. `persistent_cache` (the XLA compile
+Multi-device dataplane (`serve/placement.py`): with `devices` the bucket
+ladder is mapped onto N serve devices (hot buckets get replicas on
+several, cold ones share), each device holds its own copy of the weights
+(`ModelBundle.servers`: a `DeviceServer` per device), and `workers`
+executor threads PER DEVICE (`workers * devices` in all) pull only the
+batches of the buckets the live plan places on their device (affinity is
+`slot % devices`, so a restarted slot lands on the same device; each
+thread runs on its device's own CUDA stream). `devices` is an int (the
+first N visible devices of `device`'s type) or a tuple of device strings,
+a repeat allowed: `("cuda:0", "cuda:0")` is two logical devices on one
+card, each with its own weights and streams (port only; the JAX package
+forces host devices). `warmup` runs every (bucket, device) pair of the
+plan, `rebalance_placement()` re-plans from the observed per-bucket
+traffic and warms the pairs new to its plan before the atomic swap, and
+with `rebalance_check_every_s` the supervisor re-plans by itself when the
+traffic skew persists (`RebalanceTrigger`). `enable_si` serves on one
+device, as in the JAX package. The canary and a prepare's probe run on
+device 0. Per-device observability: `serve_devices`,
+`serve_device_batches_d<i>`, `serve_device_busy_ms_d<i>`,
+`serve_placement_rebalances`, `serve_traffic_skew`,
+`serve_auto_rebalances`, `serve_auto_rebalance_errors` and the
+`serve_device_assignments` info entry. `persistent_cache` (the XLA compile
 cache) has no meaning here and is not a field.
 """
 
 from __future__ import annotations
 
 import contextlib
-import multiprocessing
 import os
 import struct
 import tempfile
@@ -165,13 +187,14 @@ from concurrent.futures import TimeoutError as FutureTimeout
 from concurrent.futures import wait as futures_wait
 from concurrent.futures.process import BrokenProcessPool
 from dataclasses import dataclass
-from typing import List, Mapping, Optional, Sequence, Tuple
+from typing import List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from dsin_tpu_torch import native_build
 from dsin_tpu_torch.coding import loader as loader_lib
+from dsin_tpu_torch.coding import rans
 from dsin_tpu_torch.coding.codec import MODE_WAVEFRONT_NP
 from dsin_tpu_torch.config import parse_config_file
 from dsin_tpu_torch.runtime import resolve_device
@@ -179,6 +202,7 @@ from dsin_tpu_torch.ops import sifinder as sifinder_lib
 from dsin_tpu_torch.ops import sifinder_kernel as sk
 from dsin_tpu_torch.serve import buckets as buckets_lib
 from dsin_tpu_torch.serve import metrics as metrics_lib
+from dsin_tpu_torch.serve import placement as placement_lib
 from dsin_tpu_torch.serve import quality as quality_lib
 from dsin_tpu_torch.serve import router as router_lib
 from dsin_tpu_torch.serve import session as session_lib
@@ -189,6 +213,7 @@ from dsin_tpu_torch.serve.batcher import (Future, MicroBatcher, Request,
                                           ServeError, ServiceDraining,
                                           ServiceUnavailable)
 from dsin_tpu_torch.serve.device import DeviceServer
+from dsin_tpu_torch.serve.procs import process_context
 from dsin_tpu_torch.train import checkpoint as ckpt_lib
 from dsin_tpu_torch.utils import faults
 from dsin_tpu_torch.utils.integrity import (IntegrityError, frame_crc,
@@ -204,21 +229,12 @@ ENCODE = "encode"
 DECODE = "decode"
 DECODE_SI = "decode_si"   # session-affine SI decode
 
-#: the ROADMAP Queue 1 item naming what the port's service does not have yet
-ROADMAP_DEVICES = "ROADMAP Queue 1 item 11c (devices > 1 and placement)"
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to dsin_tpu_torch yet: "
-                               f"{item}")
-
-
 @dataclass
 class ServiceConfig:
     """The JAX service's configuration, less what the port does not serve:
     `persistent_cache` does not exist (there is no XLA cache). `device` is
     the card by default; without one the service raises unless it is
-    "cpu"."""
+    "cpu". `devices` also takes a tuple of device strings (port only)."""
     ae_config: str
     pc_config: str
     ckpt: Optional[str] = None
@@ -227,20 +243,36 @@ class ServiceConfig:
     max_batch: int = 4
     max_wait_ms: float = 5.0
     max_queue: int = 64
-    #: executor threads, each with its own CUDA stream
+    #: executor threads PER DEVICE (workers * devices in all), each with
+    #: its own CUDA stream on its device
     workers: int = 1
-    #: None or 1; more raises (ROADMAP_DEVICES), as do placement knobs
-    devices: Optional[int] = None
-    placement_weights: Optional[dict] = None
+    #: serve devices to spread the bucket ladder over (serve/placement.py):
+    #: None = 1 (`device`); an int N = the first N visible devices of
+    #: `device`'s type (more raises PlacementError); a tuple of device
+    #: strings names each logical device, a repeat allowed, e.g.
+    #: ("cuda:0", "cuda:0") or ("cpu",) * 4
+    devices: Optional[Union[int, Sequence[str]]] = None
+    #: bucket -> traffic weight for the initial placement plan (None =
+    #: uniform); `rebalance_placement()` re-plans from observed traffic
+    placement_weights: Optional[Mapping[Tuple[int, int], float]] = None
+    #: how often the supervisor inspects the per-bucket traffic skew and
+    #: re-plans by itself; None = off (the operator calls
+    #: rebalance_placement())
     rebalance_check_every_s: Optional[float] = None
+    #: trigger when the max bucket share >= threshold * the uniform share,
+    #: for `rebalance_hysteresis_checks` CONSECUTIVE windows, and not
+    #: within `rebalance_cooldown_s` of the last fire (no flapping)
+    rebalance_skew_threshold: float = 2.0
+    rebalance_hysteresis_checks: int = 2
+    rebalance_cooldown_s: float = 60.0
     #: rANS pool size; 0 = serialized path (entropy inline on the worker
     #: thread after/before the device call); None = min(4, cores - 1),
     #: at least 1
     entropy_workers: Optional[int] = None
     #: where the entropy stage codes: "thread" (the pool threads, each
-    #: with its codec clone) or "process" (a spawn-context process pool
-    #: of worker-resident mode-2 codecs, the pool threads bridging to
-    #: it); "process" needs entropy_workers > 0
+    #: with its codec clone) or "process" (a process pool of
+    #: worker-resident mode-2 codecs, forked from `serve/procs.py`'s
+    #: fork server, the pool threads bridging to it); "process" needs entropy_workers > 0
     entropy_backend: str = "thread"
     #: process backend: ceiling on one micro-batch's task in a child,
     #: including a rebuilt pool's spawn and codec warm; on expiry the
@@ -319,16 +351,6 @@ class ServiceConfig:
     device: str = "cuda"
 
 
-def _refused(config: ServiceConfig) -> Optional[NotImplementedError]:
-    """The NotImplementedError a configuration asks for, or None."""
-    if config.devices not in (None, 1):
-        return _not_ported(f"devices={config.devices}", ROADMAP_DEVICES)
-    if (config.placement_weights is not None
-            or config.rebalance_check_every_s is not None):
-        return _not_ported("placement and rebalance", ROADMAP_DEVICES)
-    return None
-
-
 def _validate_knobs(config: ServiceConfig, n_buckets: int) -> None:
     """The entropy-backend and canary knobs, checked before the model build
     as the JAX service checks them: a typo costs milliseconds, typed."""
@@ -361,6 +383,17 @@ def _validate_knobs(config: ServiceConfig, n_buckets: int) -> None:
     if config.transport not in ("pipe", "shm"):
         raise ValueError(f"transport must be 'pipe' or 'shm', got "
                          f"{config.transport!r}")
+    if config.enable_si and placement_lib.device_count(config.devices) > 1:
+        raise ValueError(
+            f"enable_si serves on a single device per replica "
+            f"(got devices={config.devices}); scale out "
+            f"through FrontDoorRouter's session pinning "
+            f"(serve/router.py) — a session's device-resident "
+            f"prep cannot chase batches across a mesh")
+    if (config.rebalance_check_every_s is not None
+            and config.rebalance_check_every_s <= 0):
+        raise ValueError(f"rebalance_check_every_s must be > 0, got "
+                         f"{config.rebalance_check_every_s}")
 
 
 @dataclass
@@ -422,15 +455,6 @@ def parse_stream(blob: bytes):
         raise StreamCorrupt(f"corrupt frame: image ({h}, {w}) exceeds "
                             f"its own bucket ({bh}, {bw})")
     return payload, (h, w), (bh, bw)
-
-
-def _to_device(arr: np.ndarray, dev: torch.device) -> torch.Tensor:
-    """A host batch onto the device: on the card through pinned memory, a
-    copy ordered on the current stream that does not block the host."""
-    t = torch.from_numpy(arr)
-    if dev.type != "cuda":
-        return t
-    return t.pin_memory().to(dev, non_blocking=True)
 
 
 def _to_host(t: torch.Tensor):
@@ -500,13 +524,16 @@ class _Inflight:
     per-batch ledger the stage metrics come from."""
 
     __slots__ = ("kind", "batch", "bucket", "t0", "bundle", "tasks",
-                 "handle", "sym", "per_item_exc", "crash", "si_entry")
+                 "handle", "sym", "per_item_exc", "crash", "si_entry",
+                 "device")
 
-    def __init__(self, kind, batch, bucket, t0, bundle):
+    def __init__(self, kind, batch, bucket, t0, bundle, device: int = 0):
         self.kind = kind
         self.batch = batch
         self.bucket = bucket
         self.t0 = t0
+        #: the executor's placement index: every device stage runs there
+        self.device = device
         #: the ONE ModelBundle every stage of this batch reads
         self.bundle = bundle
         self.tasks = []
@@ -552,16 +579,14 @@ class _EntropyPool:
 
 
 class CompressionService:
-    """Thread-per-worker micro-batching codec service on one device.
+    """Thread-per-worker micro-batching codec service on one or more
+    serve devices.
 
     Lifecycle:  start() -> [warmup()] -> submit_*/encode/decode ...
                 -> drain()   (or initiate_drain() from a signal handler)
     """
 
     def __init__(self, config: ServiceConfig):
-        err = _refused(config)
-        if err is not None:
-            raise err
         self.config = config
         self.policy = buckets_lib.BucketPolicy(config.buckets)
         self.metrics = metrics_lib.MetricsRegistry()
@@ -653,8 +678,21 @@ class CompressionService:
         self._si_enabled = False
         self._sessions: Optional[session_lib.SessionStore] = None
         self._bn_channels = 0
+        #: device 0 of the placement (sessions, the canary, a prepare)
         self.device: Optional[torch.device] = None
         self._swap: Optional[swap_lib.SwapCoordinator] = None
+        self.placement: Optional[placement_lib.DevicePlacement] = None
+        self._num_devices = 1
+        self._total_workers = 0
+        #: every (bucket, device) pair warmed so far; rebound copy-on-write
+        #: (readers iterate their own snapshot)
+        self._warmed_pairs = frozenset()
+        # one rebalancer at a time: the claim flag, never held across warms
+        self._rebalance_lock = threading.Lock()
+        self._rebalancing = False          # guarded-by: self._rebalance_lock
+        self._rebalance_trigger: Optional[placement_lib.RebalanceTrigger] = \
+            None
+        self._next_rebalance_check: Optional[float] = None
 
     # -- model state (always the CURRENT bundle's view) ----------------------
 
@@ -686,8 +724,24 @@ class CompressionService:
         if self._started:
             return self
         _validate_knobs(self.config, len(self.policy.buckets))
-        # the device first: without a card this raises in milliseconds
-        self.device = resolve_device(self.config.device)
+        # the devices first: without a card this raises in milliseconds,
+        # and so does a device count beyond what is visible (typed
+        # PlacementError), before the model build
+        devices = placement_lib.serve_devices(
+            self.config.devices, resolve_device(self.config.device))
+        for dev in dict.fromkeys(devices):
+            resolve_device(dev)
+        self.placement = placement_lib.DevicePlacement(
+            self.policy.buckets, weights=self.config.placement_weights,
+            devices=devices)
+        self._num_devices = self.placement.num_devices
+        self.device = devices[0]
+        if self.config.rebalance_check_every_s is not None:
+            # the trigger's constructor validates its knobs, typed
+            self._rebalance_trigger = placement_lib.RebalanceTrigger(
+                skew_threshold=self.config.rebalance_skew_threshold,
+                hysteresis_checks=self.config.rebalance_hysteresis_checks,
+                cooldown_s=self.config.rebalance_cooldown_s)
         self._si_enabled = bool(self.config.enable_si)
         self._ae_cfg = parse_config_file(self.config.ae_config).replace(
             AE_only=not self._si_enabled)
@@ -740,13 +794,20 @@ class CompressionService:
             "backend": self.config.entropy_backend,
             "transport": self.config.transport, "entropy_workers": ew,
             "pipeline_depth": self.config.pipeline_depth})
+        self._total_workers = self.config.workers * self._num_devices
         with self._workers_lock:
-            for i in range(self.config.workers):
+            for i in range(self._total_workers):
                 self._workers.append(self._spawn_worker(i))
                 self._restarts.append(0)
                 self._restart_at.append(None)
-        self.metrics.gauge("serve_workers_live").set(self.config.workers)
-        self.metrics.gauge("serve_devices").set(1)
+        self.metrics.gauge("serve_workers_live").set(self._total_workers)
+        self.metrics.gauge("serve_devices").set(self._num_devices)
+        self._publish_placement()
+        if self._rebalance_trigger is not None:
+            # arm the auto-rebalance clock; the operator's
+            # rebalance_placement() stays
+            self._next_rebalance_check = (
+                time.monotonic() + self.config.rebalance_check_every_s)
         self._supervisor = threading.Thread(target=self._supervise_loop,
                                             name="serve-supervisor",
                                             daemon=True)
@@ -781,14 +842,19 @@ class CompressionService:
 
     def _make_bundle(self, epoch: int, model, ckpt: Optional[str],
                      manifest: Optional[dict]) -> swap_lib.ModelBundle:
-        """One model version as a ModelBundle: its served digest, its
-        DeviceServer (the weights complete on the device before this
-        returns: `sync` on the caller's stream, so no worker stream reads
-        them half-copied), its codec, and on the process backend its own
+        """One model version as a ModelBundle: its served digest, one
+        DeviceServer per serve device (`model` on device 0, a copy of its
+        weights on each other device, `placement.replicate`: never a shared
+        storage; the weights complete on every device before this returns:
+        `sync` on the caller's stream, so no worker stream reads them
+        half-copied), its codec, and on the process backend its own
         CodecSpec file (in a directory the bundle removes when it retires)
         and its own pool of children, spawned at the first submit."""
-        server = DeviceServer.for_model(model)
-        server.sync()
+        servers = [DeviceServer.for_model(model)] + [
+            DeviceServer.for_model(self.placement.replicate(d, model))
+            for d in range(1, self._num_devices)]
+        for server in servers:
+            server.sync()
         codec = loader_lib.make_codec(model)
         initargs = spec_dir = None
         if self.config.entropy_backend == "process":
@@ -799,40 +865,58 @@ class CompressionService:
                 list(self._warm_shapes))
         bundle = swap_lib.ModelBundle(
             epoch, loader_lib.served_digest(model, self.config.precision),
-            server, codec, ckpt=ckpt, proc_initargs=initargs,
-            manifest=manifest, spec_dir=spec_dir)
+            servers[0], codec, ckpt=ckpt, proc_initargs=initargs,
+            manifest=manifest, spec_dir=spec_dir, servers=servers)
         if initargs is not None:
             bundle.set_proc(self._make_entropy_proc(initargs))
         return bundle
 
-    def _warm_device(self, bundle: swap_lib.ModelBundle) -> None:
-        """Run every bucket's device functions once on `bundle` (encode,
-        decode, and with SI a session prep and an SI decode, K2 on the
-        card), and prime its codec's schedule for each bucket's volume with
-        one entropy round trip. The same shapes for every bundle, so a
-        swap's warm builds nothing."""
-        server = bundle.server
-        sub = buckets_lib.SUBSAMPLING
-        n = self.config.max_batch
-        for bh, bw in self.policy.buckets:
-            symbols = server.encode_symbols(
-                np.zeros((n, bh, bw, 3), np.float32)).cpu().numpy()
-            sym = np.zeros((n, bh // sub, bw // sub, self._bn_channels),
-                           np.int32)
-            server.decode(sym)
-            if self._si_enabled:
+    def _warm_device(self, bundle: swap_lib.ModelBundle, pairs) -> None:
+        """Run both device functions of every (bucket, device) pair in
+        `pairs` once on `bundle` (`_warm_pair`), with SI a session prep and
+        an SI decode per bucket on device 0 (K2 on the card), bind the rANS
+        library (`rans.load_library`: built here when `build/` lacks it,
+        never by a first request) and build its codec's mode-2 schedule for
+        each of those buckets' volumes (what a first request would
+        otherwise pay; the pool children build theirs in their
+        initializer). The same shapes for every bundle, so a swap's warm
+        builds nothing."""
+        for bucket, device in sorted(pairs):
+            self._warm_pair(bucket, device, bundle)
+            bundle.servers[device].sync()
+        if self._si_enabled:
+            server = bundle.server
+            for bh, bw in self.policy.buckets:
                 prep = server.open_session(np.zeros((bh, bw, 3), np.float32))
-                server.decode_si(sym, prep,
+                server.decode_si(self._empty_symbols((bh, bw)), prep,
                                  with_scores=self._si_scores_enabled)
-            stream = bundle.codec.encode(np.transpose(symbols[0], (2, 0, 1)))
-            bundle.codec.decode(stream)
-        server.sync()
+            server.sync()
+        rans.load_library()
+        engine = bundle.codec._incremental_engine()
+        sub = buckets_lib.SUBSAMPLING
+        for bh, bw in sorted({bucket for bucket, _ in pairs}):
+            engine.schedule((self._bn_channels, bh // sub, bw // sub))
+
+    def _warm_pair(self, bucket: Tuple[int, int], device: int,
+                   bundle: swap_lib.ModelBundle) -> None:
+        """Both device functions of one (bucket, device) census pair on
+        `bundle`'s server for that device, a max_batch of zeros each, and
+        the pair recorded as warmed."""
+        server = bundle.servers[device]
+        bh, bw = bucket
+        server.encode_symbols(self.placement.put_batch(
+            device, np.zeros((self.config.max_batch, bh, bw, 3), np.float32)))
+        server.decode(self.placement.put_batch(device,
+                                               self._empty_symbols(bucket)))
+        # copy-on-write rebind: concurrent readers keep their snapshot
+        self._warmed_pairs = self._warmed_pairs | {(bucket, device)}
 
     def warmup(self) -> dict:
-        """Run every (bucket, direction) once, and with SI a session prep
-        and an SI decode per bucket; prime the codec's schedules with one
-        entropy round trip per bucket; start the entropy pool threads (each
-        builds its codec clone) and, on the process backend, every pool
+        """Run every (bucket, device, direction) of the placement plan's
+        census once, and with SI a session prep and an SI decode per
+        bucket; bind the rANS library and build the codec's mode-2
+        schedule of each bucket's volume; start the entropy pool threads
+        (each builds its codec clone) and, on the process backend, every pool
         child (spawn, codec rebuild, schedule warm) and ping it, so the
         first request pays nothing. Returns {"builds": native builds during
         warmup, "seconds": s}; the pings land in `_proc_warm`. After it,
@@ -845,7 +929,7 @@ class CompressionService:
         before = native_build.build_count()
         bundle = self._swap.current
         spawning = self._spawn_children(bundle)
-        self._warm_device(bundle)
+        self._warm_device(bundle, self.placement.plan.census())
         if self._entropy_pool is not None:
             # force every pool thread into existence and build its codec
             # clone now (the barrier keeps the tasks on distinct threads)
@@ -864,8 +948,16 @@ class CompressionService:
         self._warmup_done = True
         self.metrics.gauge("serve_warmup_builds").set(builds)
         self.metrics.gauge("serve_buckets").set(len(self.policy.buckets))
+        self.metrics.gauge("serve_executable_census").set(
+            self._census_size())
         self._publish_launches()
         return {"builds": builds, "seconds": time.monotonic() - t0}
+
+    def _census_size(self) -> int:
+        """The JAX service's executable census: encode + decode per warmed
+        (bucket, device) pair, plus prep + SI decode per bucket with SI."""
+        return 2 * len(self._warmed_pairs) + (
+            2 * len(self.policy.buckets) if self._si_enabled else 0)
 
     def _spawn_children(self, bundle) -> list:
         """On the process backend, one `worker_ping` submit per pool child:
@@ -971,16 +1063,24 @@ class CompressionService:
                           "canary_s": round(t_canary - t_warm, 3)}}
 
     def _warm_bundle(self, bundle: swap_lib.ModelBundle) -> dict:
-        """The incoming bundle through every bucket's device functions and
-        its codec's schedules (`_warm_device`), on the process backend while
-        its children spawn, then the children pinged."""
+        """The incoming bundle through every warmed (bucket, device) pair
+        and its codec's schedules (`_warm_device`), on the process backend
+        while its children spawn, then the children pinged. Pairs a
+        rebalance warmed meanwhile are warmed too before it returns (a pair
+        the bundle still missed would only run shapes the card already ran:
+        nothing is built per pair or per weights)."""
         t0 = time.monotonic()
         spawning = self._spawn_children(bundle)
-        self._warm_device(bundle)
+        pairs = self._warmed_pairs
+        self._warm_device(bundle, pairs)
+        late = self._warmed_pairs - pairs
+        if late:
+            self._warm_device(bundle, late)
         t1 = time.monotonic()
         pings = (self._ping_children(bundle, spawning)
                  if bundle.proc() is not None else [])
         return {"buckets": len(self.policy.buckets),
+                "pairs": len(self._warmed_pairs),
                 "proc_workers": len(pings),
                 "device_s": round(t1 - t0, 3),
                 "pool_s": round(time.monotonic() - t1, 3)}
@@ -1095,8 +1195,64 @@ class CompressionService:
         if self._sessions is not None and self._sessions.live:
             self._sessions.clear(reason)
 
+    # -- placement --------------------------------------------------------
+
+    def _publish_placement(self) -> None:
+        """Export the live bucket -> device census (the
+        `serve_device_assignments` info entry every scrape carries)."""
+        self.metrics.set_info("serve_device_assignments",
+                              self.placement.plan.as_dict())
+
     def rebalance_placement(self, weights=None) -> dict:
-        raise _not_ported("rebalance_placement", ROADMAP_DEVICES)
+        """Re-plan bucket -> device routing. `weights` defaults to the
+        OBSERVED per-bucket request counts (+1 smoothing, so an idle bucket
+        keeps a replica). Any (bucket, device) pair new to the incoming
+        plan is warmed BEFORE the atomic table swap, on the serving bundle
+        and on a staged one, so no routed batch finds a cold pair.
+        Executors read the new table at their next batch pop; in-flight
+        batches finish on their old device. One rebalancer at a time: a
+        call that finds one running returns {"skipped": ...} at once."""
+        if not (self._started and self._warmup_done):
+            raise RuntimeError("start() + warmup() before rebalance")
+        # the claim flag, not a lock held across the warms: the supervisor
+        # tick and the operator would otherwise race warm-then-swap
+        with self._rebalance_lock:
+            if self._rebalancing:
+                return {"changed": False, "warmed_pairs": 0,
+                        "skipped": "rebalance already in progress"}
+            self._rebalancing = True
+        try:
+            return self._rebalance_claimed(weights)
+        finally:
+            with self._rebalance_lock:
+                self._rebalancing = False
+
+    def _rebalance_claimed(self, weights) -> dict:
+        """Body of rebalance_placement; the caller holds the claim flag."""
+        if weights is None:
+            weights = {
+                (bh, bw): 1.0 + self.metrics.counter(
+                    f"serve_bucket_requests_{bh}x{bw}").value
+                for bh, bw in self.policy.buckets}
+        plan = placement_lib.plan_placement(
+            self.policy.buckets, self._num_devices, weights)
+        new_pairs = [pair for pair in plan.census()
+                     if pair not in self._warmed_pairs]
+        if new_pairs:
+            bundles = [self._swap.current]
+            if self._swap.staged is not None:
+                bundles.append(self._swap.staged)
+            for bundle in bundles:
+                self._warm_device(bundle, new_pairs)
+        changed = self.placement.set_plan(plan)
+        self.metrics.counter("serve_placement_rebalances").inc()
+        self.metrics.gauge("serve_executable_census").set(
+            self._census_size())
+        self._publish_placement()
+        self.flight.record("placement_rebalance", changed=changed,
+                           warmed_pairs=len(new_pairs))
+        return {"changed": changed, "warmed_pairs": len(new_pairs),
+                "assignments": plan.as_dict()}
 
     # -- golden canary ------------------------------------------------------
 
@@ -1410,7 +1566,7 @@ class CompressionService:
 
     def health(self) -> dict:
         live = self.live_workers
-        configured = self.config.workers if self._started else 0
+        configured = self._total_workers if self._started else 0
         if self.draining:
             status = "draining"
         elif live == 0:
@@ -1422,7 +1578,9 @@ class CompressionService:
         return {"status": status,
                 "queue_depth": self._batcher.depth,
                 "buckets": [list(b) for b in self.policy.buckets],
-                "devices": 1,
+                "devices": self._num_devices,
+                "assignments": (self.placement.plan.as_dict()
+                                if self.placement is not None else {}),
                 "device": str(self.device),
                 "workers_live": live,
                 "workers_configured": configured,
@@ -1721,39 +1879,56 @@ class CompressionService:
         return t
 
     def _worker_main(self, slot: int) -> None:
-        """Thread target: enter this thread's inference mode and CUDA
-        stream (both are per-thread state), run the loop, and record a
-        fatal exit for the supervisor."""
+        """Thread target: enter this thread's inference mode and its
+        device's CUDA stream (both are per-thread state), run the loop, and
+        record a fatal exit for the supervisor. Device affinity is a
+        function of the SLOT (`slot % devices`), so a supervisor restart
+        lands the replacement executor on the same device."""
+        device = slot % self._num_devices
+        dev = self.placement.devices[device]
         try:
             with contextlib.ExitStack() as stack:
                 stack.enter_context(torch.inference_mode())
-                if self.device.type == "cuda":
-                    stack.enter_context(torch.cuda.device(self.device))
+                if dev.type == "cuda":
+                    stack.enter_context(torch.cuda.device(dev))
                     stack.enter_context(torch.cuda.stream(
-                        torch.cuda.Stream(self.device)))
-                self._worker_loop()
+                        torch.cuda.Stream(dev)))
+                self._worker_loop(device)
         except BaseException as e:  # noqa: BLE001 — supervisor's evidence
             with self._workers_lock:
                 self._worker_exits[slot] = e
             self.metrics.counter("serve_worker_crashes").inc()
 
-    def _worker_loop(self) -> None:
+    def _worker_loop(self, device: int) -> None:
         inflight: deque = deque()
         depth = max(1, int(self.config.pipeline_depth)) \
             if self._entropy_pool is not None else 1
         gauge = self.metrics.gauge("serve_pipeline_inflight")
+        # the accept set (every kind of every bucket the live plan places on
+        # this device) is rebuilt only when the plan object changes (a
+        # rebalance): next_batch is the hottest call. None (no filter) on
+        # one device
+        accept = accept_plan = None
         try:
             while True:
+                if self._num_devices > 1:
+                    plan = self.placement.plan
+                    if plan is not accept_plan:
+                        accept_plan = plan
+                        accept = frozenset(
+                            (kind, bucket)
+                            for kind in (ENCODE, DECODE, DECODE_SI)
+                            for bucket in plan.buckets_for(device))
                 # with work in flight, poll instead of blocking: an empty
                 # queue means it is time to finish the oldest batch
                 batch = self._batcher.next_batch(
-                    timeout=0.0 if inflight else 0.25)
+                    timeout=0.0 if inflight else 0.25, accept=accept)
                 if batch is None:
                     return        # closed and empty: finally flushes
                 if batch:
                     t_start = time.monotonic()
                     try:
-                        rec = self._start_batch(batch)
+                        rec = self._start_batch(batch, device)
                     except BaseException as e:  # noqa: BLE001 — answer callers
                         for r in batch:
                             if not r.future.done():
@@ -1764,7 +1939,9 @@ class CompressionService:
                             raise
                         continue
                     if rec is not None:
-                        self._busy_ms.add((time.monotonic() - t_start) * 1e3)
+                        dt = (time.monotonic() - t_start) * 1e3
+                        self._busy_ms.add(dt)
+                        self._device_busy(device).add(dt)
                         self._track(inflight, rec)
                         gauge.set(len(inflight))
                 elif not inflight:
@@ -1879,6 +2056,17 @@ class CompressionService:
                                            restarts=self._restarts[i])
                         live += 1
             self.metrics.gauge("serve_workers_live").set(live)
+            if (self._rebalance_trigger is not None
+                    and now >= self._next_rebalance_check):
+                self._next_rebalance_check = (
+                    now + self.config.rebalance_check_every_s)
+                try:
+                    self._auto_rebalance_tick(now)
+                except Exception:  # noqa: BLE001 — a failed rebalance
+                    # must not unwind the supervisor: worker self-healing
+                    # outranks the opt-in rebalance
+                    self.metrics.counter(
+                        "serve_auto_rebalance_errors").inc()
             if self._watchdog is not None:
                 self._watchdog_tick(now)
             self._draining.wait(self.config.supervise_every_s)
@@ -1909,11 +2097,36 @@ class CompressionService:
         self.metrics.counter("serve_watchdog_rollbacks").inc()
         self.flight.note_death("watchdog_rollback", **verdict)
 
+    def _auto_rebalance_tick(self, now: float) -> None:
+        """One skew check on the supervisor thread (the trigger's single
+        caller). Fires rebalance_placement() with the window's observed
+        weights; its warm of new pairs runs inline here, so worker healing
+        pauses for it — why auto mode is opt-in. Before warmup a tick does
+        nothing (the port's rebalance needs the warm census)."""
+        if not self._warmup_done:
+            return
+        counts = {
+            (bh, bw): self.metrics.counter(
+                f"serve_bucket_requests_{bh}x{bw}").value
+            for bh, bw in self.policy.buckets}
+        weights = self._rebalance_trigger.observe(now, counts)
+        self.metrics.gauge("serve_traffic_skew").set(
+            self._rebalance_trigger.last_skew)
+        if weights is None or self._num_devices <= 1:
+            return
+        self.rebalance_placement(weights=weights)
+        self.metrics.counter("serve_auto_rebalances").inc()
+
     @property
     def _busy_ms(self) -> metrics_lib.Accumulator:
         """Wall time workers actually spent on batches (assemble +
         launch + finish); the busy input of serve_overlap_ratio."""
         return self.metrics.accumulator("serve_busy_ms_total")
+
+    def _device_busy(self, device: int) -> metrics_lib.Accumulator:
+        """Per-device slice of the busy time: with the per-device batch
+        counts, the occupancy evidence of the serve bench's device axis."""
+        return self.metrics.accumulator(f"serve_device_busy_ms_d{device}")
 
     def _thread_codec(self, bundle: swap_lib.ModelBundle):
         """Entropy-stage codec for the CURRENT thread and the batch's
@@ -1936,27 +2149,30 @@ class CompressionService:
                     del clones[e]
         return codec
 
-    def _device_encode(self, bundle, x: np.ndarray):
-        """Launch the batched encode on this thread's stream -> (pinned
-        host symbols, event or None)."""
-        symbols = bundle.server.encode_symbols(_to_device(x, self.device))
+    def _device_encode(self, bundle, x: np.ndarray, device: int):
+        """Launch the batched encode on serve device `device`, on this
+        thread's stream -> (pinned host symbols, event or None)."""
+        symbols = bundle.servers[device].encode_symbols(
+            self.placement.put_batch(device, x))
         return _to_host(symbols)
 
-    def _device_decode(self, bundle, sym: np.ndarray, si_entry):
+    def _device_decode(self, bundle, sym: np.ndarray, si_entry,
+                       device: int):
         """The batched decode (the SI decode against `si_entry`'s prep) on
-        this thread's stream -> (host images (N, H, W, 3) float32, waited
-        for; the SI search's winning scores (N, P) on the host where the
-        service asks for them, else None)."""
-        sym_dev = _to_device(sym, self.device)
+        serve device `device`, on this thread's stream -> (host images (N,
+        H, W, 3) float32, waited for; the SI search's winning scores (N, P)
+        on the host where the service asks for them, else None)."""
+        server = bundle.servers[device]
+        sym_dev = self.placement.put_batch(device, sym)
         scores = None
         if si_entry is None:
-            imgs = bundle.server.decode(sym_dev)
+            imgs = server.decode(sym_dev)
         elif self._si_scores_enabled:
-            imgs, scores = bundle.server.decode_si(sym_dev, si_entry.prep,
-                                                   with_scores=True)
+            imgs, scores = server.decode_si(sym_dev, si_entry.prep,
+                                            with_scores=True)
             scores = scores.cpu().numpy()
         else:
-            imgs = bundle.server.decode_si(sym_dev, si_entry.prep)
+            imgs = server.decode_si(sym_dev, si_entry.prep)
         return _host_array(*_to_host(imgs)), scores
 
     def _note_encode_quality(self, bundle, batch, bucket, vols,
@@ -1987,8 +2203,9 @@ class CompressionService:
             if i not in failed:
                 self.quality.note_si_scores(r.session, scores[i])
 
-    def _start_batch(self, batch) -> Optional[_Inflight]:
-        """Stage 1, on the worker thread. Serialized mode
+    def _start_batch(self, batch, device: int) -> Optional[_Inflight]:
+        """Stage 1, on the worker thread of serve device `device`.
+        Serialized mode
         (entropy_workers=0) runs the whole batch here and returns None;
         pipelined mode launches the device stage / hands the entropy work
         to the pool and returns the in-flight record for _finish_batch."""
@@ -2014,20 +2231,22 @@ class CompressionService:
         if self._entropy_pool is None:
             if kind == ENCODE:
                 device_ms, entropy_ms = self._run_encode(batch, bucket,
-                                                         bundle)
+                                                         bundle, device)
             else:
                 device_ms, entropy_ms = self._run_decode(
-                    batch, bucket, bundle, si=(kind == DECODE_SI))
-            self._busy_ms.add((time.monotonic() - t0) * 1e3)
-            self._note_batch_done(batch, t0, device_ms, entropy_ms,
+                    batch, bucket, bundle, device, si=(kind == DECODE_SI))
+            dt = (time.monotonic() - t0) * 1e3
+            self._busy_ms.add(dt)
+            self._device_busy(device).add(dt)
+            self._note_batch_done(batch, t0, device_ms, entropy_ms, device,
                                   observe_latency=True)
             return None
-        rec = _Inflight(kind, batch, bucket, t0, bundle)
+        rec = _Inflight(kind, batch, bucket, t0, bundle, device)
         if kind == ENCODE:
             x = self._gather_images(batch, bucket)
             t_launch = time.monotonic()
-            rec.handle = _DeviceBatch(*self._device_encode(bundle, x),
-                                      t_launch)
+            rec.handle = _DeviceBatch(
+                *self._device_encode(bundle, x, device), t_launch)
         else:
             if kind == DECODE_SI:
                 # resolve the session BEFORE any entropy work is queued:
@@ -2082,8 +2301,9 @@ class CompressionService:
         return self.config.max_batch * vol * 4 + 65536
 
     def _make_entropy_proc(self, initargs) -> _EntropyPool:
-        """A fresh process pool for one bundle's CodecSpec, spawned (never
-        forked: the parent holds a CUDA context). Its children rebuild the
+        """A fresh process pool for one bundle's CodecSpec, its children
+        forked from the port's fork server (never from this process, which
+        holds a CUDA context: `serve/procs.py`). They rebuild the
         codec once in the initializer and warm every bucket's schedule.
         With transport="shm" each pool generation gets its own lane ring
         (task and reply lanes, 2 per batch in flight, plus spares) whose
@@ -2115,7 +2335,7 @@ class CompressionService:
             manifest = rings.manifest()
         pool = ProcessPoolExecutor(
             max_workers=self._entropy_workers,
-            mp_context=multiprocessing.get_context("spawn"),
+            mp_context=process_context(),
             initializer=loader_lib.init_worker_codec,
             initargs=tuple(initargs) + (manifest,))
         return _EntropyPool(pool, rings, lane_bytes)
@@ -2409,7 +2629,7 @@ class CompressionService:
         else:
             t_dev = time.monotonic()
             imgs, scores = self._device_decode(rec.bundle, rec.sym,
-                                               rec.si_entry)
+                                               rec.si_entry, rec.device)
             t_dev_end = time.monotonic()
             device_ms = (t_dev_end - t_dev) * 1e3
             self._note_device_span(rec.batch, rec.kind, rec.bucket, t_dev,
@@ -2427,8 +2647,11 @@ class CompressionService:
         ends = [s[1] for s in spans if s[1] is not None]
         entropy_ms = (max(ends) - min(starts)) * 1e3 \
             if starts and ends else 0.0
-        self._busy_ms.add((time.monotonic() - tf0) * 1e3)
-        self._note_batch_done(rec.batch, rec.t0, device_ms, entropy_ms)
+        dt = (time.monotonic() - tf0) * 1e3
+        self._busy_ms.add(dt)
+        self._device_busy(rec.device).add(dt)
+        self._note_batch_done(rec.batch, rec.t0, device_ms, entropy_ms,
+                              rec.device)
         if rec.crash is not None:
             raise rec.crash
 
@@ -2453,7 +2676,7 @@ class CompressionService:
                 f"serve_latency_ms_{req.priority}").observe(ms)
 
     def _note_batch_done(self, batch, t0, device_ms, entropy_ms,
-                         observe_latency: bool = False) -> None:
+                         device: int, observe_latency: bool = False) -> None:
         now = time.monotonic()
         if observe_latency:
             # serialized path: futures resolved moments ago in _run_*
@@ -2462,7 +2685,9 @@ class CompressionService:
         kind, bucket = batch[0].key
         self.metrics.counter(
             f"serve_bucket_requests_{bucket[0]}x{bucket[1]}").inc(len(batch))
-        self.metrics.counter("serve_device_batches_d0").inc()
+        # per-bucket traffic: rebalance_placement()'s default weights; per
+        # device: the evidence a placement is read against
+        self.metrics.counter(f"serve_device_batches_d{device}").inc()
         self.metrics.counter("serve_batches").inc()
         self.metrics.counter("serve_completed").inc(len(batch))
         self.metrics.histogram("serve_batch_ms").observe((now - t0) * 1e3)
@@ -2500,12 +2725,13 @@ class CompressionService:
             self.metrics.gauge("serve_overlap_ratio").set(
                 max(0.0, 1.0 - busy / (dev + ent)))
 
-    def _run_encode(self, batch, bucket, bundle) -> Tuple[float, float]:
+    def _run_encode(self, batch, bucket, bundle,
+                    device: int) -> Tuple[float, float]:
         """Serialized encode (entropy_workers=0): device then entropy,
         inline on the worker thread. Returns (device_ms, entropy_ms)."""
         x = self._gather_images(batch, bucket)
         t_dev = time.monotonic()
-        symbols = _host_array(*self._device_encode(bundle, x))
+        symbols = _host_array(*self._device_encode(bundle, x, device))
         t_ent = time.monotonic()
         vols = [np.transpose(symbols[i], (2, 0, 1))
                 for i in range(len(batch))]
@@ -2520,7 +2746,7 @@ class CompressionService:
                                t_done, kind=ENCODE, backend="inline")
         return ((t_ent - t_dev) * 1e3, (t_done - t_ent) * 1e3)
 
-    def _run_decode(self, batch, bucket, bundle,
+    def _run_decode(self, batch, bucket, bundle, device: int,
                     si: bool = False) -> Tuple[float, float]:
         """Serialized decode (entropy_workers=0): entropy then device,
         inline on the worker thread. Returns (device_ms, entropy_ms).
@@ -2551,7 +2777,7 @@ class CompressionService:
             self.metrics.counter("serve_device_skipped_batches").inc()
             return (0.0, entropy_ms)
         t_dev = time.monotonic()
-        imgs, scores = self._device_decode(bundle, sym, si_entry)
+        imgs, scores = self._device_decode(bundle, sym, si_entry, device)
         t_dev_end = time.monotonic()
         self._note_device_span(batch, batch[0].key[0], bucket, t_dev,
                                t_dev_end)

@@ -12,9 +12,10 @@ changed them one by one would give TORN batches (device stage on model A,
 entropy stage on model B: a stream no model decodes). This module makes
 the whole set one value:
 
-* **ModelBundle**: one model version, whole: its `DeviceServer`, codec,
-  digest, manifest, and (process backend) its OWN pool of children built
-  from its own `CodecSpec` file. A worker captures ONE bundle at batch
+* **ModelBundle**: one model version, whole: its `DeviceServer`s (one per
+  logical serve device, each with its own copy of the weights: the JAX
+  bundle's `device_state` list), codec, digest, manifest, and (process
+  backend) its OWN pool of children built from its own `CodecSpec` file. A worker captures ONE bundle at batch
   start and threads it through every stage, so a batch is coherent
   whenever the swap lands; in-flight batches finish on the bundle they
   started with.
@@ -44,7 +45,7 @@ import shutil
 import threading
 import weakref
 from collections import deque
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Sequence
 
 #: serve_swap_state gauge values
 SWAP_IDLE = 0
@@ -70,8 +71,10 @@ class ConditionalRollbackRefused(SwapError):
 
 
 class ModelBundle:
-    """One model version, whole: the `DeviceServer` (weights on the
-    device), the host codec, the digest that names them (the JAX package's
+    """One model version, whole: the `DeviceServer`s (`servers`, one per
+    logical serve device, each holding its own copy of the weights;
+    `server` is device 0's, where the canary and sessions run), the host
+    codec, the digest that names them (the JAX package's
     `params_digest` of the served weights), the checkpoint they came from
     and its manifest (the canary reads its goldens). Immutable after
     construction except the process entropy backend's pool slot, which a
@@ -83,18 +86,20 @@ class ModelBundle:
     the bundles of one service; a rollback re-instates an OLD epoch rather
     than minting one."""
 
-    __slots__ = ("epoch", "digest", "ckpt", "server", "codec",
+    __slots__ = ("epoch", "digest", "ckpt", "server", "servers", "codec",
                  "proc_initargs", "manifest", "_spec_cleanup", "_proc",
                  "_proc_lock", "__weakref__")
 
     def __init__(self, epoch: int, digest: str, server, codec, *,
                  ckpt: Optional[str] = None, proc_initargs=None,
                  manifest: Optional[Dict[str, Any]] = None,
-                 spec_dir: Optional[str] = None):
+                 spec_dir: Optional[str] = None,
+                 servers: Optional[Sequence] = None):
         self.epoch = int(epoch)
         self.digest = digest
         self.ckpt = ckpt
-        self.server = server
+        self.servers = tuple(servers) if servers else (server,)
+        self.server = self.servers[0]
         self.codec = codec
         self.proc_initargs = proc_initargs
         self.manifest = manifest

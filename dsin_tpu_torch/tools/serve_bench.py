@@ -1,4 +1,4 @@
-"""Seven legs of the serve bench (counterparts of the JAX package's
+"""Eight legs of the serve bench (counterparts of the JAX package's
 `tools/serve_bench.py`): the precision leg (`_run_precision_section`,
 `_gate_precision`, :2334-2515), the entropy-backend leg
 (`_run_backend_axis`, `_gate_backend_axis`, :484-575), the transport
@@ -7,8 +7,9 @@ leg, its router and its entropy half (`_run_transport_section`,
 (`_run_quality_section`, :1062), the front-door legs
 (`_run_frontdoor_overload`, `_run_frontdoor_replicas`, `_gate_frontdoor`,
 :1268-1560), the elastic-fleet leg (`_run_autoscale_section`,
-`_gate_autoscale`, :1563-1822) and the federated fleet leg
-(`_run_federation_section`, `_gate_federation`, :1824-2064).
+`_gate_autoscale`, :1563-1822), the federated fleet leg
+(`_run_federation_section`, `_gate_federation`, :1824-2064) and the device
+axis (`_run_device_axis`, `_gate_device_axis`, :398-470, :575-600).
 
     python -m dsin_tpu_torch.tools.serve_bench --out F.json [--precision]
         [--entropy_backend both] [--transport both] [--quality]
@@ -19,7 +20,8 @@ leg, its router and its entropy half (`_run_transport_section`,
         [--frontdoor_only] [--replicas N] [--priority_mix "C:S C:S"]
         [--interactive_slo_ms MS] [--bulk_deadline_ms MS]
         [--frontdoor_rate R] [--frontdoor_requests N] [--frontdoor_queue N]
-        [--autoscale] [--federation_only] [--members N] [--smoke]
+        [--autoscale] [--federation_only] [--members N]
+        [--devices "1 2 ..."] [--devices_only] [--smoke]
 
 The entropy-backend leg serves one open-loop stream of encodes (`--requests`
 at `--rate` a second over `--shapes`, then `--decode_samples` decodes; by
@@ -44,8 +46,8 @@ configuration, served once). Their gates hold only equality and health:
 byte-equal streams across transports, no native build in the stream window
 (the JAX leg's compile sentinel), no failed request, no lane integrity
 error, lane sends on shm; `shm_vs_pipe` gates only below the JAX leg's
-broken-transport floor of 0.5 where the host's probe reads parallel
-headroom. The output names the card (`nvidia-smi`) and the host's cores
+broken-transport floor of 0.5 where the host's probes, before and after
+each of the two runs, read parallel headroom. The output names the card (`nvidia-smi`) and the host's cores
 (`os.cpu_count()` and the affinity mask): a served request is host-bound.
 
 The front-door legs (`--frontdoor_only`): (1) overload through ONE
@@ -83,6 +85,19 @@ traffic and p50 / p99, one two-wave rollout to a second model with its
 torn-version sweep, and the scrape fan-out; `gate_federation` holds them.
 `--smoke` serves the chaos bench's tiny configuration at 32x48 with a few
 requests (seconds of CPU).
+
+The device axis (`--devices "1 2 4 8"`, alone with `--devices_only`;
+`run_device_axis`) sends the legs' open-loop stream through one warm
+thread-backend service per N, at N logical serve devices on `--device`
+(`devices=("cpu",) * N` on the CPU, `("cuda:0",) * N` on the card: each with
+its own copy of the weights and its own worker streams, all on one card).
+Per N: throughput and `scaling_vs_1`, the bucket -> device census, the
+executable census, per device its batches, busy ms and occupancy (busy over
+the pass's wall), `all_devices_served`, and the native builds in the stream
+window. Several logical devices on one card or one CPU share it, so the
+scaling is a record, not a claim. `gate_device_axis` holds: no build in
+the window, no failed request, every device served at N > 1, and under
+`--smoke` no skipped N (an N the service refuses is skipped and recorded).
 
 The model-health leg (`--quality`) serves a mixed encode / decode /
 decode_si stream (`--quality_requests` a pass, round-robin over the
@@ -130,6 +145,7 @@ import subprocess
 import sys
 import threading
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -147,7 +163,7 @@ from dsin_tpu_torch.ops import sifinder as sifinder_lib
 from dsin_tpu_torch.runtime import config_path, resolve_device
 from dsin_tpu_torch.serve import (BULK, INTERACTIVE, CompressionService,
                                   DeadlineExceeded, FrontDoorRouter,
-                                  ServeError, ServiceConfig,
+                                  PlacementError, ServeError, ServiceConfig,
                                   ServiceOverloaded, default_priority_classes)
 
 BATCH = 2
@@ -341,7 +357,7 @@ def _parse_shapes(spec: str):
 
 
 def _leg_config(args, backend: str = "thread",
-                transport: str = "pipe") -> ServiceConfig:
+                transport: str = "pipe", devices=None) -> ServiceConfig:
     """The service legs' configuration (phase 10's batching)."""
     return ServiceConfig(
         ae_config=args.ae_config, pc_config=args.pc_config, seed=args.seed,
@@ -349,13 +365,14 @@ def _leg_config(args, backend: str = "thread",
         max_wait_ms=args.max_wait_ms, max_queue=LEG_MAX_QUEUE,
         entropy_workers=args.entropy_workers, entropy_backend=backend,
         transport=transport, pipeline_depth=LEG_PIPELINE_DEPTH,
-        device=args.device)
+        device=args.device, devices=devices)
 
 
-def _build_service(args, backend: str = "thread", transport: str = "pipe"):
+def _build_service(args, backend: str = "thread", transport: str = "pipe",
+                   devices=None):
     """A started, warm service for the legs -> (service, warmup dict)."""
-    service = CompressionService(_leg_config(args, backend,
-                                             transport)).start()
+    service = CompressionService(_leg_config(args, backend, transport,
+                                             devices)).start()
     return service, service.warmup()
 
 
@@ -430,6 +447,101 @@ def _mode_sections(service) -> dict:
         "overlap_ratio": round(snap["gauges"].get("serve_overlap_ratio", 0.0),
                                4),
     }
+
+
+def logical_devices(device: str, n: int) -> tuple:
+    """N logical serve devices on the first device of `device`'s type:
+    ("cpu",) * N, or ("cuda:0",) * N on the card."""
+    dev = torch.device(device)
+    name = "cpu" if dev.type == "cpu" else f"{dev.type}:{dev.index or 0}"
+    return (name,) * n
+
+
+def run_device_axis(args, axis) -> dict:
+    """The device axis: the legs' open-loop stream through one warm
+    thread-backend service per N of `axis`, at N logical devices
+    (`logical_devices`). Per N the throughput, the census, per-device
+    batches / busy ms / occupancy (busy over the pass's whole wall:
+    stream, decodes and the drain's flush, during all of which busy time
+    lands), `all_devices_served` and the builds in the stream window;
+    `scaling_vs_1` against the N=1 run. An N the service refuses
+    (PlacementError) is skipped and recorded."""
+    out = {"axis": list(axis), "skipped": {}, "runs": {}}
+    for n in axis:
+        devices = logical_devices(args.device, n)
+        try:
+            svc, warm = _build_service(args, devices=devices)
+        except PlacementError as e:
+            out["skipped"][str(n)] = str(e)
+            print(f"SERVE_BENCH_NOTE: skipping devices={n}: {e}",
+                  file=sys.stderr)
+            continue
+        t_wall = time.monotonic()
+        try:
+            run = _run_stream(svc, args)
+        finally:
+            # drain BEFORE reading the per-device ledgers: a pipelined
+            # executor publishes a batch's busy ms and count at its finish,
+            # after the batch's futures resolve
+            svc.drain(timeout=600.0)
+        wall_ms = (time.monotonic() - t_wall) * 1e3
+        snap = svc.metrics.snapshot()
+        per_device = {}
+        for d in range(n):
+            batches = snap["counters"].get(f"serve_device_batches_d{d}", 0)
+            busy = snap["accumulators"].get(f"serve_device_busy_ms_d{d}",
+                                            0.0)
+            per_device[str(d)] = {
+                "batches": batches, "busy_ms": round(busy, 3),
+                "occupancy": round(busy / wall_ms, 4) if wall_ms > 0
+                else 0.0}
+        out["runs"][str(n)] = {
+            "devices": list(devices),
+            "throughput_rps": run["throughput_rps"],
+            "completed": run["completed"], "failed": run["failed"],
+            "decode_roundtrips": run["decode_roundtrips"],
+            "steady_builds": run["steady_builds"],
+            "warmup": {k: (round(v, 4) if isinstance(v, float) else v)
+                       for k, v in warm.items()},
+            "census": snap["info"].get("serve_device_assignments", {}),
+            "executable_census": snap["gauges"].get(
+                "serve_executable_census", 0),
+            "per_device": per_device,
+            "all_devices_served": all(v["batches"] > 0
+                                      for v in per_device.values())}
+    # the baseline is the N=1 run itself, whatever leads the axis; without
+    # one the ratio is unavailable (null)
+    base_rps = out["runs"].get("1", {}).get("throughput_rps") or None
+    for entry in out["runs"].values():
+        entry["scaling_vs_1"] = (round(entry["throughput_rps"] / base_rps, 3)
+                                 if base_rps else None)
+    return out
+
+
+def gate_device_axis(section, smoke: bool = False) -> list:
+    """Violations of the device axis: a native build in the stream window
+    at any N, a device that served nothing at N > 1 (the placement left a
+    device idle), a failed request, and under `smoke` a skipped N (the
+    smoke axis must actually run)."""
+    violations = []
+    if smoke:
+        for n, why in section.get("skipped", {}).items():
+            violations.append(f"devices={n} was skipped ({why}) — the "
+                              f"smoke axis must actually run")
+    for n, entry in sorted(section["runs"].items(),
+                           key=lambda kv: int(kv[0])):
+        if entry["steady_builds"] != 0:
+            violations.append(f"devices={n}: {entry['steady_builds']} "
+                              f"native builds in the stream window")
+        if int(n) > 1 and not entry["all_devices_served"]:
+            idle = [d for d, v in entry["per_device"].items()
+                    if v["batches"] == 0]
+            violations.append(f"devices={n}: devices {idle} served zero "
+                              f"batches (census {entry['census']})")
+        if entry["failed"]:
+            violations.append(f"devices={n}: {entry['failed']} requests "
+                              f"failed")
+    return violations
 
 
 def _effective_cores(reps: int = 30) -> float:
@@ -560,7 +672,10 @@ def _router_run(args, start, images, probes) -> tuple:
     """One run of the router half through the router `start()` gives:
     the open-loop stream of `_run_stream` (over `images`) through the
     door, `decode_samples` of its streams decoded back, then the probes
-    encoded. -> (run entry, probe streams)."""
+    encoded. The host's free cores are probed before the router starts
+    (`effective_cores`) and again once the stream resolved
+    (`effective_cores_after`): a load that arrives during the run shows
+    in the second. -> (run entry, probe streams)."""
     cores = round(_effective_cores(), 2)
     router = start()
     try:
@@ -588,6 +703,7 @@ def _router_run(args, start, images, probes) -> tuple:
             else:
                 failed += 1
         duration = time.monotonic() - t0
+        cores_after = round(_effective_cores(), 2)
         roundtrips = sum(1 for s in streams
                          if router.decode(s, timeout=600.0) is not None)
         frames = [router.encode(im, timeout=600.0).stream for im in probes]
@@ -604,7 +720,8 @@ def _router_run(args, start, images, probes) -> tuple:
             "completed": completed, "failed": failed, "shed_at_door": shed,
             "duration_s": round(duration, 4),
             "decode_roundtrips": roundtrips, "shm": shm,
-            "effective_cores": cores, "host_cores": os.cpu_count(),
+            "effective_cores": cores, "effective_cores_after": cores_after,
+            "host_cores": os.cpu_count(),
             "replica_builds_after_ready": replicas["builds_after_ready"],
             "replica_kernel_launches": replicas["kernel_launches"]}, frames
 
@@ -636,8 +753,9 @@ def gate_router_transport(sub) -> list:
     """Violations of the router half (the JAX leg's): streams that differ
     across transports, a failed or hung request, a lane integrity error,
     no lane send on shm, and shm below half of pipe's throughput where
-    the host's probe reads parallel headroom (a note in a serial
-    window)."""
+    the host's probes read parallel headroom around both runs of the
+    ratio (a note in a serial window: any probe, before or after either
+    run, under 1.3, the JAX leg's per-pair convention)."""
     violations = []
     if sub["bit_identical"] is not True:
         violations.append("transport/router: pipe and shm emitted "
@@ -658,8 +776,8 @@ def gate_router_transport(sub) -> list:
                           "never ran")
     ratio = sub.get("shm_vs_pipe")
     if ratio is not None and ratio < 0.5:
-        cores = shm_run.get("effective_cores")
-        if isinstance(cores, float) and cores < 1.3:
+        cores = _window_cores(sub["runs"].values())
+        if cores is not None and cores < 1.3:
             print(f"SERVE_BENCH_NOTE: shm router throughput {ratio}x pipe "
                   f"in a serial window (effective cores {cores}) — "
                   f"transport floor not applied", file=sys.stderr)
@@ -668,6 +786,16 @@ def gate_router_transport(sub) -> list:
                               f"parallel headroom (effective cores {cores})"
                               f" — below the broken-transport floor 0.5")
     return violations
+
+
+def _window_cores(runs) -> Optional[float]:
+    """The least of the free-core probes taken around `runs` (before and
+    after each), None when none was recorded: a ratio of two runs has
+    parallel headroom only if every window it was measured in had."""
+    probes = [run.get(k) for run in runs
+              for k in ("effective_cores", "effective_cores_after")]
+    probes = [c for c in probes if isinstance(c, (int, float))]
+    return min(probes) if probes else None
 
 
 def run_transport_section(args, pipe_run=None) -> dict:
@@ -1724,16 +1852,30 @@ def main(argv=None) -> int:
                         "single-replica fleets behind a FederatedRouter)")
     p.add_argument("--members", type=int, default=3,
                    help="member fleets of the federation leg")
+    p.add_argument("--devices", default=None,
+                   help="space-separated logical device counts of the "
+                        "device axis, e.g. '1 2 4 8' (default with "
+                        "--devices_only: '1 2 4 8', '1 2' under --smoke)")
+    p.add_argument("--devices_only", action="store_true",
+                   help="run the device axis alone")
     p.add_argument("--smoke", action="store_true",
                    help="the chaos bench's tiny configuration, 32x48 "
                         "buckets and a few requests: seconds of CPU")
     args = p.parse_args(argv)
-    if not (args.precision or args.entropy_backend or args.transport
-            or args.quality or args.frontdoor_only or args.autoscale_only
-            or args.federation_only):
+    others = (args.precision or args.entropy_backend or args.transport
+              or args.quality or args.frontdoor_only or args.autoscale_only
+              or args.federation_only)
+    if args.devices_only and others:
+        p.error("--devices_only runs the device axis alone")
+    if args.devices is None and args.devices_only:
+        args.devices = "1 2" if args.smoke else "1 2 4 8"
+    axis = [int(v) for v in (args.devices or "").split()]
+    if any(n < 1 for n in axis):
+        p.error(f"bad --devices axis {axis}")
+    if not (others or axis):
         p.error("choose a leg: --precision, --entropy_backend both, "
                 "--transport both, --quality, --frontdoor_only, "
-                "--autoscale or --federation_only")
+                "--autoscale, --federation_only or --devices_only")
     resolve_device(args.device)
     if args.smoke:
         import tempfile
@@ -1811,6 +1953,14 @@ def main(argv=None) -> int:
     if args.federation_only:
         report["federation"] = run_federation_section(args)
         violations += gate_federation(report["federation"])
+    if axis:
+        report["config"].update(
+            buckets=args.buckets, shapes=args.shapes, smoke=args.smoke,
+            requests=args.requests, rate=args.rate, devices_axis=axis,
+            entropy_workers=args.entropy_workers,
+            pipeline_depth=LEG_PIPELINE_DEPTH, max_batch=LEG_MAX_BATCH)
+        report["devices"] = run_device_axis(args, axis)
+        violations += gate_device_axis(report["devices"], smoke=args.smoke)
     tmp = args.out + ".tmp"
     with open(tmp, "w") as f:
         json.dump(report, f, indent=1)

@@ -12,7 +12,8 @@ the pixels: both services cast float images to uint8 by truncation, and
 the two packages' float32 nets agree to about 1e-5, which moves a value
 across an integer now and then (the SI search's top-two margins are
 asserted above 1e-4 first, so no patch match flips). Typed errors, the
-worker restart, drain and the refusals are exact.
+worker restart, drain, the refusals and the placement configurations
+(streams equal to the one-device service's) are exact.
 """
 
 import time
@@ -283,15 +284,35 @@ def test_drain_leaves_no_hung_future(world, streams):
 
 
 @pytest.mark.parametrize("over,item", [
-    ({"devices": 2}, "11c"),
+    ({"devices": ("cpu", "cpu"), "enable_si": False}, "11c"),
     ({"placement_weights": {BUCKET: 1.0}}, "11c"),
-    ({"rebalance_check_every_s": 1.0}, "11c")])
-def test_refused_configurations_name_their_item(world, over, item):
-    kw = dict(world["common"], device="cpu")
-    kw.update(over)
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP Queue 1 item {item} "):
-        CompressionService(ServiceConfig(**kw))
+    ({"rebalance_check_every_s": 1.0}, "11c"),
+    ({"devices": ("cpu",) * 3, "enable_si": False,
+      "placement_weights": {BUCKET: 2.0}}, "11c"),
+    ({"devices": 1, "rebalance_check_every_s": 0.05,
+      "rebalance_cooldown_s": 0.0}, "11c")])
+def test_refused_configurations_name_their_item(world, port, streams, over,
+                                                item):
+    """The configurations that ROADMAP item `item` (devices and placement)
+    once refused with NotImplementedError now serve: the same streams and
+    images as the one-device service, every serve device in the health
+    report and the placement census."""
+    svc = _service(world, **over)
+    try:
+        n = len(over["devices"]) if isinstance(over.get("devices"),
+                                               tuple) else 1
+        got = [svc.encode(img).stream for img in world["images"]]
+        assert got == [r.stream for r in streams[0]], item
+        for res in streams[0]:
+            np.testing.assert_array_equal(svc.decode(res.stream),
+                                          port.decode(res.stream))
+        health = svc.health()
+        assert health["devices"] == n and health["workers_configured"] == n
+        assert health["assignments"] == {"16x24": list(range(n))}
+        assert svc.metrics.gauge("serve_executable_census").value == (
+            2 * n + (2 if svc.config.enable_si else 0))
+    finally:
+        assert svc.drain()
 
 
 def test_priority_classes_configuration_now_serves(world, streams):
@@ -355,11 +376,20 @@ def test_lifecycle_configurations_are_validated_typed(world, over, match):
 
 
 @pytest.mark.parametrize("method,args,item", [
-    ("rebalance_placement", (), "11c")])
+    ("rebalance_placement", (), "11c"),
+    ("rebalance_placement", ({BUCKET: 5.0},), "11c")])
 def test_refused_operations_name_their_item(port, method, args, item):
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP Queue 1 item {item} "):
-        getattr(port, method)(*args)
+    """The operation ROADMAP item `item` once refused now runs: on one
+    device every plan is the one it serves, so nothing is warmed and
+    nothing changes, and the rebalance is counted."""
+    rebalances = port.metrics.counter("serve_placement_rebalances")
+    before = rebalances.value
+    out = getattr(port, method)(*args)
+    assert out == {"changed": False, "warmed_pairs": 0,
+                   "assignments": {"16x24": [0]}}, item
+    assert rebalances.value == before + 1
+    assert port.metrics.snapshot()["info"]["serve_device_assignments"] \
+        == {"16x24": [0]}
 
 
 def test_no_native_build_after_warmup(port, streams):
@@ -367,3 +397,26 @@ def test_no_native_build_after_warmup(port, streams):
     before = native_build.build_count()
     port.encode(np.zeros((5, 7, 3), np.uint8))
     assert native_build.build_count() == before
+
+
+def test_warmup_builds_what_an_empty_build_dir_lacks(world, tmp_path,
+                                                     monkeypatch):
+    """In a checkout whose `build/` holds no rANS coder yet, warmup builds
+    and binds it: the first served encode and decode build nothing."""
+    from dsin_tpu_torch import native_build
+    from dsin_tpu_torch.coding import rans
+    monkeypatch.setattr(native_build, "BUILD_DIR", tmp_path)
+    rans.load_library.cache_clear()
+    try:
+        svc = _service(world, enable_si=False)
+        try:
+            assert svc.metrics.gauge("serve_warmup_builds").value >= 1
+            assert list(tmp_path.glob("librange_coder_*.so"))
+            before = native_build.build_count()
+            res = svc.encode(world["images"][0])
+            svc.decode(res.stream)
+            assert native_build.build_count() == before
+        finally:
+            assert svc.drain()
+    finally:
+        rans.load_library.cache_clear()
