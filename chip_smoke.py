@@ -181,7 +181,27 @@ Phases; any failure raises, prints no result and exits non-zero:
      device's first batch waits at the hook until the other has one) with
      run A's bytes, no build. The drain leaves no serve thread and no child.
      Prints batches, busy ms and occupancy per device and requests/s beside
-     runs A's and C's (one card and one host shared: a record, not a claim);
+     runs A's and C's (one card and one host shared: a record, not a claim).
+     Then (e), the serve bench's SI leg and tracing leg
+     (`serve_bench.run_si_section`, `run_trace_section`) on one
+     thread-backend service like run A's, `session_max` 4, over run A's
+     verified streams of one image of each shape and its first side image
+     (cropped to 160x600 for the small bucket): 3 pairs of a warm-session
+     pass and a per-request-prep pass of 3 decode_si requests each, the
+     session churn (12 opens, the newest 6 decoded after each), then 3
+     pairs of a traced and an untraced pass of 6 mixed requests, a
+     sampled decode_si trace read back over /trace and a deadline-expired
+     encode's flight dump. The legs' hard gates must hold (no failure, no
+     build, evictions and no untyped error in the churn, the span-vs-metric
+     drift within max(10%, 5 ms), the five span names, a flight dump), K2
+     launched once per SI micro-batch plus once per bucket in the warmup and
+     K1, K3, K4 never, K2 against its plain version on a churn SI batch at
+     320x1224, a warm-session image bit-equal to the per-request-prep one,
+     no serve thread left. Prints the pair ratios and speedup, latency p50 /
+     p99 per mode, serve_si_prep_ms and serve_si_search_ms, the churn and
+     its evictions by reason, the tracing overhead's pairs, the cross-check
+     table and the sub-phase's seconds (the speed figures recorded, not
+     gated);
  11. the model lifecycle at full width (the phase 10 service on the process
      backend, pipe, 4 children a bundle, quality on, the canary prober every
      second, the watchdog armed), from two checkpoints A and B saved from
@@ -2116,6 +2136,7 @@ SERVE_BUCKETS = ((160, 600), (320, 1224))
 SERVE_SHAPES = [(H, W)] * 10 + [(300, 1200)] * 2 + [(150, 590)] * 4
 SERVE_CLIENTS = 4
 SERVE_TIMEOUT_S = 600.0
+CODEC_CHILDREN = 4        # `host_coded`: a check's host coding side by side
 
 
 def card_line() -> str:
@@ -2199,13 +2220,45 @@ def check_decode_records(svc, records, vols) -> int:
     return checked
 
 
+def host_coded(codec, tasks) -> list:
+    """Each of `tasks`, (fn, lanes) with fn `loader.worker_encode_batch`
+    (lanes: symbol volumes) or `worker_decode_batch` (lanes: mode-2
+    payloads), run in one of CODEC_CHILDREN children forked from the fork
+    server (`serve/procs.py`), each holding a codec rebuilt from `codec`'s
+    spec (`coding/loader.CodecSpec`: its mode-2 streams are byte-equal to
+    `codec`'s) -> each task's results, a lane's error raised. A check's
+    host coding side by side, not a lane at a time on a thread that holds
+    the GIL."""
+    from concurrent.futures import ProcessPoolExecutor
+    from dsin_tpu_torch.coding import loader as loader_lib
+    root = tempfile.mkdtemp(prefix="chip_smoke_codec_")
+    try:
+        spec = loader_lib.write_codec_spec(loader_lib.make_codec_spec(codec),
+                                           os.path.join(root, "codec.spec"))
+        with ProcessPoolExecutor(CODEC_CHILDREN, mp_context=process_context(),
+                                 initializer=loader_lib.init_worker_codec,
+                                 initargs=(spec,)) as pool:
+            futs = [pool.submit(fn, lanes) for fn, lanes in tasks]
+            out = []
+            for fut in futs:
+                results = fut.result()
+                for _, exc in results:
+                    if exc is not None:
+                        raise exc
+                out.append([value for value, _ in results])
+            return out
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def check_streams(svc, records):
     """Every DSRV frame parses and its payload is byte-equal to
     BottleneckCodec.encode_batch of DeviceServer's symbols for the same
-    padded batch; every payload decodes to exactly those symbols.
-    Returns {payload: volume}."""
+    padded batch; every payload decodes to exactly those symbols (the
+    codec's work in `host_coded`'s children). Returns {payload: volume}."""
+    from dsin_tpu_torch.coding import loader as loader_lib
     from dsin_tpu_torch.serve.service import parse_stream
-    vols, n = {}, 0
+    lanes, tasks = [], []
     for kind, bucket, _, payloads, futs in records:
         if kind != "encode":
             continue
@@ -2213,23 +2266,29 @@ def check_streams(svc, records):
         for i, payload in enumerate(payloads):
             x[i] = payload[0]                  # the padded request
         sym = svc.server.encode_symbols(x).cpu().numpy()
-        want = svc.codec.encode_batch(
-            [np.transpose(sym[i], (2, 0, 1)) for i in range(len(futs))])
+        want = [np.transpose(sym[i], (2, 0, 1)) for i in range(len(futs))]
+        enc = len(tasks)
+        tasks.append((loader_lib.worker_encode_batch, want))
         for i, fut in enumerate(futs):
-            res = fut.result(0)
-            payload, shape, got_bucket = parse_stream(res.stream)
-            if payload != want[i] or shape != payloads[i][1] \
-                    or got_bucket != bucket:
-                raise AssertionError(f"encode lane {i}: the stream is not "
-                                     f"the codec's stream of DeviceServer's "
-                                     f"symbols")
-            back = svc.codec.decode(payload)
-            if not np.array_equal(back, np.transpose(sym[i], (2, 0, 1))):
-                raise AssertionError(f"encode lane {i}: the payload does "
-                                     f"not decode to its symbols")
-            vols[payload] = back
-            n += 1
-    return vols, n
+            got = parse_stream(fut.result(0).stream)
+            lanes.append((enc, len(tasks), i, bucket, payloads[i][1], got,
+                          want[i]))
+            tasks.append((loader_lib.worker_decode_batch, [got[0]]))
+    coded = host_coded(svc.codec, tasks)
+    vols = {}
+    for enc, dec, i, bucket, shape, got, sym in lanes:
+        payload, got_shape, got_bucket = got
+        if payload != coded[enc][i] or got_shape != shape \
+                or got_bucket != bucket:
+            raise AssertionError(f"encode lane {i}: the stream is not "
+                                 f"the codec's stream of DeviceServer's "
+                                 f"symbols")
+        back = coded[dec][0]
+        if not np.array_equal(back, sym):
+            raise AssertionError(f"encode lane {i}: the payload does "
+                                 f"not decode to its symbols")
+        vols[payload] = back
+    return vols, len(lanes)
 
 
 def k2_on_a_service_batch(svc, record, vols):
@@ -2814,11 +2873,150 @@ def multidevice_run(seed: int, dev, traffic, ref, ref_rps: tuple,
         f"({card_line()})")
 
 
+#: (e)'s request shapes, one each of phase 10's, in the legs' turn
+LEGS_SHAPES = ((H, W), (300, 1200), (150, 590))
+#: (e)'s requests a pass (the JAX defaults 48 and 24) and pairs of passes
+LEGS_SI_REQUESTS, LEGS_TRACE_REQUESTS, LEGS_REPEATS = 3, 6, 3
+
+
+def bench_legs_run(seed: int, dev, traffic, ref_streams, vols) -> int:
+    """(e): the serve bench's SI leg and tracing leg
+    (`serve_bench.run_si_section`, `run_trace_section`) at full width on
+    one thread-backend service like run A's (SI on, 4 entropy threads,
+    depth 2, metrics on an ephemeral port), with the SI leg's store bound
+    (`session_max` 4, the default 64 MiB of preps) and unthrottled flight
+    dumps to a temporary directory. The tracer samples nothing in the SI
+    leg and every request of the tracing leg's traced passes. The traffic
+    is run A's: its verified stream of the first image of each shape of
+    LEGS_SHAPES, and its first side image, cropped to 160x600 for the small
+    bucket. Checks: the legs' hard gates (`gate_si`, `gate_trace` outside
+    the smoke: no failed request, no native build, evictions and no untyped
+    error in the churn, the span-vs-metric drift within max(10%, 5 ms), the
+    five span names of a sampled decode_si trace, `batch.si_search` among
+    them, a flight dump); K2 launched once per SI micro-batch the legs ran
+    and once per bucket in the warmup, K1, K3 and K4 never; K2 against its
+    plain version on the churn's last recorded SI batch at 320x1224 (the
+    1e-4 margin rule; those launches not counted); a warm-session image
+    bit-equal to the per-request-prep image of the same stream and side
+    image (`modes_bit_equal`); drain() True with every future resolved and
+    no serve thread left. The speed figures are printed, not gated, as at
+    the JAX bench's full width. Returns K2's launches."""
+    from dsin_tpu_torch.serve import CompressionService
+    sides, imgs, _ = traffic
+    big, small = SERVE_BUCKETS[-1], SERVE_BUCKETS[0]
+    first = [SERVE_SHAPES.index(s) for s in LEGS_SHAPES]
+    args = argparse.Namespace(
+        seed=seed, shapes=" ".join(f"{h},{w}" for h, w in LEGS_SHAPES),
+        si_requests=LEGS_SI_REQUESTS, si_repeats=LEGS_REPEATS,
+        trace_requests=LEGS_TRACE_REQUESTS, trace_repeats=LEGS_REPEATS)
+    threads0 = serve_threads()
+    flight_dir = tempfile.mkdtemp(prefix="chip_smoke_flight_")
+    t_start = time.perf_counter()
+    svc = CompressionService(serve_config(
+        seed, dev, metrics_port=0, session_max=leg_lib.SI_SESSION_MAX,
+        trace_capacity=leg_lib.TRACE_CAPACITY, flight_dir=flight_dir,
+        flight_dump_min_interval_s=0.0)).start()
+    records, futures = [], []
+    try:
+        reset_all_launches()
+        warm = svc.warmup()
+        streams = {s: (ref_streams[i], svc.policy.bucket_for(*s))
+                   for s, i in zip(LEGS_SHAPES, first)}
+        leg_sides = {big: sides[0], small: sides[0][:small[0], :small[1]]}
+        svc._batch_hook = lambda batch: records.append((
+            batch[0].key[0], batch[0].key[1], batch[0].session,
+            [r.payload for r in batch], [r.future for r in batch]))
+        t_si = time.perf_counter()
+        si = leg_lib.run_si_section(args, svc, streams=streams,
+                                    sides=leg_sides)
+        t_si = time.perf_counter() - t_si
+        # K2 against plain on the churn's last SI batch at the large bucket
+        # (its session still open); the comparison's launches not counted
+        record = [r for r in records
+                  if r[0] == "decode_si" and r[1] == big][-1]
+        before = all_launches()
+        err = k2_on_a_service_batch(svc, record, vols)
+        compared = all_launches()["pearson_argmax_shared"] \
+            - before["pearson_argmax_shared"]
+        t_tr = time.perf_counter()
+        tr = leg_lib.run_trace_section(args, svc,
+                                       images=[imgs[i] for i in first],
+                                       streams=streams, sides=leg_sides)
+        t_tr = time.perf_counter() - t_tr
+        svc._batch_hook = None
+        launches = all_launches()
+        launches["pearson_argmax_shared"] -= compared
+        for r in records:
+            futures += r[4]
+        si_batches = sum(r[0] == "decode_si"
+                         and any(f.exception(0) is None for f in r[4])
+                         for r in records)
+        want = {name: 0 for name in launches}
+        want["pearson_argmax_shared"] = len(SERVE_BUCKETS) + si_batches
+        violations = (leg_lib.gate_si(si, smoke=False)
+                      + leg_lib.gate_trace(tr, smoke=False))
+        if violations or launches != want or not si["modes_bit_equal"]:
+            raise AssertionError(f"(e): {violations}, launches {launches} "
+                                 f"(want {want}), warm and per-request-prep "
+                                 f"images bit-equal {si['modes_bit_equal']}")
+        log(f"  (e) start + warmup {warm['seconds']:.2f} s (warmup), "
+            f"{warm['builds']} native builds in it; K2 "
+            f"{launches['pearson_argmax_shared']} launches = "
+            f"{len(SERVE_BUCKETS)} warm + {si_batches} SI micro-batches, "
+            f"K1, K3, K4 0; K2 on a churn SI batch at {big[0]}x{big[1]} vs "
+            f"plain max |val - plain| {err:.3g}; no native build in the "
+            f"legs; a warm-session image bit-equal to the per-request-prep "
+            f"image of the same stream and side image")
+        for mode in ("warm", "per_request_prep"):
+            lat = si[mode]["latency_ms"]
+            log(f"  (e) SI {mode}: requests/s {si[mode]['runs_rps']}, "
+                f"latency ms p50 {lat['p50']}, p99 {lat['p99']} "
+                f"(n {lat['count']})")
+        churn = si["churn"]
+        log(f"  (e) SI: {si['requests_per_mode']} requests a pass, pair "
+            f"speedups {si['pair_speedups']} (median {si['speedup']}), host "
+            f"cores before {si['pair_effective_cores']} / after "
+            f"{si['pair_effective_cores_after']}; serve_si_prep_ms "
+            f"{hist_line(si['prep_ms'])}; serve_si_search_ms "
+            f"{hist_line(si['search_ms'])}; a warm pass held "
+            f"{si['warm_session_bytes'] / 2**20:.1f} MiB of preps (budget "
+            f"{si['session_max_bytes'] / 2**20:.0f} MiB); churn: "
+            f"{churn['opened']} opened, {churn['decodes_ok']} decodes ok, "
+            f"{churn['expired_typed']} typed SessionExpired, "
+            f"{churn['untyped']} untyped, evictions {churn['evictions']} by "
+            f"reason {churn['evictions_by_reason']}; {t_si:.1f} s")
+        cross = "; ".join(f"{k} spans {c['span_ms']} ms, metrics "
+                          f"{c['metric_ms']} ms, drift {c['drift_ms']} ms"
+                          for k, c in tr["cross_check"].items())
+        log(f"  (e) tracing: {tr['requests_per_pass']} requests a pass, "
+            f"traced {tr['runs']['traced']} / untraced "
+            f"{tr['runs']['untraced']} requests/s, pair ratios "
+            f"{tr['pair_ratios']}, overhead {tr['overhead']}, host cores "
+            f"before {tr['pair_effective_cores']} / after "
+            f"{tr['pair_effective_cores_after']}; cross-check: {cross}; "
+            f"the sampled decode_si trace over /trace: "
+            f"{tr['sample_trace']['span_names']}; flight dumps "
+            f"{tr['flight']['dumps']}, chrome events {tr['chrome_events']}; "
+            f"{t_tr:.1f} s")
+    finally:
+        svc._batch_hook = None
+        drain_checked(svc, futures, "E")
+        shutil.rmtree(flight_dir, ignore_errors=True)
+    left = serve_threads() - threads0
+    if left:
+        raise AssertionError(f"(e): threads {left} left after the drain")
+    log(f"  (e): {time.perf_counter() - t_start:.1f} s with the start; no "
+        f"serve thread left ({card_line()})")
+    return launches["pearson_argmax_shared"]
+
+
 def service_phase(seed: int, dev) -> int:
     """Phase 10: run A (thread backend) with every check, then run C of the
     process backend (shm at depth 4, the SIGKILL rebuild) on the same
-    traffic, then (d), two logical serve devices on this card; returns K2's
-    launches summed over the runs' traffic ((d) launches none)."""
+    traffic, then (d), two logical serve devices on this card, then (e),
+    the serve bench's SI and tracing legs on run A's traffic; returns K2's
+    launches summed over the runs ((d) launches none; (e)'s warmup
+    counted)."""
     traffic = serve_traffic(seed)
     k2, streams, images, rps_a, vols = thread_run(seed, dev, traffic)
     k2_c, rps_c = process_run(seed, dev, traffic, (streams, images),
@@ -2826,7 +3024,7 @@ def service_phase(seed: int, dev) -> int:
                               kill=True)
     multidevice_run(seed, dev, traffic, (streams, images), (rps_a, rps_c),
                     vols)
-    return k2 + k2_c
+    return k2 + k2_c + bench_legs_run(seed, dev, traffic, streams, vols)
 
 
 # -- phase 11: the model lifecycle on one card -------------------------------
@@ -2908,10 +3106,15 @@ def symbols_alone(svc, bundle, imgs) -> list:
 def streams_alone(bundle, syms, idx) -> dict:
     """{i: image i's stream alone} for the images `idx`, from their
     `symbols_alone` volumes `syms` through `bundle`'s codec (the host's
-    work: only the images a check reads are coded)."""
+    work, in `host_coded`'s children: only the images a check reads are
+    coded)."""
+    from dsin_tpu_torch.coding import loader as loader_lib
     from dsin_tpu_torch.serve.service import frame_stream
-    return {i: frame_stream(bundle.codec.encode(syms[i][0]), syms[i][1],
-                            syms[i][2]) for i in sorted(idx)}
+    idx = sorted(idx)
+    coded = host_coded(bundle.codec, [(loader_lib.worker_encode_batch,
+                                       [syms[i][0]]) for i in idx])
+    return {i: frame_stream(payload, syms[i][1], syms[i][2])
+            for i, (payload,) in zip(idx, coded)}
 
 
 def same_symbols(a, b) -> bool:
@@ -5110,8 +5313,9 @@ def main() -> int:
           lambda: search_phase(args.seed, dev))
     launches["pearson_argmax_shared"] += phase(
         "the compression service at full width (ae_kitti_stereo + "
-        "pc_default, buckets 160x600 and 320x1224, batches of 4), and (d) "
-        "over two logical serve devices on this card",
+        "pc_default, buckets 160x600 and 320x1224, batches of 4), (d) "
+        "over two logical serve devices on this card, and (e) the serve "
+        "bench's SI and tracing legs",
         lambda: service_phase(args.seed, dev))
     # checkpoints A and B, written once for phases 11 and 13
     life_root = tempfile.mkdtemp(prefix="chip_smoke_ckpts_")
